@@ -1,0 +1,155 @@
+"""Correlation-function data: data vector, scale-cut masks, covariance,
+masked inverse covariance, log-determinant and distortion matrix.
+
+Counterpart of vega_tpu/data.py for the dense likelihood. Host-side numpy
+throughout; the likelihood copies what it needs to the device. Mocks and
+small-scale marginalization templates are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .coordinates import Coordinates
+from .io.fits import read_fits
+from .utils import (compute_log_cov_det, compute_masked_invcov, find_file,
+                    not_ported)
+
+
+class Data:
+    """Data for one correlation component (reference: data.py:12-134)."""
+
+    def __init__(self, corr_item):
+        config = corr_item.config
+
+        self.data_vec = None
+        self._cov_mat = None
+        self._distortion_mat = None
+        self._inv_masked_cov = None
+        self._log_cov_det = None
+
+        self._read_data(config['data'].get('filename'), config['cuts'],
+                        config['data'].get('distortion-file', None),
+                        config['data'].get('covariance-file', None),
+                        config['data'].getfloat('cov_rescale', None))
+        corr_item.init_coordinates(self.model_coordinates,
+                                   self.dist_model_coordinates,
+                                   self.data_coordinates)
+
+        # absent matrices become exact identities (the model skips
+        # identity matmuls entirely)
+        if self._distortion_mat is None:
+            self._distortion_mat = np.eye(self.full_data_size)
+        if self._cov_mat is None:
+            self._cov_mat = np.eye(self.full_data_size)
+        self.masked_data_vec = self.data_vec[self.data_mask]
+
+    @property
+    def cov_mat(self):
+        return self._cov_mat
+
+    @property
+    def distortion_mat(self):
+        return self._distortion_mat
+
+    @property
+    def has_distortion(self):
+        return self._distortion_mat is not None
+
+    @property
+    def data_size(self):
+        return self.masked_data_vec.size
+
+    @property
+    def inv_masked_cov(self):
+        if self._inv_masked_cov is None:
+            self._inv_masked_cov = compute_masked_invcov(
+                self.cov_mat, self.data_mask)
+        return self._inv_masked_cov
+
+    @property
+    def log_cov_det(self):
+        if self._log_cov_det is None:
+            self._log_cov_det = compute_log_cov_det(
+                self.cov_mat, self.data_mask)
+        return self._log_cov_det
+
+    @staticmethod
+    def _column(hdu_columns, *names, required=False):
+        """First present column among names as float, else None."""
+        for name in names:
+            if name in hdu_columns:
+                return hdu_columns[name].astype(float)
+        if required:
+            raise ValueError(
+                f'None of the columns {names} found in FITS file.')
+        return None
+
+    @staticmethod
+    def _coords(header, np_factor=1, **grids):
+        """Coordinates from a picca-export header's binning keywords."""
+        return Coordinates(
+            header['RPMIN'], header['RPMAX'], header['RTMAX'],
+            header['NP'] * np_factor, header['NT'] * np_factor, **grids)
+
+    def _read_data(self, data_path, cuts_config, dmat_path=None,
+                   cov_path=None, cov_rescale=None):
+        """(reference: data.py:285-440)"""
+        print(f'Reading data file {data_path}')
+        hdul = read_fits(find_file(data_path))
+        header = hdul[1].header
+        columns = hdul[1].columns
+
+        strat = header.get('BLINDING', None)
+        if strat not in (None, 'none', 'None', 'desi_m2', 'desi_y1',
+                         'desi_y3'):
+            raise not_ported(f'Data-level blinding ({strat})', 10)
+        self.data_vec = self._column(columns, 'DA', required=True)
+        self.full_data_size = len(self.data_vec)
+
+        if dmat_path is None:
+            self._distortion_mat = self._column(columns, 'DM_BLIND', 'DM')
+        if cov_path is not None:
+            print(f'Reading covariance matrix file {cov_path}')
+            self._cov_mat = read_fits(
+                find_file(cov_path))[1]['CO'].astype(float)
+        else:
+            self._cov_mat = self._column(columns, 'CO')
+        if cov_rescale is not None and self._cov_mat is not None:
+            self._cov_mat = self._cov_mat * cov_rescale
+
+        self.data_coordinates = self._coords(
+            header, rp_grid=columns['RP'], rt_grid=columns['RT'],
+            z_grid=columns['Z'])
+        self.data_mask = self.data_coordinates.get_mask_scale_cuts(cuts_config)
+
+        self.model_coordinates = None
+        self.dist_model_coordinates = None
+        if dmat_path is not None:
+            self._read_dmat(dmat_path)
+        elif len(hdul) > 2:
+            # model grid shipped alongside the inline DM
+            self.model_coordinates = self._coords(
+                header, rp_grid=hdul[2]['DMRP'],
+                rt_grid=hdul[2]['DMRT'], z_grid=hdul[2]['DMZ'])
+        self.model_coordinates = (self.model_coordinates
+                                  or self.data_coordinates)
+        self.dist_model_coordinates = (self.dist_model_coordinates
+                                       or self.model_coordinates)
+        self.model_mask = self.dist_model_coordinates.get_mask_scale_cuts(
+            cuts_config)
+
+    def _read_dmat(self, dmat_path):
+        """Separate distortion-matrix file (reference: data.py:441-473)."""
+        print(f'Reading distortion matrix file {dmat_path}')
+        hdul = read_fits(find_file(dmat_path))
+        header = hdul[1].header
+        self._distortion_mat = self._column(hdul[1].columns, 'DM', 'DM_BLIND')
+        if self._distortion_mat is None:
+            raise ValueError('No DM or DM_BLIND column in distortion file.')
+        coeff_binning_model = header['COEFMOD']
+        self.model_coordinates = self._coords(
+            header, np_factor=coeff_binning_model,
+            rp_grid=hdul[2]['RP'], rt_grid=hdul[2]['RT'],
+            z_grid=hdul[2]['Z'])
+        self.dist_model_coordinates = self._coords(header)

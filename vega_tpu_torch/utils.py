@@ -1,0 +1,134 @@
+"""Shared utilities: file resolution, bias/beta algebra, covariance helpers
+and the batch-axis helper every model module uses.
+
+Counterpart of vega_tpu/utils.py. The host helpers are copies (numpy
+only, pinned to the JAX package by tests/test_torch_host.py); data files
+(`models/`, `parameters/`) are read from the JAX package's directories by
+filesystem path, never through `import vega_tpu`, which imports JAX.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+JAX_PACKAGE_DIR = REPO_ROOT / 'vega_tpu'
+
+DTYPE = torch.float64
+
+
+class VegaModelError(Exception):
+    """Model-domain failure (reference: utils.py:444-453). Per-evaluation
+    failures become the chi^2 = 1e100 penalty instead."""
+
+
+def not_ported(feature, item):
+    """NotImplementedError for a feature this port does not carry yet,
+    naming its ROADMAP.md queue item."""
+    return NotImplementedError(
+        f'{feature} is not ported to vega_tpu_torch yet '
+        f'(ROADMAP.md, "Modules still to port", item {item})')
+
+
+def to_tensor(x, device):
+    """f64 copy of `x` on `device` (explicit dtype: torch's default is
+    f32)."""
+    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=DTYPE,
+                        device=device)
+
+
+def col(x, n_trailing):
+    """Batch-axis helper: a (B,) tensor becomes (B, 1, ..., 1) with
+    `n_trailing` singleton axes so it broadcasts against an unbatched
+    grid; Python scalars and 0-d tensors pass through unchanged."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * n_trailing)
+    return x
+
+
+def np_sinc(x):
+    """Unnormalized sinc with sinc(0) = 1 (host-side init work)."""
+    x = np.asarray(x, dtype=float)
+    out = np.ones_like(x)
+    nz = x != 0
+    out[nz] = np.sin(x[nz]) / x[nz]
+    return out
+
+
+def _tracer_bias_beta(params, name):
+    """Resolve (bias, beta) for one tracer from any two of
+    (bias, bias_eta, beta) — reference: utils.py:45-82. Values may be
+    floats or (B,) tensors."""
+    growth_rate = params.get('growth_rate', 0.970386)
+
+    bias = params.get('bias_' + name, None)
+    bias_eta = params.get('bias_eta_' + name, None)
+    beta = params.get('beta_' + name, None)
+
+    err_msg = ('For each tracer, specify two of (bias, bias_eta, beta). '
+               f'Offending tracer: {name}')
+
+    if bias is None:
+        if bias_eta is None or beta is None:
+            raise ValueError(err_msg)
+        bias = bias_eta * growth_rate / beta
+
+    if bias_eta is None and (bias is None or beta is None):
+        raise ValueError(err_msg)
+
+    if beta is None:
+        if bias is None or bias_eta is None:
+            raise ValueError(err_msg)
+        beta = bias_eta * growth_rate / bias
+
+    return bias, beta
+
+
+def bias_beta(params, tracer1_name, tracer2_name):
+    """(bias1, beta1, bias2, beta2) for a tracer pair
+    (reference: utils.py:85-108)."""
+    bias1, beta1 = _tracer_bias_beta(params, tracer1_name)
+    if tracer1_name == tracer2_name:
+        bias2, beta2 = bias1, beta1
+    else:
+        bias2, beta2 = _tracer_bias_beta(params, tracer2_name)
+    return bias1, beta1, bias2, beta2
+
+
+def find_file(path):
+    """Resolve a path: as given, then under vega_tpu/models, the repo's
+    tests/ and the repo root (vega_tpu/utils.py:174-210 without the
+    read-only reference checkout)."""
+    input_path = Path(os.path.expandvars(str(path)))
+    if input_path.is_file():
+        return input_path
+    for cand in (JAX_PACKAGE_DIR / 'models' / input_path,
+                 REPO_ROOT / 'tests' / input_path,
+                 REPO_ROOT / input_path):
+        if cand.is_file():
+            return cand
+    raise RuntimeError(f'The path/file does not exist: {input_path}')
+
+
+def compute_masked_invcov(cov_mat, data_mask):
+    """Masked inverse covariance (reference: utils.py:271-298)."""
+    masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
+    try:
+        np.linalg.cholesky(cov_mat)
+    except np.linalg.LinAlgError:
+        print('WARNING: Full matrix is not positive definite')
+    try:
+        np.linalg.cholesky(masked_cov)
+    except np.linalg.LinAlgError:
+        print('WARNING: Reduced matrix is not positive definite')
+    return np.linalg.inv(masked_cov)
+
+
+def compute_log_cov_det(cov_mat, data_mask):
+    """log|C| of the masked covariance (reference: utils.py:301-318)."""
+    masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
+    return float(np.linalg.slogdet(masked_cov)[1])
