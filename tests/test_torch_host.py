@@ -143,7 +143,10 @@ for name in names:
 leaked = [m for m in sys.modules
           if m == 'vega_tpu' or m.startswith('vega_tpu.')]
 assert not leaked, leaked
-assert len(names) >= 15, names
+assert len(names) >= 19, names
+new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
+       'vega_tpu_torch.parallel', 'vega_tpu_torch.parallel.batch'}
+assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

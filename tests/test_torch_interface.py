@@ -33,8 +33,8 @@ OOB_ROW = 4     # ap = 100 rescales r beyond the transform's knots
 
 @pytest.fixture(scope='module')
 def dense_env():
-    """The JAX package reads VEGA_TPU_FACTORED at trace time: keep it at
-    the dense path for the whole module."""
+    """The JAX package reads VEGA_TPU_FACTORED at trace time, the port at
+    construction: keep both at the dense path for the whole module."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv('VEGA_TPU_FACTORED', '0')
         yield
@@ -117,9 +117,10 @@ def test_chunked_batch_equals_one_chunk(pair, monkeypatch):
                                rtol=1e-12, atol=1e-12)
 
 
-def test_full_configuration_matches_jax_goldens(tmp_path):
+def test_full_configuration_matches_jax_goldens(dense_env, tmp_path):
     """The port alone (no JAX involved) on the full synthetic
-    configuration against the JAX package's dense chi^2."""
+    configuration against the JAX package's dense chi^2, both on the
+    dense path (VEGA_TPU_FACTORED=0, read by the port at construction)."""
     goldens = json.loads(GOLDENS.read_text())
     port = VegaInterface(make_synthetic_dataset(tmp_path, cross=True,
                                                 size='full'), device='cpu')

@@ -1,9 +1,9 @@
 """Correlation-function (xi-space) model for one tracer pair.
 
-Counterpart of vega_tpu/correlation_func.py for the dense likelihood: the
-AP coordinate rescaling and Hankel transform (`compute_core`,
-`_rescale_coords`, :175-221), the standard bias redshift evolution
-(:250-276, the mean evolution) and the growth factor (:290-307). Host
+Counterpart of vega_tpu/correlation_func.py: the AP coordinate rescaling
+and Hankel transform (`compute_core`, `_rescale_coords`, :175-221), the
+standard bias redshift evolution (:250-276, the mean evolution) and the
+growth factor (:290-307), dense and factored (`compute`, :97-120). Host
 quantities are computed at init with numpy and kept as device tensors;
 the additive terms (QSO radiation, relativistic, asymmetry, UV
 shotnoise, DESI instrumental systematics), single multipoles, the split
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .cosmo import growth_function
+from .factored import FactoredXi, RecordingParams
 from .utils import col, not_ported, to_tensor
 
 
@@ -84,26 +85,41 @@ class CorrelationFunction:
         return self._config.get('z evol', 'standard')
 
     # ------------------------------------------------------------------
-    def compute(self, pk, pktoxi_obj, params, use_kernel=True):
+    def compute(self, pk, pktoxi_obj, params, use_kernel=True,
+                sampling=None):
         """xi model for the input P(k); returns (xi, bad_flag)
-        (vega_tpu/correlation_func.py:97-173, dense path)."""
-        xi, bad = self.compute_core(pk, pktoxi_obj, params, use_kernel)
-        xi = xi * self.compute_bias_evol(params)
+        (vega_tpu/correlation_func.py:97-120). A FactoredXi from the
+        transform stays factored unless the z-evolution read a sampled
+        name (`sampling`), which densifies it first."""
+        xi, bad = self.compute_core(pk, pktoxi_obj, params, use_kernel,
+                                    sampling)
+        rec = RecordingParams(params, sampling)
+        evol = self.compute_bias_evol(rec)
+        if isinstance(xi, FactoredXi) and rec.traced():
+            xi = xi.dense()
+        if isinstance(xi, FactoredXi):
+            return xi.mul_vec(evol * self.xi_growth), bad
+        xi = xi * evol
         xi = xi * self.xi_growth
         return xi, bad
 
-    def compute_core(self, pk, pktoxi_obj, params, use_kernel=True):
+    def compute_core(self, pk, pktoxi_obj, params, use_kernel=True,
+                     sampling=None):
         """Hankel transform at the AP-rescaled coordinates
-        (vega_tpu/correlation_func.py:175-198)."""
+        (vega_tpu/correlation_func.py:175-198). The coordinates count as
+        parameter-free when the rescaling read no sampled name other
+        than a grid parameter."""
+        rec = RecordingParams(params, sampling)
         delta_rp = 0.
         if self._delta_rp_name is not None:
-            delta_rp = params.get(self._delta_rp_name, 0.)
-        ap, at = self._scale_params.get_ap_at(params,
+            delta_rp = rec.get(self._delta_rp_name, 0.)
+        ap, at = self._scale_params.get_ap_at(rec,
                                               corr_name=self._corr_name)
         rescaled_r, rescaled_mu = self._rescale_coords(
             self._r, self._mu, col(ap, 1), col(at, 1), col(delta_rp, 1))
         return pktoxi_obj.compute(rescaled_r, rescaled_mu, pk,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel,
+                                  coords_param_free=not rec.traced())
 
     @staticmethod
     def _rescale_coords(r, mu, ap, at, delta_rp=0.):

@@ -1,7 +1,13 @@
 // Fused multipole spline evaluation + Legendre combination, f64, for Hopper
 // (sm_90a).
 //
-//   out[b, q] = sum_l S_{b,l}(clamp(x[b, q])) * leg[b, l, q]
+//   out[b, q] = sum_l S_{b,l}(clamp(x[b / G, q])) * leg[b / G, l, q]
+//
+// Rows come in groups of G that share one coordinate row: G = 1 on the
+// dense path (a coordinate row per row), G = T in the grid-collapse sweep,
+// where the T basis terms of one node are evaluated at that node's
+// AP-rescaled coordinates (vega_tpu/pktoxi.py:308-320), so the sweep never
+// copies coordinates T times.
 //
 // S_{b,l} is the not-a-knot cubic spline of multipole l of row b, given by
 // its knot values y[b, l, :] and second derivatives m[b, l, :] on the knot
@@ -30,7 +36,8 @@
 // table byte once per row; threads then stride over the row's queries,
 // one query per thread, so the x / leg / out streams are coalesced. A row
 // stride of 0 for x and leg lets rows share coordinates (the unscaled
-// smooth component) without copies; those rows then hit L2.
+// smooth component) without copies, as does a group G > 1; rows that share
+// coordinates hit L2 for them.
 
 #include <cuda_runtime.h>
 
@@ -45,7 +52,7 @@ spline_legendre_combine_kernel(const double* __restrict__ knots,
                                const double* __restrict__ x,
                                const double* __restrict__ leg,
                                double* __restrict__ out,
-                               int L, int N, int M,
+                               int L, int N, int M, int G,
                                long long x_row_stride,
                                long long leg_row_stride,
                                double step) {
@@ -67,8 +74,8 @@ spline_legendre_combine_kernel(const double* __restrict__ knots,
 
   const double x0 = s_knots[0];
   const double xn = s_knots[N - 1];
-  const double* x_row = x + b * x_row_stride;
-  const double* leg_row = leg + b * leg_row_stride;
+  const double* x_row = x + (b / G) * x_row_stride;
+  const double* leg_row = leg + (b / G) * leg_row_stride;
   double* out_row = out + b * (long long)M;
 
   for (int q = threadIdx.x; q < M; q += blockDim.x) {
@@ -113,11 +120,12 @@ extern "C" {
 int vega_spline_legendre_combine_f64(const double* knots, const double* y,
                                      const double* m, const double* x,
                                      const double* leg, double* out,
-                                     int B, int L, int N, int M,
+                                     int B, int L, int N, int M, int G,
                                      long long x_row_stride,
                                      long long leg_row_stride, double step,
                                      void* stream) {
   if (B <= 0 || M <= 0) return 0;
+  if (G <= 0 || B % G != 0) return (int)cudaErrorInvalidValue;
   // the row's knots, y and m tables
   const long long smem = (2LL * L + 1) * N * (long long)sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(
@@ -126,7 +134,8 @@ int vega_spline_legendre_combine_f64(const double* knots, const double* y,
   if (err != cudaSuccess) return (int)err;
   spline_legendre_combine_kernel<<<B, kThreads, (size_t)smem,
                                    (cudaStream_t)stream>>>(
-      knots, y, m, x, leg, out, L, N, M, x_row_stride, leg_row_stride, step);
+      knots, y, m, x, leg, out, L, N, M, G, x_row_stride, leg_row_stride,
+      step);
   return (int)cudaGetLastError();
 }
 

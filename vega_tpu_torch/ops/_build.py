@@ -68,7 +68,7 @@ def _build_key():
 def _declare(lib):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.vega_spline_legendre_combine_f64
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                    i64, i64, ctypes.c_double, ptr]
     fn.restype = i32
     lib.vega_cuda_error_string.argtypes = [i32]
