@@ -25,16 +25,28 @@ configuration, with no JAX:
    evals/s at batch 8192 and 32768 (median of 5 rounds, each fetching the
    result to the host, as bench.py:207-221; each round's host issue time
    beside its total), printed in bench.py's JSON shape, and a
-   torch.profiler breakdown of one chi2_batch(8192).
+   torch.profiler breakdown of one chi2_batch(8192);
+5. the fit, on the same configuration with (ap, at, bias_LYA, beta_LYA)
+   sampled from the start of tests/data/torch_port_fit_goldens.json:
+   - the grid regime (the defaults): chi2_value_and_gradient and
+     chi2_hessian at the goldens' points against the JAX grid goldens,
+     and minimize() against the JAX grid fit;
+   - the dense regime (VEGA_TPU_FACTORED=0): the same against the JAX
+     dense goldens, the same calls with use_kernel=True against
+     use_kernel=False (1e-10 relative in gradients, 1e-9 in Hessians),
+     and minimize() against the JAX dense fit; it fails unless the dense
+     fit launched the transpose kernel and a kernel of order d >= 1.
 
-Each path runs with the kernel's launch count set to 0 just before it,
-and fails if the kernel was not launched. The layout of every call the
-path makes to the spline + Legendre wrapper (B, G, coordinate rows, M,
-shared coordinates) is recorded as it runs; right after, the kernel is
-held against its plain PyTorch version at each of those layouts (random
-tables, about 5% of the queries outside the knot range), max|diff| <=
-1e-12 max|ref|, and both are timed with CUDA events. Any failure exits
-non-zero.
+Each path runs with the kernels' launch counts set to 0 just before it,
+and fails if the forward kernel was not launched. Every kernel launch a
+path makes (the forward F_d, the no-sum mode P_d and the transpose Ft_d
+of csrc/spline_legendre_combine.cu, with d its derivative order) is
+recorded with its layout (B, G, coordinate rows, M, shared coordinates)
+as it runs (ops.spline_combine.recorded_launches); right after, each
+kernel is held against its plain PyTorch version at each of those
+layouts (random tables, about 5% of the queries outside the knot range),
+max|diff| <= 1e-12 max|ref|, and both are timed with CUDA events. Any
+failure exits non-zero.
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line and {"ok": true, "device": {...}}.
 """
@@ -56,6 +68,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_goldens.json'
 GRID_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_grid_goldens.json'
+FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 PLAIN_RTOL = 1e-10      # chi2_batch, kernel path vs plain path
@@ -69,6 +82,19 @@ GRID_ABS_TOL = 2e-4
 GRID_REL_TOL = 1e-9
 GRID_BATCHES = (8192, 32768)
 GRID_ROUNDS = 5          # bench.py's median of 5
+# the fit phase, against the JAX fit goldens (relative to the largest
+# entry of each chi^2, gradient or Hessian). The grid path serves the
+# port's own payload, held to the JAX one within the 2e-4 chi^2 mode
+# budget; the dense path differs from the JAX package's by round-off.
+FIT_GRID_RTOL = 1e-6
+FIT_DENSE_RTOL = 1e-8
+KERNEL_GRAD_RTOL = 1e-10     # use_kernel=True vs False, gradients
+KERNEL_HESS_RTOL = 1e-9      # and Hessians
+# best fits: |d value| <= FIT_VALUE_SIGMA x the JAX error, errors within
+# FIT_ERROR_RTOL, |d fval| <= FIT_FVAL_ABS
+FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3}
+FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5}
+FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8}
 
 
 def fail(message):
@@ -114,73 +140,74 @@ def build_kernels():
         f'({"compiled" if built.built else "found on disk"}) in '
         f'{time.perf_counter() - t0:.2f} s')
     for line in built.log.splitlines():
-        if 'registers' in line or 'smem' in line or 'spill' in line:
+        if ('registers' in line or 'smem' in line or 'spill' in line
+                or 'Compiling entry' in line):
             log(f'  ptxas: {line.strip()}')
     return built
 
 
-@contextlib.contextmanager
-def recorded_layouts():
-    """While open, record the layout of every spline_legendre_combine
-    call the port's PktoXi makes, as {(B, L, N, G, coordinate rows, M,
-    coordinates shared): its knot grid}; each call then goes on to the
-    wrapper unchanged, and the wrapper keeps the launch count."""
-    from vega_tpu_torch import pktoxi
-    combine, layouts = pktoxi.spline_legendre_combine, {}
-
-    def recording(grid, y, m, x, leg, **kwargs):
-        layouts.setdefault((*y.shape, kwargs.get('group', 1), *x.shape,
-                            x.shape[0] > 1 and x.stride(0) == 0), grid)
-        return combine(grid, y, m, x, leg, **kwargs)
-
-    pktoxi.spline_legendre_combine = recording
-    try:
-        yield layouts
-    finally:
-        pktoxi.spline_legendre_combine = combine
-
-
-def check_layouts(device, path, layouts):
-    """Hold the kernel against its plain version at every layout a path
-    gave it, on the path's knot grid (random tables; about 5% of the
-    queries outside the knot range), max|diff| <= KERNEL_TOL max|ref|,
-    and time both with CUDA events. Returns one record per layout,
-    largest B * M first."""
+def random_case(rng, device, grid, layout):
+    """Random inputs of one recorded launch layout: tables with their
+    not-a-knot second derivatives, queries with about 5% outside the
+    knot range, Legendre weights (or the transpose's g) in [-1, 1];
+    shared rows with row stride 0."""
     from vega_tpu_torch.ops.spline import notaknot_second_derivative_matrix
-    from vega_tpu_torch.ops.spline_combine import spline_legendre_combine
+    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout
+    logr = grid.values
+    span = logr[-1] - logr[0]
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    y_np = rng.normal(size=(n_b, n_ell, n_knots))
+    y = tensor(y_np)
+    m = tensor(y_np @ notaknot_second_derivative_matrix(logr).T)
+    x = tensor(rng.uniform(logr[0] - 0.025 * span, logr[-1] + 0.025 * span,
+                           (1 if x_shared else n_x, n_q))).expand(n_x, n_q)
+    leg = tensor(rng.uniform(-1, 1, (1 if leg_shared else n_x, n_ell,
+                                     n_q))).expand(n_x, n_ell, n_q)
+    g = tensor(rng.uniform(-1, 1, (n_b, n_q)))
+    return y, m, x, leg, g
+
+
+def check_launches(device, path, layouts):
+    """Hold each kernel against its plain version at every launch layout
+    a path recorded, on the path's knot grid (random inputs,
+    `random_case`), max|diff| <= KERNEL_TOL max|ref|, and time both with
+    CUDA events. Returns one record per layout, largest B * M first."""
+    from vega_tpu_torch.ops import spline_combine as sc
 
     rng = np.random.default_rng(0)
     records = []
-    for layout in sorted(layouts, key=lambda lay: -lay[0] * lay[5]):
-        n_b, n_ell, n_knots, group, n_x, n_q, shared = layout
-        grid = layouts[layout]
-        logr = grid.values
-        s_mat = notaknot_second_derivative_matrix(logr)
-        span = logr[-1] - logr[0]
-        y_np = rng.normal(size=(n_b, n_ell, n_knots))
-        y = torch.as_tensor(y_np, dtype=torch.float64, device=device)
-        m = torch.as_tensor(y_np @ s_mat.T, dtype=torch.float64,
-                            device=device)
-        rows = 1 if shared else n_x
-        x = torch.as_tensor(rng.uniform(logr[0] - 0.025 * span,
-                                        logr[-1] + 0.025 * span,
-                                        (rows, n_q)),
-                            dtype=torch.float64, device=device)
-        leg = torch.as_tensor(rng.uniform(-1, 1, (rows, n_ell, n_q)),
-                              dtype=torch.float64, device=device)
-        x, leg = x.expand(n_x, n_q), leg.expand(n_x, n_ell, n_q)
-
-        def run(use_kernel):
-            return spline_legendre_combine(grid, y, m, x, leg, group=group,
-                                           use_kernel=use_kernel)
+    for key in sorted(layouts, key=lambda k: (k[0], k[1], -k[2] * k[7])):
+        primitive, order, *layout = key
+        grid = layouts[key]
+        y, m, x, leg, g = random_case(rng, device, grid, layout)
+        group = layout[3]
+        if primitive == 'F':
+            def run(use_kernel):
+                return (sc.combine_forward(grid, y, m, x, leg, order=order,
+                                           group=group,
+                                           use_kernel=use_kernel),)
+        elif primitive == 'P':
+            def run(use_kernel):
+                return (sc.combine_points(grid, y, m, x, order=order,
+                                          group=group,
+                                          use_kernel=use_kernel),)
+        else:
+            def run(use_kernel):
+                return sc.combine_transpose(grid, g, x, leg, order=order,
+                                            use_kernel=use_kernel)
 
         out, ref = run(True), run(False)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        label = (f'{path} path B={n_b} L={n_ell} N={n_knots} G={group} '
-                 f'M={n_q}, {n_x} coordinate row(s)'
-                 f'{" (stride 0)" if shared else ""}')
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        scale = max(float(r.abs().max()) for r in ref)
+        n_b, n_ell, n_knots, _, n_x, n_q, x_shared, leg_shared = layout
+        label = (f'{path} {primitive}_{order} B={n_b} L={n_ell} N={n_knots} '
+                 f'G={group} M={n_q}, {n_x} coordinate row(s)'
+                 f'{" (x stride 0)" if x_shared else ""}'
+                 f'{" (leg stride 0)" if leg_shared else ""}')
         if not err <= KERNEL_TOL * scale:
             fail(f'kernel disagrees with its plain version ({label}): '
                  f'max|diff| {err:.3e} > {KERNEL_TOL:g} x {scale:.3e}')
@@ -189,10 +216,12 @@ def check_layouts(device, path, layouts):
         log(f'kernel check {label}: max|diff| {err:.3e} (max|ref| '
             f'{scale:.3e}); kernel {kernel_ms:.4f} ms, plain '
             f'{plain_ms:.4f} ms')
-        records.append({'path': path, 'B': n_b, 'G': group,
-                        'coordinate_rows': n_x, 'M': n_q, 'shared': shared,
-                        'max_abs_err': err, 'ms': kernel_ms,
-                        'plain_ms': plain_ms})
+        records.append({'path': path, 'primitive': primitive,
+                        'order': order, 'B': n_b, 'G': group,
+                        'coordinate_rows': n_x, 'M': n_q,
+                        'x_shared': x_shared, 'leg_shared': leg_shared,
+                        'max_abs_err': err, 'max_abs_ref': scale,
+                        'ms': kernel_ms, 'plain_ms': plain_ms})
     return records
 
 
@@ -226,7 +255,8 @@ def run_dense_path(device, main_ini):
     """The dense path (VEGA_TPU_FACTORED=0) on the full configuration;
     returns the kernel launches of its run and the kernel checks at its
     layouts."""
-    from vega_tpu_torch.ops.spline_combine import spline_legendre_combine
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
     from vega_tpu_torch.vega_interface import CHUNK_ROWS, VegaInterface
 
     t0 = time.perf_counter()
@@ -238,17 +268,17 @@ def run_dense_path(device, main_ini):
     batches = draw_batch(BATCH)
 
     # the dense path's run: counts from zero
-    spline_legendre_combine.launches = 0
-    with recorded_layouts() as layouts:
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
         chi2_default = vega.chi2()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         chi2 = vega.chi2_batch(batches)
         torch.cuda.synchronize(device)
         first_s = time.perf_counter() - t0
-    launches = spline_legendre_combine.launches
+    launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    records = check_layouts(device, 'dense', layouts)
+    records = check_launches(device, 'dense', layouts)
 
     log(f'chi2 at the defaults: {chi2_default!r}')
     if not abs(chi2_default) < DEFAULT_CHI2_MAX:
@@ -262,8 +292,8 @@ def run_dense_path(device, main_ini):
     log(f'chi2_batch({BATCH}): first call {first_s:.3f} s, peak device '
         f'memory {peak_gb:.2f} GB, chi2 in [{chi2_np.min():.6g}, '
         f'{chi2_np.max():.6g}], kernel launches {launches} '
-        f'(expected {expected})')
-    if launches == 0:
+        f'(expected {expected} of F_0)')
+    if not launches.get(('F', 0)):
         fail('the dense path launched no spline_legendre_combine kernel')
 
     plain = vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
@@ -333,7 +363,8 @@ def run_grid_path(device, main_ini, card):
     """bench.py's regime: the grid collapse on the full configuration
     with its defaults; returns the kernel launches of its run and the
     kernel checks at its layouts."""
-    from vega_tpu_torch.ops.spline_combine import spline_legendre_combine
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
     from vega_tpu_torch.vega_interface import VegaInterface
 
     goldens = json.loads(GRID_GOLDENS.read_text())
@@ -344,18 +375,18 @@ def run_grid_path(device, main_ini, card):
     batches = draw_batch(BATCH)
 
     # the grid path's run: counts from zero
-    spline_legendre_combine.launches = 0
-    with recorded_layouts() as layouts:
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         payload = vega.get_collapsed(names)
         torch.cuda.synchronize(device)
         collapse_s = time.perf_counter() - t0
-        sweep_launches = spline_legendre_combine.launches
+        sweep_launches = LAUNCHES[('F', 0)]
         chi2 = vega.chi2_batch(batches).cpu().numpy()
-    launches = spline_legendre_combine.launches
+    launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    records = check_layouts(device, 'grid', layouts)
+    records = check_launches(device, 'grid', layouts)
 
     spec = payload['__grid__']
     stats = vega.grid_stats
@@ -439,6 +470,220 @@ def run_grid_path(device, main_ini, card):
     return launches, records
 
 
+def rel_err(got, want):
+    """max|got - want| / max|want|."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def derivatives_at(device, vega, points, names, label, use_kernel=True):
+    """chi^2, gradient and Hessian at each point, laid out as the fit
+    goldens keep them; logs the wall time of each call (synchronised),
+    the first one's included."""
+    out = {'chi2': [], 'gradient': [], 'hessian': []}
+    times = {'value+gradient': [], 'Hessian': []}
+    for point in points:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        value, grad = vega.chi2_value_and_gradient(point,
+                                                   use_kernel=use_kernel)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        hess = vega.chi2_hessian(point, names, use_kernel=use_kernel)
+        torch.cuda.synchronize(device)
+        times['value+gradient'].append(t1 - t0)
+        times['Hessian'].append(time.perf_counter() - t1)
+        out['chi2'].append(value)
+        out['gradient'].append([grad[n] for n in names])
+        out['hessian'].append([[hess[a][b] for b in names] for a in names])
+    log(f'{label}: derivatives at {len(points)} points, s per call: '
+        + '; '.join(f'{kind} ' + ', '.join(f'{t:.4f}' for t in ts)
+                    for kind, ts in times.items()))
+    return out
+
+
+def compare_derivatives(label, got, want, rtols):
+    """Worst relative difference of each part over the points; fails
+    above its bound. rtols: {part: bound}."""
+    worst = {part: max(rel_err(g, w) for g, w in zip(got[part], want[part]))
+             for part in rtols}
+    log(f'{label}: max relative diff '
+        + ', '.join(f'{part} {worst[part]:.3e} (bound {rtols[part]:g})'
+                    for part in rtols))
+    for part, bound in rtols.items():
+        if not worst[part] <= bound:
+            fail(f'{label}: {part} differs by {worst[part]:.3e} > {bound:g}')
+
+
+def counted(fn, counts, key):
+    def wrapper(*args, **kwargs):
+        counts[key] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def timed_fit(device, vega, label):
+    """minimize() with its value+gradient and Hessian calls counted;
+    returns the wall time in s and the counts."""
+    counts = {'value_and_gradient': 0, 'hessian': 0, 'chi2': 0}
+    mini = vega.minimizer
+    mini.valgrad_func = counted(mini.valgrad_func, counts,
+                                'value_and_gradient')
+    mini.hess_func = counted(mini.hess_func, counts, 'hessian')
+    mini.chi2_func = counted(mini.chi2_func, counts, 'chi2')
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    vega.minimize()
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    log(f'{label} fit: {seconds:.3f} s wall, {counts["value_and_gradient"]} '
+        f'value+gradient calls (L-BFGS-B, Newton polish, EDM), '
+        f'{counts["hessian"]} Hessians, {counts["chi2"]} chi^2 calls')
+    return seconds, counts
+
+
+def check_fit(label, regime, vega, names, want):
+    """The port's fit against the JAX package's from the same start."""
+    best = vega.bestfit
+    d_sigma = max(abs(best.values[n] - v) / e for n, v, e in
+                  zip(names, want['values'], want['errors']))
+    d_err = max(abs(best.errors[n] / e - 1) for n, e in
+                zip(names, want['errors']))
+    d_fval = abs(best.fmin.fval - want['fval'])
+    log(f'{label} fit vs JAX: values {[best.values[n] for n in names]} '
+        f'(JAX {want["values"]}), max |d value| / error {d_sigma:.3e}, '
+        f'errors max relative diff {d_err:.3e}, fval {best.fmin.fval!r} '
+        f'(JAX {want["fval"]!r}), edm {best.fmin.edm:.3e}')
+    if not (best.fmin.is_valid and not best.fmin.hesse_failed):
+        fail(f'{label} fit is not valid')
+    if not d_sigma <= FIT_VALUE_SIGMA[regime]:
+        fail(f'{label} best fit differs from the JAX fit by {d_sigma:.3e} '
+             f'errors > {FIT_VALUE_SIGMA[regime]:g}')
+    if not d_err <= FIT_ERROR_RTOL[regime]:
+        fail(f'{label} errors differ by {d_err:.3e} relative > '
+             f'{FIT_ERROR_RTOL[regime]:g}')
+    if not d_fval <= FIT_FVAL_ABS[regime]:
+        fail(f'{label} fval differs by {d_fval:.3e} > '
+             f'{FIT_FVAL_ABS[regime]:g}')
+
+
+def run_fit_path(device, work):
+    """The fit on the full configuration with (ap, at, bias_LYA,
+    beta_LYA) sampled, in the grid regime (the defaults) and the dense
+    regime (VEGA_TPU_FACTORED=0), against the JAX fit goldens; returns
+    the kernel launches of each regime's run and the kernel checks at
+    their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import make_synthetic_dataset
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(FIT_GOLDENS.read_text())
+    names, points = goldens['names'], goldens['points']
+    t0 = time.perf_counter()
+    fit_ini = make_synthetic_dataset(Path(work) / 'fit', cross=True,
+                                     size='full', device=device,
+                                     sample=goldens['sample'])
+    log(f'fit: configuration sampling {goldens["sample"]} in '
+        f'{time.perf_counter() - t0:.2f} s')
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid_vega = VegaInterface(fit_ini, device=device)
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(fit_ini, device=device)
+
+    launches = {}
+    # the fit's run: counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        grid = derivatives_at(device, grid_vega, points, names,
+                              'fit grid regime (the first call builds '
+                              'the payload)')
+        compare_derivatives(
+            'fit grid regime vs JAX grid goldens', grid, goldens['grid'],
+            dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_GRID_RTOL))
+        timed_fit(device, grid_vega, 'grid')
+        check_fit('grid', 'grid', grid_vega, names, goldens['fit_grid'])
+        launches['fit_grid'] = dict(LAUNCHES)
+
+        LAUNCHES.clear()
+        dense = derivatives_at(device, dense_vega, points, names,
+                               'fit dense regime')
+        compare_derivatives(
+            'fit dense regime vs JAX dense goldens', dense, goldens['dense'],
+            dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_DENSE_RTOL))
+        timed_fit(device, dense_vega, 'dense')
+        check_fit('dense', 'dense', dense_vega, names, goldens['fit_dense'])
+        launches['fit_dense'] = dict(LAUNCHES)
+    # the plain route, for comparison: it launches nothing
+    plain = derivatives_at(device, dense_vega, points, names,
+                           'fit dense regime, plain combine',
+                           use_kernel=False)
+    compare_derivatives('fit dense regime, kernels vs plain combine', dense,
+                        plain, {'chi2': KERNEL_GRAD_RTOL,
+                                'gradient': KERNEL_GRAD_RTOL,
+                                'hessian': KERNEL_HESS_RTOL})
+
+    log(f'fit kernel launches: {launches}')
+    dense_run = launches['fit_dense']
+    if not any(n for (primitive, _), n in dense_run.items()
+               if primitive == 'Ft'):
+        fail('the dense fit launched no transpose kernel (Ft_d)')
+    if not any(n for (_, order), n in dense_run.items() if order >= 1):
+        fail('the dense fit launched no kernel of order d >= 1')
+    return launches, check_launches(device, 'fit', layouts)
+
+
+# (name, primitive, orders, the TPU code it replaces: file:line, and
+# which part of it)
+FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
+           'spline_legendre_combine_batched (and :123)')
+BACKWARD = ('vega_tpu/ops/pallas_spline.py:233',
+            'the backward of make_vmappable_combine (custom_vjp :278-290)')
+KERNELS = (
+    ('spline_legendre_combine F_0', 'F', (0,), FORWARD),
+    ('spline_legendre_combine F_d, d = 1..3', 'F', (1, 2, 3), BACKWARD),
+    ('spline_legendre_combine P_d (no-sum mode)', 'P', (0, 1, 2, 3),
+     BACKWARD),
+    ('spline_legendre_combine_transpose Ft_d', 'Ft', (0, 1, 2, 3),
+     BACKWARD),
+)
+
+
+def kernel_records(launches, checks):
+    """The kernels' JSON record: per kernel its launches by path and by
+    order, its worst error against its plain version, and ms / plain_ms
+    at its largest checked layout (B x M)."""
+    out = []
+    for name, primitive, orders, (replaces, part) in KERNELS:
+        def mine(key):
+            return key[0] == primitive and key[1] in orders
+        by_path = {path: sum(n for key, n in counts.items() if mine(key))
+                   for path, counts in launches.items()}
+        by_order = {}
+        for counts in launches.values():
+            for key, n in counts.items():
+                if mine(key):
+                    by_order[key[1]] = by_order.get(key[1], 0) + n
+        records = [r for r in checks
+                   if mine((r['primitive'], r['order']))]
+        if not sum(by_path.values()) or not records:
+            fail(f'{name}: no launch in any path')
+        largest = max(records, key=lambda r: r['B'] * r['M'])
+        out.append({
+            'name': name, 'route': 'cuda',
+            'source': 'vega_tpu_torch/csrc/spline_legendre_combine.cu',
+            'replaces': replaces, 'replaces_part': part,
+            'launches': sum(by_path.values()),
+            'launches_by_path': by_path,
+            'launches_by_order': {str(k): v
+                                  for k, v in sorted(by_order.items())},
+            'max_abs_err': max(r['max_abs_err'] for r in records),
+            'ms': largest['ms'], 'plain_ms': largest['plain_ms'],
+            'layouts': records})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke test needs '
@@ -459,19 +704,11 @@ def main():
             f'{time.perf_counter() - t0:.2f} s')
         dense_launches, dense_checks = run_dense_path(device, main_ini)
         grid_launches, grid_checks = run_grid_path(device, main_ini, card)
+        fit_launches, fit_checks = run_fit_path(device, work)
 
-    # ms / plain_ms: the largest layout (B x M) of the dense path
-    print(json.dumps({'kernels': [{
-        'name': 'spline_legendre_combine', 'route': 'cuda',
-        'source': 'vega_tpu_torch/csrc/spline_legendre_combine.cu',
-        'replaces': 'vega_tpu/ops/pallas_spline.py:186',
-        'launches': dense_launches + grid_launches,
-        'launches_by_path': {'dense': dense_launches,
-                             'grid': grid_launches},
-        'max_abs_err': max(r['max_abs_err']
-                           for r in dense_checks + grid_checks),
-        'ms': dense_checks[0]['ms'], 'plain_ms': dense_checks[0]['plain_ms'],
-        'layouts': dense_checks + grid_checks}]}))
+    print(json.dumps({'kernels': kernel_records(
+        {'dense': dense_launches, 'grid': grid_launches, **fit_launches},
+        dense_checks + grid_checks + fit_checks)}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

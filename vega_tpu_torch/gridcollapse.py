@@ -123,8 +123,14 @@ def grid_tvecs(spec, params, n_rows):
     for name, lo, hi, deg in zip(spec.names, spec.lo, spec.hi,
                                  spec.degrees):
         x = ((2.0 * params[name] - (lo + hi)) / (hi - lo)).expand(n_rows)
-        excess = excess + torch.clamp(torch.abs(x) - 1.0, min=0.0) ** 2
-        tvecs.append(cheb_values(torch.clamp(x, -1.0, 1.0), deg))
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+        # torch.maximum / torch.minimum, not torch.clamp: at a tie their
+        # subgradient is 1/2, jnp.maximum's and jnp.clip's, so a point
+        # exactly on the domain's end (an L-BFGS-B limit) gets vega_tpu's
+        # gradient and Hessian
+        excess = excess + torch.maximum(torch.abs(x) - one, 0.0 * one) ** 2
+        tvecs.append(cheb_values(torch.minimum(torch.maximum(x, -one), one),
+                                 deg))
     return tuple(tvecs), excess
 
 

@@ -6,6 +6,8 @@ is a copy (numpy only); `spline_eval` is the same gather + cubic Hermite
 evaluation on tensors, with the same interval choice, including the
 round-off guard of the uniform-knot branch (vega_tpu/ops/spline.py:88-92).
 Only uniform knots are taken: the transform's knots are uniform in log r.
+`spline_eval` also gives the spline's derivatives in x (`order` 1-3),
+which the combine's gradients need (ops/spline_combine.py).
 """
 
 from __future__ import annotations
@@ -70,9 +72,53 @@ def interval_index(x_knots_np, knots, xq):
     return torch.clamp(j, 0, n - 2)
 
 
-def spline_eval(x_knots_np, y, second_derivs, x_query, knots=None):
-    """Evaluate the cubic spline at x_query (leading batch dims of y /
-    second_derivs broadcast against x_query).
+def clamp_to_knots(x_query, knots):
+    """x_query clamped to [knots[0], knots[-1]] as jnp.clip does it,
+    subgradient included: 1/2 at a query exactly on an end (torch.clamp
+    gives 1 there), so autograd matches jax.grad of
+    vega_tpu/ops/spline.py:82 at the knot-range ends. Same values as
+    torch.clamp, NaN included."""
+    return torch.minimum(torch.maximum(x_query, knots[0]), knots[-1])
+
+
+def piece_weights(t_hi, t_lo, h, order):
+    """The weights (w_y_j, w_y_j+1, w_m_j, w_m_j+1) with which the
+    `order`-th x-derivative (0-3) of the cubic piece on [x_j, x_j+1]
+    combines the knot values y and second derivatives m there; t_hi =
+    (x_j+1 - x) / h, t_lo = (x - x_j) / h. The third derivative is
+    constant on the piece, the fourth 0. The CUDA kernels compute the
+    same expressions (csrc/spline_legendre_combine.cu)."""
+    if order == 0:
+        h2 = h * h / 6.0
+        return (t_hi, t_lo, h2 * (t_hi * t_hi * t_hi - t_hi),
+                h2 * (t_lo * t_lo * t_lo - t_lo))
+    if order == 1:
+        return (-1.0 / h, 1.0 / h, -h * (3.0 * t_hi * t_hi - 1.0) / 6.0,
+                h * (3.0 * t_lo * t_lo - 1.0) / 6.0)
+    zero = torch.zeros_like(t_hi)
+    if order == 2:
+        return zero, zero, t_hi, t_lo
+    if order == 3:
+        return zero, zero, -1.0 / h, 1.0 / h
+    raise ValueError(f'derivative order {order!r} not in 0..3')
+
+
+def spline_pieces(x_knots_np, knots, x_query):
+    """(j, h, t_hi, t_lo) of each query: the interval of the clamped
+    query as spline_eval picks it, the interval's width and the query's
+    normalised distances from its two ends."""
+    xq = clamp_to_knots(x_query, knots)
+    j = interval_index(x_knots_np, knots, xq)
+    x_lo = knots[j]
+    x_hi = knots[j + 1]
+    h = x_hi - x_lo
+    return j, h, (x_hi - xq) / h, (xq - x_lo) / h
+
+
+def spline_eval(x_knots_np, y, second_derivs, x_query, knots=None, order=0):
+    """Evaluate the cubic spline, or its `order`-th derivative in x
+    (0-3), at x_query (leading batch dims of y / second_derivs broadcast
+    against x_query).
 
     x_knots_np : (n,) host knot positions (ascending)
     y, second_derivs : (..., n) tensors
@@ -86,11 +132,7 @@ def spline_eval(x_knots_np, y, second_derivs, x_query, knots=None):
         knots = torch.as_tensor(np.asarray(x_knots_np, dtype=np.float64),
                                 dtype=y.dtype, device=y.device)
     oob = (x_query < knots[0]) | (x_query > knots[-1])
-    xq = torch.clamp(x_query, knots[0], knots[-1])
-    j = interval_index(x_knots_np, knots, xq)
-    x_lo = knots[j]
-    x_hi = knots[j + 1]
-    h = x_hi - x_lo
+    j, h, t_hi, t_lo = spline_pieces(x_knots_np, knots, x_query)
 
     batch = torch.broadcast_shapes(y.shape[:-1], j.shape[:-1])
     y_b = y.expand(batch + y.shape[-1:])
@@ -101,12 +143,6 @@ def spline_eval(x_knots_np, y, second_derivs, x_query, knots=None):
     m_lo = torch.gather(m_b, -1, j_b)
     m_hi = torch.gather(m_b, -1, j_b + 1)
 
-    t_hi = (x_hi - xq) / h
-    t_lo = (xq - x_lo) / h
-    h2 = h * h / 6.0
-    vals = (
-        y_lo * t_hi + y_hi * t_lo
-        + m_lo * h2 * (t_hi * t_hi * t_hi - t_hi)
-        + m_hi * h2 * (t_lo * t_lo * t_lo - t_lo)
-    )
+    w_ylo, w_yhi, w_mlo, w_mhi = piece_weights(t_hi, t_lo, h, order)
+    vals = y_lo * w_ylo + y_hi * w_yhi + m_lo * w_mlo + m_hi * w_mhi
     return vals, oob

@@ -1,25 +1,57 @@
-"""The spline + Legendre combine: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The spline + Legendre combine, its derivatives and its transpose: the
+CUDA kernels' wrappers, their plain PyTorch versions, and the autograd
+Functions that make the combine differentiable twice.
 
-    out[b, q] = sum_l S_{b,l}(clamp(x[b / G, q])) * leg[b / G, l, q]
+    F_d[b, q]    = sum_l S^(d)_{b,l}(clamp(x[b / G, q])) * leg[b / G, l, q]
+    P_d[b, l, q] = S^(d)_{b,l}(clamp(x[b / G, q]))
+    Ft_d(g, x, leg) = (Ybar, Mbar): the adjoint of (y, m) -> F_d
 
-Rows come in groups of G that share one coordinate row (G = 1: a
-coordinate row per row; G = T in the grid sweep). Counterpart of
-vega_tpu/ops/pallas_spline.py (the JAX package's only Pallas kernel).
-The kernel is csrc/spline_legendre_combine.cu; the plain version is
-`spline_legendre_combine_reference`, built on the torch `spline_eval`.
-The wrapper takes the plain version only for tensors on the CPU: on a
-CUDA tensor it launches the kernel or raises.
+S^(d) is the d-th x-derivative (d = 0..3) of the cubic spline of row b,
+multipole l; F_0 is the forward. Rows come in groups of G that share one
+coordinate row (G = 1: a coordinate row per row; G = T in the grid
+sweep, which runs under no_grad: a combine with G > 1 has no gradient).
+
+Counterpart of vega_tpu/ops/pallas_spline.py: the Pallas kernels (F_0)
+and the backward of `make_vmappable_combine` (:233, the XLA VJP of
+`spline_eval`, which vega_tpu differentiates twice for its Hessian). The
+kernels are csrc/spline_legendre_combine.cu; the plain versions are built
+on the torch `spline_eval`. Each wrapper (`combine_forward`,
+`combine_points`, `combine_transpose`) takes the plain version only for
+tensors on the CPU: on a CUDA tensor it launches its kernel or raises.
+The wrappers build no autograd graph and raise when handed a tensor that
+requires grad with grad mode on; `spline_legendre_combine`, the public
+entry point, goes through the autograd Functions then, whose backwards
+call the same Functions, so a backward is itself differentiable:
+
+    dF_d:  to (y, m) Ft_d(gbar, x, leg); to x gbar c(x) F_d+1(y, m, x, leg);
+           to leg gbar P_d(y, m, x)
+    dFt_d (cotangent (U, V)):  to g F_d(U, V, x, leg);
+           to x g c(x) F_d+1(U, V, x, leg); to leg g P_d(U, V, x)
+    dP_d (cotangent Gbar):  to (y, m) Ft_d(1, x, Gbar);
+           to x c(x) F_d+1(y, m, x, Gbar)
+
+with F_4 = 0 and c(x) the clamp's derivative in vega_tpu's convention
+(jnp.clip): 1 inside the knot range, 1/2 on its ends, 0 outside.
 """
 
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .spline import spline_eval, uniform_step
+from .spline import piece_weights, spline_eval, spline_pieces, uniform_step
+
+MAX_ORDER = 3       # S^(4) = 0
+
+# Kernel launches since the last reset, {(primitive, d): count}, primitive
+# 'F' (F_d), 'P' (P_d) or 'Ft' (Ft_d). Only launches count: the plain
+# version on CPU tensors launches nothing.
+LAUNCHES = Counter()
+_recorders = []
 
 
 @dataclass(frozen=True)
@@ -42,30 +74,134 @@ class KnotGrid:
         return len(self.values)
 
 
-def spline_legendre_combine_reference(grid, y, m, x, leg, group=1):
-    """Plain PyTorch version: torch spline_eval per multipole, then the
-    Legendre-weighted sum over multipoles. Same arguments as
-    `spline_legendre_combine`."""
+@contextlib.contextmanager
+def recorded_launches():
+    """While open, record every kernel launch as {(primitive, d, B, L, N,
+    G, coordinate rows, M, x shared, leg shared): its knot grid}; x / leg
+    shared means a row stride of 0."""
+    layouts = {}
+    _recorders.append(layouts)
+    try:
+        yield layouts
+    finally:
+        _recorders.remove(layouts)
+
+
+def _launched(primitive, order, layout, grid):
+    LAUNCHES[(primitive, order)] += 1
+    for layouts in _recorders:
+        layouts.setdefault((primitive, order, *layout), grid)
+
+
+def clamp_derivative(grid, x):
+    """c(x): 1 inside the knot range, 1/2 on its ends, 0 outside (the
+    derivative of jnp.clip, vega_tpu/ops/spline.py:82). A constant: it
+    has no gradient of its own."""
+    lo, hi = grid.values[0], grid.values[-1]
+    inside = ((x > lo) & (x < hi)).to(x.dtype)
+    return inside + 0.5 * ((x == lo) | (x == hi)).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------
+def _spline_values(grid, y, m, x, group, order):
+    """S^(d) at the clamped queries, (B / G, G, L, M)."""
     n_b, n_ell, n_knots = y.shape
-    n_x, n_q = x.shape
-    # (B / G, G, L, N) tables against one coordinate row per group
+    n_x = x.shape[0]
     y = y.reshape(n_x, group, n_ell, n_knots)
     m = m.reshape(n_x, group, n_ell, n_knots)
     vals, _ = spline_eval(grid.values, y, m, x[:, None, None, :],
-                          knots=grid.tensor)            # (B / G, G, L, M)
+                          knots=grid.tensor, order=order)
+    return vals
+
+
+def spline_legendre_combine_reference(grid, y, m, x, leg, group=1,
+                                      order=0):
+    """Plain F_d: torch spline_eval per multipole, then the
+    Legendre-weighted sum over multipoles. Same arguments as
+    `combine_forward`."""
+    n_b, n_q = y.shape[0], x.shape[1]
+    vals = _spline_values(grid, y, m, x, group, order)   # (B/G, G, L, M)
     return torch.sum(vals * leg[:, None], dim=2).reshape(n_b, n_q)
 
 
-def _check(grid, y, m, x, leg, group):
-    """Shapes, dtypes, devices and layouts the kernel takes; raises on
-    anything else. Returns (B, L, N, M, x_row_stride, leg_row_stride)."""
-    tensors = {'y': y, 'm': m, 'x': x, 'leg': leg}
+def spline_legendre_points_reference(grid, y, m, x, group=1, order=0):
+    """Plain P_d, (B, L, M)."""
+    return _spline_values(grid, y, m, x, group, order).reshape(
+        y.shape[0], y.shape[1], x.shape[1])
+
+
+def spline_legendre_transpose_reference(grid, g, x, leg, order=0):
+    """Plain Ft_d: each query's weighted contributions scattered into the
+    knot tables (torch scatter_add_). Returns (Ybar, Mbar), (B, L, N)."""
+    n_b, n_q = g.shape
+    n_ell = leg.shape[1]
+    j, h, t_hi, t_lo = spline_pieces(grid.values, grid.tensor, x)
+    weights = piece_weights(t_hi, t_lo, h, order)
+    coef = g[:, None, :] * leg                             # (B, L, M)
+    idx = j[:, None, :].expand(n_b, n_ell, n_q)
+    tables = []
+    for w_lo, w_hi in (weights[:2], weights[2:]):
+        table = torch.zeros((n_b, n_ell, len(grid)), dtype=g.dtype,
+                            device=g.device)
+        table.scatter_add_(2, idx, coef * w_lo[:, None, :])
+        table.scatter_add_(2, idx + 1, coef * w_hi[:, None, :])
+        tables.append(table)
+    return tuple(tables)
+
+
+# ----------------------------------------------------------------------
+# Checks
+# ----------------------------------------------------------------------
+def _check_tensors(grid, **tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float64:
             raise TypeError(f'{name} must be float64, got {t.dtype}')
         if t.device != grid.tensor.device:
             raise ValueError(f'{name} is on {t.device}, the knot grid on '
                              f'{grid.tensor.device}')
+
+
+def _check_coords(x, leg, n_x, n_ell):
+    """Shapes and strides of x (B / G, M) and leg (B / G, L, M) or None:
+    rows contiguous, or a row stride of 0 that shares one row across the
+    batch. Returns (M, x_row_stride, leg_row_stride)."""
+    if x.dim() != 2 or x.shape[0] != n_x:
+        raise ValueError(f'x must be (B / G, M) with B / G = {n_x}, got '
+                         f'{tuple(x.shape)}')
+    n_q = x.shape[1]
+    x_rs = 0 if n_x > 1 and x.stride(0) == 0 else n_q
+    if (n_q > 1 and x.stride(1) != 1) or (n_x > 1 and x.stride(0) != x_rs):
+        raise ValueError(f'x must have row stride M or 0 and unit column '
+                         f'stride, got strides {x.stride()}')
+    if leg is None:
+        return n_q, x_rs, 0
+    if leg.shape != (n_x, n_ell, n_q):
+        raise ValueError(f'leg must be (B / G, L, M) = '
+                         f'{(n_x, n_ell, n_q)}, got {tuple(leg.shape)}')
+    leg_rs = 0 if n_x > 1 and leg.stride(0) == 0 else n_ell * n_q
+    if ((n_q > 1 and leg.stride(2) != 1)
+            or (n_ell > 1 and leg.stride(1) != n_q)
+            or (n_x > 1 and leg.stride(0) != leg_rs)):
+        raise ValueError(f'leg must have strides (L*M or 0, M, 1), got '
+                         f'{leg.stride()}')
+    return n_q, x_rs, leg_rs
+
+
+def _check_order(order):
+    if order not in range(MAX_ORDER + 1):
+        raise ValueError(f'derivative order {order!r} not in 0..{MAX_ORDER}')
+
+
+def _check(grid, y, m, x, leg, group):
+    """Shapes, dtypes, devices and layouts the forward kernels take (leg
+    None for P_d); raises on anything else. Returns (B, L, N, M,
+    x_row_stride, leg_row_stride)."""
+    tensors = {'y': y, 'm': m, 'x': x}
+    if leg is not None:
+        tensors['leg'] = leg
+    _check_tensors(grid, **tensors)
     if y.dim() != 3 or y.shape != m.shape:
         raise ValueError(f'y and m must be (B, L, N) of one shape, got '
                          f'{tuple(y.shape)} and {tuple(m.shape)}')
@@ -78,68 +214,285 @@ def _check(grid, y, m, x, leg, group):
     if not isinstance(group, int) or group < 1 or n_b % group:
         raise ValueError(f'the row group {group!r} must be a positive int '
                          f'dividing B = {n_b}')
-    n_x = n_b // group
-    if x.dim() != 2 or x.shape[0] != n_x:
-        raise ValueError(f'x must be (B / G, M) with B / G = {n_x}, got '
-                         f'{tuple(x.shape)}')
-    n_q = x.shape[1]
-    if leg.shape != (n_x, n_ell, n_q):
-        raise ValueError(f'leg must be (B / G, L, M) = '
-                         f'{(n_x, n_ell, n_q)}, got {tuple(leg.shape)}')
-    # rows contiguous; a row stride of 0 shares one row across the batch
-    x_rs = 0 if n_x > 1 and x.stride(0) == 0 else n_q
-    leg_rs = 0 if n_x > 1 and leg.stride(0) == 0 else n_ell * n_q
-    if (n_q > 1 and x.stride(1) != 1) or (n_x > 1 and x.stride(0) != x_rs):
-        raise ValueError(f'x must have row stride M or 0 and unit column '
-                         f'stride, got strides {x.stride()}')
-    if ((n_q > 1 and leg.stride(2) != 1)
-            or (n_ell > 1 and leg.stride(1) != n_q)
-            or (n_x > 1 and leg.stride(0) != leg_rs)):
-        raise ValueError(f'leg must have strides (L*M or 0, M, 1), got '
-                         f'{leg.stride()}')
+    n_q, x_rs, leg_rs = _check_coords(x, leg, n_b // group, n_ell)
     return n_b, n_ell, n_knots, n_q, x_rs, leg_rs
 
 
-def spline_legendre_combine(grid, y, m, x, leg, *, group=1,
-                            use_kernel=True):
-    """Fused evaluate-and-combine for B rows.
+def _check_transpose(grid, g, x, leg):
+    """Ft_d takes g (B, M) contiguous, x (B, M) and leg (B, L, M) as the
+    forward takes them with G = 1. Returns (B, L, M, x_row_stride,
+    leg_row_stride)."""
+    _check_tensors(grid, g=g, x=x, leg=leg)
+    if g.dim() != 2 or not g.is_contiguous():
+        raise ValueError(f'g must be a contiguous (B, M), got '
+                         f'{tuple(g.shape)} with strides {g.stride()}')
+    if leg.dim() != 3:
+        raise ValueError(f'leg must be (B, L, M), got {tuple(leg.shape)}')
+    if len(grid) < 4:
+        raise ValueError('at least 4 knots needed')
+    n_b, n_q = g.shape
+    n_ell = leg.shape[1]
+    n_q_x, x_rs, leg_rs = _check_coords(x, leg, n_b, n_ell)
+    if n_q_x != n_q:
+        raise ValueError(f'g has {n_q} queries, x {n_q_x}')
+    return n_b, n_ell, n_q, x_rs, leg_rs
+
+
+def _refuse_graph(name, *tensors):
+    """The wrappers' outputs carry no autograd graph: refuse a tensor
+    whose gradient would be dropped silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name} got a tensor that requires grad with grad mode on: its '
+            'output would be cut off from autograd. Call '
+            'spline_legendre_combine, which differentiates through the '
+            'kernels, or run under torch.no_grad().')
+
+
+def _kernel_route(device, use_kernel):
+    """True to launch the kernel, False for the plain version (CPU
+    tensors; CUDA tensors with use_kernel=False, for comparisons)."""
+    if device.type == 'cpu':
+        return False
+    if device.type == 'cuda':
+        return use_kernel
+    raise ValueError(f'no spline_legendre_combine for {device}')
+
+
+# ----------------------------------------------------------------------
+# Kernel launches (ctypes; csrc/spline_legendre_combine.cu)
+# ----------------------------------------------------------------------
+def _launch(entry, device, *args):
+    from ._build import load_library
+    lib = load_library().lib
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        # refused launches (e.g. too much shared memory) land here
+        raise RuntimeError(
+            f'{entry} launch failed: '
+            f'{lib.vega_cuda_error_string(err).decode()} ({err})')
+
+
+def _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs):
+    n_b, n_ell, n_knots = y.shape
+    _launch('vega_spline_legendre_combine_f64', y.device,
+            grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
+            x.data_ptr(), leg.data_ptr(), out.data_ptr(), n_b, n_ell,
+            n_knots, x.shape[1], group, x_rs, leg_rs, grid.step, order)
+
+
+def _points_kernel(grid, y, m, x, out, order, group, x_rs):
+    n_b, n_ell, n_knots = y.shape
+    _launch('vega_spline_legendre_points_f64', y.device,
+            grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
+            x.data_ptr(), out.data_ptr(), n_b, n_ell, n_knots, x.shape[1],
+            group, x_rs, grid.step, order)
+
+
+def _transpose_kernel(grid, g, x, leg, out_y, out_m, order, x_rs, leg_rs):
+    n_b, n_ell, n_knots = out_y.shape
+    _launch('vega_spline_legendre_transpose_f64', g.device,
+            grid.tensor.data_ptr(), g.data_ptr(), x.data_ptr(),
+            leg.data_ptr(), out_y.data_ptr(), out_m.data_ptr(), n_b, n_ell,
+            n_knots, g.shape[1], x_rs, leg_rs, grid.step, order)
+
+
+# ----------------------------------------------------------------------
+# The wrappers: kernel on CUDA tensors, plain version on CPU tensors
+# ----------------------------------------------------------------------
+def combine_forward(grid, y, m, x, leg, *, order=0, group=1,
+                    use_kernel=True):
+    """F_d for B rows, a new (B, M) f64 tensor.
 
     grid : KnotGrid of N knots (log r), on the tensors' device
     y, m : (B, L, N) f64 contiguous knot values / second derivatives
     x : (B / G, M) f64 queries, rows contiguous or one row broadcast
         (row stride 0, e.g. `x.expand(B / G, M)`)
     leg : (B / G, L, M) f64 Legendre weights, row stride L*M or 0
+    order : d, the x-derivative of the spline, 0..3
     group : G, the number of consecutive rows that share one row of x
         and leg (the grid sweep's T basis terms of one node)
 
-    Returns a new (B, M) f64 tensor. Out-of-range queries are clamped;
-    the caller tracks the out-of-range flag. On CPU tensors this is the
-    plain version; on CUDA tensors it launches the kernel (use_kernel=
-    False takes the plain version there, for comparing the two).
-    """
+    Out-of-range queries are clamped; the caller tracks the out-of-range
+    flag. use_kernel=False takes the plain version on a CUDA device too
+    (for comparing the two)."""
+    _check_order(order)
     n_b, n_ell, n_knots, n_q, x_rs, leg_rs = _check(grid, y, m, x, leg,
                                                     group)
-    device = y.device
-    if device.type == 'cpu' or (device.type == 'cuda' and not use_kernel):
-        return spline_legendre_combine_reference(grid, y, m, x, leg, group)
-    if device.type != 'cuda':
-        raise ValueError(f'no spline_legendre_combine for {device}')
-
-    from ._build import load_library
-    lib = load_library().lib
-    out = torch.empty((n_b, n_q), dtype=torch.float64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.vega_spline_legendre_combine_f64(
-        grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(), x.data_ptr(),
-        leg.data_ptr(), out.data_ptr(), n_b, n_ell, n_knots, n_q, group,
-        x_rs, leg_rs, grid.step, stream)
-    if err != 0:
-        # refused launches (e.g. too much shared memory) land here
-        raise RuntimeError(
-            'spline_legendre_combine launch failed: '
-            f'{lib.vega_cuda_error_string(err).decode()} ({err})')
-    spline_legendre_combine.launches += 1
+    _refuse_graph('combine_forward', y, m, x, leg)
+    if not _kernel_route(y.device, use_kernel):
+        return spline_legendre_combine_reference(grid, y, m, x, leg, group,
+                                                 order)
+    out = torch.empty((n_b, n_q), dtype=torch.float64, device=y.device)
+    _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs)
+    _launched('F', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
+                           x_rs == 0 and x.shape[0] > 1,
+                           leg_rs == 0 and x.shape[0] > 1), grid)
     return out
 
 
-spline_legendre_combine.launches = 0
+def combine_points(grid, y, m, x, *, order=0, group=1, use_kernel=True):
+    """P_d, a new (B, L, M) f64 tensor; arguments as `combine_forward`
+    without leg."""
+    _check_order(order)
+    n_b, n_ell, n_knots, n_q, x_rs, _ = _check(grid, y, m, x, None, group)
+    _refuse_graph('combine_points', y, m, x)
+    if not _kernel_route(y.device, use_kernel):
+        return spline_legendre_points_reference(grid, y, m, x, group, order)
+    out = torch.empty((n_b, n_ell, n_q), dtype=torch.float64,
+                      device=y.device)
+    _points_kernel(grid, y, m, x, out, order, group, x_rs)
+    _launched('P', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
+                           x_rs == 0 and x.shape[0] > 1, False), grid)
+    return out
+
+
+def combine_transpose(grid, g, x, leg, *, order=0, use_kernel=True):
+    """Ft_d(g, x, leg): new (Ybar, Mbar), each (B, L, N) f64, with
+    Ybar[b, l, i] = sum_q g[b, q] leg[b, l, q] dS^(d)_{b,l}(x_q)/dy[b, l, i]
+    and Mbar the same for m. g (B, M) contiguous; x and leg as in
+    `combine_forward` with G = 1. The kernel's f64 atomics land in no
+    fixed order: results may differ from run to run in the last bits."""
+    _check_order(order)
+    n_b, n_ell, n_q, x_rs, leg_rs = _check_transpose(grid, g, x, leg)
+    _refuse_graph('combine_transpose', g, x, leg)
+    if not _kernel_route(g.device, use_kernel):
+        return spline_legendre_transpose_reference(grid, g, x, leg, order)
+    shape = (n_b, n_ell, len(grid))
+    out_y = torch.empty(shape, dtype=torch.float64, device=g.device)
+    out_m = torch.empty(shape, dtype=torch.float64, device=g.device)
+    _transpose_kernel(grid, g, x, leg, out_y, out_m, order, x_rs, leg_rs)
+    _launched('Ft', order, (n_b, n_ell, len(grid), 1, n_b, n_q,
+                            x_rs == 0 and n_b > 1, leg_rs == 0 and n_b > 1),
+              grid)
+    return out_y, out_m
+
+
+# ----------------------------------------------------------------------
+# Autograd
+# ----------------------------------------------------------------------
+def _x_gradient(grid, x, g, higher):
+    """g c(x) F_d+1, where `higher` computes F_d+1 (None for d = 3, where
+    F_4 = 0)."""
+    if higher is None:
+        return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    return clamp_derivative(grid, x) * g * higher()
+
+
+class _Combine(torch.autograd.Function):
+    """F_d(y, m, x, leg), G = 1."""
+
+    @staticmethod
+    def forward(y, m, x, leg, grid, order, use_kernel):
+        return combine_forward(grid, y, m, x, leg, order=order,
+                               use_kernel=use_kernel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, m, x, leg, grid, order, use_kernel = inputs
+        ctx.save_for_backward(y, m, x, leg)
+        ctx.grid, ctx.order, ctx.use_kernel = grid, order, use_kernel
+
+    @staticmethod
+    def backward(ctx, gbar):
+        y, m, x, leg = ctx.saved_tensors
+        grid, d, use_kernel = ctx.grid, ctx.order, ctx.use_kernel
+        need_y, need_m, need_x, need_leg = ctx.needs_input_grad[:4]
+        gbar = gbar.contiguous()
+        gy = gm = gx = gleg = None
+        if need_y or need_m:
+            gy, gm = _Transpose.apply(gbar, x, leg, grid, d, use_kernel)
+        if need_x:
+            gx = _x_gradient(grid, x, gbar, None if d == MAX_ORDER else (
+                lambda: _Combine.apply(y, m, x, leg, grid, d + 1,
+                                       use_kernel)))
+        if need_leg:
+            gleg = gbar[:, None, :] * _Points.apply(y, m, x, grid, d,
+                                                    use_kernel)
+        return (gy if need_y else None, gm if need_m else None, gx, gleg,
+                None, None, None)
+
+
+class _Transpose(torch.autograd.Function):
+    """Ft_d(g, x, leg) -> (Ybar, Mbar)."""
+
+    @staticmethod
+    def forward(g, x, leg, grid, order, use_kernel):
+        return combine_transpose(grid, g, x, leg, order=order,
+                                 use_kernel=use_kernel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g, x, leg, grid, order, use_kernel = inputs
+        ctx.save_for_backward(g, x, leg)
+        ctx.grid, ctx.order, ctx.use_kernel = grid, order, use_kernel
+
+    @staticmethod
+    def backward(ctx, u, v):
+        g, x, leg = ctx.saved_tensors
+        grid, d, use_kernel = ctx.grid, ctx.order, ctx.use_kernel
+        need_g, need_x, need_leg = ctx.needs_input_grad[:3]
+        u, v = u.contiguous(), v.contiguous()
+        gg = gx = gleg = None
+        if need_g:
+            gg = _Combine.apply(u, v, x, leg, grid, d, use_kernel)
+        if need_x:
+            gx = _x_gradient(grid, x, g, None if d == MAX_ORDER else (
+                lambda: _Combine.apply(u, v, x, leg, grid, d + 1,
+                                       use_kernel)))
+        if need_leg:
+            gleg = g[:, None, :] * _Points.apply(u, v, x, grid, d,
+                                                 use_kernel)
+        return gg, gx, gleg, None, None, None
+
+
+class _Points(torch.autograd.Function):
+    """P_d(y, m, x), G = 1."""
+
+    @staticmethod
+    def forward(y, m, x, grid, order, use_kernel):
+        return combine_points(grid, y, m, x, order=order,
+                              use_kernel=use_kernel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, m, x, grid, order, use_kernel = inputs
+        ctx.save_for_backward(y, m, x)
+        ctx.grid, ctx.order, ctx.use_kernel = grid, order, use_kernel
+
+    @staticmethod
+    def backward(ctx, gbar):
+        y, m, x = ctx.saved_tensors
+        grid, d, use_kernel = ctx.grid, ctx.order, ctx.use_kernel
+        need_y, need_m, need_x = ctx.needs_input_grad[:3]
+        gbar = gbar.contiguous()
+        gy = gm = gx = None
+        if need_y or need_m:
+            ones = torch.ones(x.shape, dtype=x.dtype, device=x.device)
+            gy, gm = _Transpose.apply(ones, x, gbar, grid, d, use_kernel)
+        if need_x:
+            gx = _x_gradient(grid, x, 1.0, None if d == MAX_ORDER else (
+                lambda: _Combine.apply(y, m, x, gbar, grid, d + 1,
+                                       use_kernel)))
+        return (gy if need_y else None, gm if need_m else None, gx,
+                None, None, None)
+
+
+def spline_legendre_combine(grid, y, m, x, leg, *, group=1,
+                            use_kernel=True):
+    """Fused evaluate-and-combine F_0 for B rows (arguments as
+    `combine_forward`), differentiable: when grad mode is on and an input
+    requires grad it goes through the autograd Functions, whose forward
+    and backwards are the kernels on CUDA tensors. A combine with row
+    groups (G > 1) serves the grid sweep, which runs under no_grad, and
+    raises if it would need a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (y, m, x, leg)):
+        if group != 1:
+            raise ValueError(f'a combine with row groups (G = {group!r}) '
+                             'has no gradient: it serves the no_grad grid '
+                             'sweep')
+        return _Combine.apply(y, m, x, leg, grid, 0, use_kernel)
+    return combine_forward(grid, y, m, x, leg, group=group,
+                           use_kernel=use_kernel)

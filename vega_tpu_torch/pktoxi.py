@@ -8,7 +8,9 @@ runs on the device as
   2. FFTLog + spline solve: xi_knots = L_ell @ pk_ell     (f64 GEMMs)
                             m_knots  = SL_ell @ pk_ell
   3. spline evaluation at log(rescaled r), times P_ell(mu), summed over
-     ell: the CUDA kernel of ops/spline_combine.py.
+     ell: the CUDA kernel of ops/spline_combine.py, differentiable twice
+     (the fit's gradients and Hessians go through its autograd
+     Functions; the grid sweep's grouped call runs under no_grad).
 
 The r = 0 mask and the out-of-range flag are computed here, outside the
 kernel (vega_tpu/pktoxi.py:334-336,353-355).

@@ -84,8 +84,8 @@ velocity dispersion = lorentz
 """
 
 
-def _main_ini(ini_files, template_file, out_file, zeff=2.33):
-    sample = {'bias_LYA': 'True', 'beta_LYA': 'True'}
+def _main_ini(ini_files, template_file, out_file, sample=None, zeff=2.33):
+    sample = sample or {'bias_LYA': 'True', 'beta_LYA': 'True'}
     sample_block = '\n'.join(f'{k} = {v}' for k, v in sample.items())
     params_block = '\n'.join(f'{k} = {v}' for k, v in DEFAULT_PARAMS.items())
     return f"""[data sets]
@@ -153,14 +153,16 @@ def _write_correlation_data(path, is_cross, z_eff, model_xi=None, nt=50):
     return coords
 
 
-def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu'):
+def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu',
+                           sample=None):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
     The files equal vega_tpu.testing.make_synthetic_dataset's with its
-    default options (noise-free, no distortion matrix, bias_LYA and
-    beta_LYA sampled). size='tiny' shrinks every axis (k grid, mu_k bins,
-    rp/rt bins) for fast checks. `device` is where the second pass
-    evaluates the model.
+    default options (noise-free, no distortion matrix) and the same
+    `sample` ({name: [sample] entry}; default bias_LYA and beta_LYA
+    sampled). size='tiny' shrinks every axis (k grid, mu_k bins, rp/rt
+    bins) for fast checks. `device` is where the second pass evaluates
+    the model.
     """
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
@@ -189,7 +191,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu'):
 
     main_path = workdir / 'main.ini'
     main_path.write_text(_main_ini(
-        ini_files, template_file, workdir / 'output', zeff=z_eff))
+        ini_files, template_file, workdir / 'output', sample=sample,
+        zeff=z_eff))
 
     # Second pass: regenerate the data vectors from the actual model at
     # the default parameters so fits are well-posed (truth = defaults)

@@ -18,8 +18,14 @@ vega_tpu does: a call that samples parameters goes through
 The switches are vega_tpu's, read once at construction:
 VEGA_TPU_FACTORED=0 takes the dense path for every call, and
 VEGA_TPU_GRID_COLLAPSE=0 leaves the grid parameters to the dense path.
-The minimizer, analysis, output, plots, Monte-Carlo, global covariance,
-marginalization and blinding beyond "none" are not ported yet.
+
+The fit (`minimize`, with minimizer.Minimizer) runs on exact derivatives
+of the same chi^2 at a point: `chi2_value_and_gradient` and
+`chi2_hessian` take torch autograd through whichever path the names
+dispatch to (on the dense path through the differentiable spline +
+Legendre combine, ops/spline_combine.py). The analysis (scans),
+output, plots, Monte-Carlo, global covariance, marginalization and
+blinding beyond "none" are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import os.path
 import time
 
 import numpy as np
+import scipy.stats
 import torch
 
 from . import gridcollapse, utils
@@ -38,6 +45,7 @@ from .correlation_item import CorrelationItem
 from .data import Data
 from .factored import FactoredXi, Sampling, densify
 from .io.fits import read_fits
+from .minimizer import Minimizer
 from .model import Model
 from .parameters.param_utils import get_default_values
 from .scale_parameters import ScaleParameters
@@ -171,6 +179,16 @@ class VegaInterface:
         # timings and sizes of the last grid-payload build
         # (gridcollapse.build_grid_payload)
         self.grid_stats = {}
+
+        # Minimizer (vega_interface.py:186-194), without vega_tpu's fused
+        # value+gradient+Hessian path (VEGA_TPU_FUSED_FIT, off there by
+        # default)
+        self.minimizer = None
+        if self.sample_params['limits']:
+            self.minimizer = Minimizer(
+                self.chi2, self.sample_params,
+                grad_func=self.chi2_gradient, hess_func=self.chi2_hessian,
+                valgrad_func=self.chi2_value_and_gradient)
 
     def set_fiducial_pk(self, pk_full, pk_smooth):
         """Install the fiducial linear spectra (host arrays)."""
@@ -344,6 +362,125 @@ class VegaInterface:
             log_norm -= 0.5 * self.data[name].data_size * np.log(2 * np.pi)
             log_norm -= 0.5 * self.data[name].log_cov_det
         return log_norm
+
+    # ------------------------------------------------------------------
+    # Derivatives (vega_interface.py:883-912,949-975)
+    # ------------------------------------------------------------------
+    def _chi2_at(self, params, free_names, use_kernel):
+        """(chi^2 as a 0-d tensor, {name: leaf}) at one point, dispatched
+        by the names of `params` as chi2_batch dispatches them: a 0-d f64
+        leaf on the device that requires grad for each of `free_names`,
+        the other values as floats; `_chi2_rows` on a batch of one."""
+        names = frozenset(params)
+        collapsed = self.get_collapsed(names)
+        leaves = {name: torch.tensor(float(params[name]), dtype=DTYPE,
+                                     device=self.device, requires_grad=True)
+                  for name in free_names}
+        local, _ = self._batch_params(
+            {name: leaves.get(name, float(value))
+             for name, value in params.items()})
+        chi2 = self._chi2_rows(local, 1, use_kernel, names, collapsed)
+        return chi2[0], leaves
+
+    def chi2_value_and_gradient(self, params, use_kernel=True):
+        """(chi^2, {name: d chi^2 / d name}) over every key of `params`,
+        exact (torch autograd, reverse mode): the minimizer's hot path.
+        use_kernel=False takes the plain PyTorch combine on a CUDA device
+        (for comparing it with the kernels)."""
+        with torch.enable_grad():
+            chi2, leaves = self._chi2_at(params, list(params), use_kernel)
+            grads = torch.autograd.grad(chi2, list(leaves.values()),
+                                        materialize_grads=True)
+        return float(chi2.detach()), {name: float(g)
+                                      for name, g in zip(leaves, grads)}
+
+    def chi2_gradient(self, params, use_kernel=True):
+        """Exact d(chi^2)/d(theta) over every key of `params` (the value
+        comes free with it: chi2_value_and_gradient)."""
+        return self.chi2_value_and_gradient(params, use_kernel)[1]
+
+    def chi2_hessian(self, params, free_names, use_kernel=True):
+        """Exact chi^2 Hessian over free_names, {n1: {n2: value}}, the
+        other names of `params` held fixed: reverse over reverse, the
+        gradient with its graph (create_graph), then one backward pass per
+        free name. Through the combine that is the Functions' double
+        backward (ops/spline_combine.py)."""
+        free_names = list(free_names)
+        with torch.enable_grad():
+            chi2, leaves = self._chi2_at(params, free_names, use_kernel)
+            free = [leaves[name] for name in free_names]
+            grads = torch.autograd.grad(chi2, free, create_graph=True,
+                                        materialize_grads=True)
+            rows = []
+            for grad in grads:
+                if not grad.requires_grad:      # chi^2 linear in it
+                    rows.append([0.0] * len(free))
+                    continue
+                row = torch.autograd.grad(grad, free, retain_graph=True,
+                                          materialize_grads=True)
+                rows.append([float(h) for h in row])
+        return {n1: {n2: rows[i][j] for j, n2 in enumerate(free_names)}
+                for i, n1 in enumerate(free_names)}
+
+    # ------------------------------------------------------------------
+    # The fit (vega_interface.py:1443-1506)
+    # ------------------------------------------------------------------
+    def minimize(self):
+        """Minimize chi^2 over the sampled parameters, then the best-fit
+        model, per-correlation chi^2, reduced chi^2 and PTE
+        (vega_interface.py:1443-1502). The port has no Monte-Carlo mocks
+        or marginalization templates yet (both raise at construction), so
+        the data vector is the data and the effective size the masked
+        size."""
+        if self.minimizer is None:
+            print('No sampled parameters. Skipping minimization.')
+            return
+
+        self.minimizer.minimize()
+
+        self.bestfit_model = self.compute_model(self.minimizer.values)
+        self.total_data_size = 0
+        self.bestfit_corr_stats = {}
+        num_pars = len(self.sample_params['limits'])
+
+        print('\n----------------------------------------------------')
+        for name in self.corr_items:
+            corr_data = self.data[name]
+            data_size = corr_data.data_size
+            self.total_data_size += data_size
+            diff = corr_data.masked_data_vec \
+                - self.bestfit_model[name][corr_data.model_mask]
+            chisq = diff.T.dot(corr_data.inv_masked_cov.dot(diff))
+            reduced_chisq = chisq / (data_size - num_pars)
+            p_value = 1 - scipy.stats.chi2.cdf(chisq, data_size - num_pars)
+            print(f'{name} chi^2/(ndata-nparam): {chisq:.1f}/({data_size}'
+                  f'-{num_pars}) = {reduced_chisq:.3f}, PTE={p_value:.2f}')
+            print('----------------------------------------------------')
+            self.bestfit_corr_stats[name] = {
+                'masked_size': data_size, 'chisq': chisq,
+                'reduced_chisq': reduced_chisq, 'p_value': p_value,
+                'bestfit_marg_coeff': None,
+            }
+
+        self.chisq = self.minimizer.fmin.fval
+        self.reduced_chisq = self.chisq / (self.total_data_size - num_pars)
+        self.p_value = 1 - scipy.stats.chi2.cdf(
+            self.chisq, self.total_data_size - num_pars)
+        print(f'Total chi^2/(ndata-nparam): {self.chisq:.1f}/'
+              f'({self.total_data_size}-{num_pars}) = '
+              f'{self.reduced_chisq:.3f}, PTE={self.p_value:.2f}')
+        print('----------------------------------------------------\n')
+        if not self.minimizer.fmin.is_valid:
+            print('Invalid fit!!! Check data, covariance, model and priors.')
+
+    @property
+    def bestfit(self):
+        return self.minimizer
+
+    @property
+    def analysis(self):
+        """vega_tpu's Analysis (parameter scans, Monte-Carlo fits)."""
+        raise not_ported('Analysis (parameter scans, Monte-Carlo fits)', 8)
 
     @torch.no_grad()
     def compute_model(self, params=None, use_kernel=True):
