@@ -42,11 +42,20 @@ and fails if the forward kernel was not launched. Every kernel launch a
 path makes (the forward F_d, the no-sum mode P_d and the transpose Ft_d
 of csrc/spline_legendre_combine.cu, with d its derivative order) is
 recorded with its layout (B, G, coordinate rows, M, shared coordinates)
-as it runs (ops.spline_combine.recorded_launches); right after, each
-kernel is held against its plain PyTorch version at each of those
-layouts (random tables, about 5% of the queries outside the knot range),
-max|diff| <= 1e-12 max|ref|, and both are timed with CUDA events. Any
-failure exits non-zero.
+and counted as it runs (ops.spline_combine.recorded_launches); right
+after, each kernel is held against its plain PyTorch version at each of
+those layouts (random tables, about 5% of the queries outside the knot
+range), max|diff| <= 1e-12 max|ref|, the transpose also bit for bit
+against a second launch. Each layout is timed: the kernel's device time
+(launches queued behind a spin kernel), one wrapper call and the plain
+version (CUDA events), beside the layout's bytes and bound (HBM bytes at
+3.35 TB/s) and its launches in the path's run. After the dense path,
+every kernel (d = 0..3) is held the same way at edge layouts: every
+query on a knot, every query in one interval, M not a multiple of the
+tile, B = 1 with M = 1, a row with every query out of range. Any failure
+exits non-zero.
+tests/tools/compare_combine_designs.py reads the layouts off the kernels'
+JSON record to time another checkout's kernels against these in turns.
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line and {"ok": true, "device": {...}}.
 """
@@ -71,6 +80,7 @@ GRID_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_grid_goldens.json'
 FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
+CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
 PLAIN_RTOL = 1e-10      # chi2_batch, kernel path vs plain path
 GOLDEN_RTOL = 1e-8      # chi2_batch vs the JAX package's dense chi^2
 DEFAULT_CHI2_MAX = 1e-6
@@ -116,19 +126,23 @@ def card_line():
     return lines[index] if index < len(lines) else lines[0]
 
 
-def cuda_time_ms(fn, iters):
-    """Mean device time of fn() in ms, from CUDA events around `iters`
-    calls after one warm call."""
+def cuda_time_ms(fn, iters, repeats=1):
+    """Time per call of fn() in ms, from CUDA events around `iters` calls
+    after one warm call (the host's issue time included where it is the
+    longer); the median of `repeats` such means."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    means = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(stop) / iters)
+    return float(np.median(means))
 
 
 # ----------------------------------------------------------------------
@@ -170,58 +184,185 @@ def random_case(rng, device, grid, layout):
     return y, m, x, leg, g
 
 
+def device_ms(fn, iters, spin_cycles=50_000_000):
+    """Mean device time per call of fn() in ms: CUDA events around
+    `iters` calls queued behind a spin kernel (torch.cuda._sleep) that
+    holds the stream while the host queues them, so they run back to back
+    on the device with no host time between them (one warm call first).
+    The spin doubles until it outlasts the host's queueing."""
+    fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(6):
+        torch.cuda.synchronize()
+        events[0].record()
+        torch.cuda._sleep(spin_cycles)
+        events[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        events[2].record()
+        torch.cuda.synchronize()
+        if events[0].elapsed_time(events[1]) > host_ms:
+            break
+        spin_cycles *= 2
+    return events[1].elapsed_time(events[2]) / iters
+
+
+def kernel_call(primitive, order, grid, group, y, m, x, leg, g):
+    """run(use_kernel) -> the outputs of one primitive, as a tuple."""
+    from vega_tpu_torch.ops import spline_combine as sc
+    if primitive == 'F':
+        return lambda use_kernel: (sc.combine_forward(
+            grid, y, m, x, leg, order=order, group=group,
+            use_kernel=use_kernel),)
+    if primitive == 'P':
+        return lambda use_kernel: (sc.combine_points(
+            grid, y, m, x, order=order, group=group,
+            use_kernel=use_kernel),)
+    return lambda use_kernel: sc.combine_transpose(
+        grid, g, x, leg, order=order, use_kernel=use_kernel)
+
+
+def hold(run, primitive, label):
+    """The kernel against its plain version, max|diff| <= KERNEL_TOL
+    max|ref|; the transpose also bit for bit against a second launch.
+    Returns (max|diff|, max|ref|)."""
+    out, ref = run(True), run(False)
+    torch.cuda.synchronize()
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    if not err <= KERNEL_TOL * scale:
+        fail(f'kernel disagrees with its plain version ({label}): '
+             f'max|diff| {err:.3e} > {KERNEL_TOL:g} x {scale:.3e}')
+    if primitive == 'Ft':
+        again = run(True)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            fail(f'two launches of the transpose differ ({label}): it is '
+                 'meant to be bitwise reproducible')
+    return err, scale
+
+
+def layout_label(primitive, order, layout):
+    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout
+    return (f'{primitive}_{order} B={n_b} L={n_ell} N={n_knots} G={group} '
+            f'M={n_q}, {n_x} coordinate row(s)'
+            f'{" (x stride 0)" if x_shared else ""}'
+            f'{" (leg stride 0)" if leg_shared else ""}')
+
+
 def check_launches(device, path, layouts):
     """Hold each kernel against its plain version at every launch layout
     a path recorded, on the path's knot grid (random inputs,
-    `random_case`), max|diff| <= KERNEL_TOL max|ref|, and time both with
-    CUDA events. Returns one record per layout, largest B * M first."""
-    from vega_tpu_torch.ops import spline_combine as sc
+    `random_case`; `hold`), and time it: `ms` its device time per launch
+    (`device_ms`), `call_ms` one wrapper call on CUDA events with the
+    host's issue time (median of CALL_REPEATS means of 20 calls),
+    `plain_ms` the plain version (a mean of 5 calls). Beside them
+    the layout's launches in the path's run, its bytes and bound
+    (spline_combine.launch_bound: HBM bytes at 3.35 TB/s bound every
+    layout) and the share of the bound the kernel reaches. Returns one
+    record per layout, largest B * M first, with its knot range (the grid
+    is uniform: first and last knot and N give it)."""
+    from vega_tpu_torch.ops.spline_combine import launch_bound, launch_bytes
 
     rng = np.random.default_rng(0)
     records = []
     for key in sorted(layouts, key=lambda k: (k[0], k[1], -k[2] * k[7])):
         primitive, order, *layout = key
-        grid = layouts[key]
+        grid, launches = layouts[key].grid, layouts[key].launches
         y, m, x, leg, g = random_case(rng, device, grid, layout)
         group = layout[3]
-        if primitive == 'F':
-            def run(use_kernel):
-                return (sc.combine_forward(grid, y, m, x, leg, order=order,
-                                           group=group,
-                                           use_kernel=use_kernel),)
-        elif primitive == 'P':
-            def run(use_kernel):
-                return (sc.combine_points(grid, y, m, x, order=order,
-                                          group=group,
-                                          use_kernel=use_kernel),)
-        else:
-            def run(use_kernel):
-                return sc.combine_transpose(grid, g, x, leg, order=order,
-                                            use_kernel=use_kernel)
-
-        out, ref = run(True), run(False)
-        torch.cuda.synchronize()
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-        scale = max(float(r.abs().max()) for r in ref)
-        n_b, n_ell, n_knots, _, n_x, n_q, x_shared, leg_shared = layout
-        label = (f'{path} {primitive}_{order} B={n_b} L={n_ell} N={n_knots} '
-                 f'G={group} M={n_q}, {n_x} coordinate row(s)'
-                 f'{" (x stride 0)" if x_shared else ""}'
-                 f'{" (leg stride 0)" if leg_shared else ""}')
-        if not err <= KERNEL_TOL * scale:
-            fail(f'kernel disagrees with its plain version ({label}): '
-                 f'max|diff| {err:.3e} > {KERNEL_TOL:g} x {scale:.3e}')
+        run = kernel_call(primitive, order, grid, group, y, m, x, leg, g)
+        label = f'{path} {layout_label(primitive, order, layout)}'
+        err, scale = hold(run, primitive, label)
         plain_ms = cuda_time_ms(lambda: run(False), 5)
-        kernel_ms = cuda_time_ms(lambda: run(True), 20)
+        call_ms = cuda_time_ms(lambda: run(True), 20, CALL_REPEATS)
+        ms = device_ms(lambda: run(True), 20)
+        bound_ms, bound_by = launch_bound(primitive, order, *layout)
+        n_b, _, _, _, n_x, n_q, x_shared, leg_shared = layout
         log(f'kernel check {label}: max|diff| {err:.3e} (max|ref| '
-            f'{scale:.3e}); kernel {kernel_ms:.4f} ms, plain '
-            f'{plain_ms:.4f} ms')
+            f'{scale:.3e}); kernel {ms:.4f} ms on the device (a call '
+            f'{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+            f'{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%}), '
+            f'{launches} launches in the run')
         records.append({'path': path, 'primitive': primitive,
                         'order': order, 'B': n_b, 'G': group,
                         'coordinate_rows': n_x, 'M': n_q,
                         'x_shared': x_shared, 'leg_shared': leg_shared,
+                        'layout': list(layout),
+                        'knots': [float(grid.values[0]),
+                                  float(grid.values[-1])],
+                        'launches': launches,
                         'max_abs_err': err, 'max_abs_ref': scale,
-                        'ms': kernel_ms, 'plain_ms': plain_ms})
+                        'ms': ms, 'call_ms': call_ms,
+                        'plain_ms': plain_ms,
+                        'bytes': launch_bytes(primitive, order, *layout),
+                        'bound_ms': bound_ms, 'bound_by': bound_by,
+                        'share_of_bound': bound_ms / ms})
+    return records
+
+
+def edge_cases(rng, device, grid, n_ell):
+    """Layouts that corner the kernels, on `grid`, as [(label, layout,
+    (y, m, x, leg, g))] with per-row coordinates: every query on a knot
+    (both ends included), every query in one interval (the transpose's
+    longest run), M not a multiple of the tile (odd and even M), B = 1
+    with M = 1, and a row with every query out of range (half below,
+    half above)."""
+    knots = grid.values
+    n_knots = len(knots)
+    span = knots[-1] - knots[0]
+
+    def uniform(n_b, n_q):
+        return rng.uniform(knots[0], knots[-1], (n_b, n_q))
+
+    on_knots = knots[rng.integers(0, n_knots, (2, 3000))]
+    on_knots[:, :2] = knots[0], knots[-1]
+    mid = n_knots // 2
+    out_of_range = uniform(3, 2000)
+    out_of_range[1] = np.where(
+        rng.random(2000) < 0.5,
+        knots[0] - rng.uniform(1e-3, 0.1, 2000) * span,
+        knots[-1] + rng.uniform(1e-3, 0.1, 2000) * span)
+    coords = [('every query on a knot', on_knots),
+              ('every query in one interval',
+               rng.uniform(knots[mid], knots[mid + 1], (2, 3000))),
+              ('M not a multiple of the tile (odd M)', uniform(3, 5001)),
+              ('M not a multiple of the tile (even M)',
+               uniform(150, 2000)),
+              ('B = 1, M = 1', uniform(1, 1)),
+              ('a row with every query out of range', out_of_range)]
+    cases = []
+    for label, x_np in coords:
+        n_b, n_q = x_np.shape
+        layout = (n_b, n_ell, n_knots, 1, n_b, n_q, False, False)
+        y, m, _, leg, g = random_case(rng, device, grid, layout)
+        x = torch.as_tensor(x_np, dtype=torch.float64, device=device)
+        cases.append((label, layout, (y, m, x, leg, g)))
+    return cases
+
+
+def check_edge_layouts(device, grid, n_ell):
+    """Every kernel (F_d, P_d, Ft_d, d = 0..3) against its plain version
+    at each of `edge_cases`; the transpose also bit for bit against a
+    second launch. Returns one record per kernel and case."""
+    rng = np.random.default_rng(1)
+    records = []
+    for label, layout, inputs in edge_cases(rng, device, grid, n_ell):
+        worst = 0.0
+        for primitive in ('F', 'P', 'Ft'):
+            for order in range(4):
+                run = kernel_call(primitive, order, grid, 1, *inputs)
+                err, scale = hold(run, primitive, f'edge layout {label}, '
+                                  f'{layout_label(primitive, order, layout)}')
+                worst = max(worst, err / scale if scale else err)
+                records.append({'path': 'edge', 'case': label,
+                                'primitive': primitive, 'order': order,
+                                'layout': list(layout), 'max_abs_err': err,
+                                'max_abs_ref': scale})
+        log(f'edge layout {label} (B={layout[0]}, M={layout[5]}): F_d, P_d, '
+            f'Ft_d (d = 0..3) agree with their plain versions, worst '
+            f'max|diff| / max|ref| {worst:.3e}; Ft_d bitwise reproducible')
     return records
 
 
@@ -253,8 +394,8 @@ def draw_batch(n_rows):
 
 def run_dense_path(device, main_ini):
     """The dense path (VEGA_TPU_FACTORED=0) on the full configuration;
-    returns the kernel launches of its run and the kernel checks at its
-    layouts."""
+    returns the kernel launches of its run, the kernel checks at its
+    layouts and its knot grid."""
     from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
                                                    recorded_launches)
     from vega_tpu_torch.vega_interface import CHUNK_ROWS, VegaInterface
@@ -324,7 +465,7 @@ def run_dense_path(device, main_ini):
             f'path: {BATCH / np.median(times):.1f} evals/s '
             f'(median of {TIMED_ROUNDS}, s per call '
             f'{", ".join(f"{t:.4f}" for t in times)})')
-    return launches, records
+    return launches, records, next(iter(layouts.values())).grid
 
 
 def profile_chi2(vega, batches, device):
@@ -593,9 +734,9 @@ def run_fit_path(device, work):
         dense_vega = VegaInterface(fit_ini, device=device)
 
     launches = {}
-    # the fit's run: counts from zero
+    # each regime's run: counts from zero, layouts of its own
     LAUNCHES.clear()
-    with recorded_launches() as layouts:
+    with recorded_launches() as grid_layouts:
         grid = derivatives_at(device, grid_vega, points, names,
                               'fit grid regime (the first call builds '
                               'the payload)')
@@ -604,9 +745,10 @@ def run_fit_path(device, work):
             dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_GRID_RTOL))
         timed_fit(device, grid_vega, 'grid')
         check_fit('grid', 'grid', grid_vega, names, goldens['fit_grid'])
-        launches['fit_grid'] = dict(LAUNCHES)
+    launches['fit_grid'] = dict(LAUNCHES)
 
-        LAUNCHES.clear()
+    LAUNCHES.clear()
+    with recorded_launches() as dense_layouts:
         dense = derivatives_at(device, dense_vega, points, names,
                                'fit dense regime')
         compare_derivatives(
@@ -614,7 +756,7 @@ def run_fit_path(device, work):
             dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_DENSE_RTOL))
         timed_fit(device, dense_vega, 'dense')
         check_fit('dense', 'dense', dense_vega, names, goldens['fit_dense'])
-        launches['fit_dense'] = dict(LAUNCHES)
+    launches['fit_dense'] = dict(LAUNCHES)
     # the plain route, for comparison: it launches nothing
     plain = derivatives_at(device, dense_vega, points, names,
                            'fit dense regime, plain combine',
@@ -631,7 +773,8 @@ def run_fit_path(device, work):
         fail('the dense fit launched no transpose kernel (Ft_d)')
     if not any(n for (_, order), n in dense_run.items() if order >= 1):
         fail('the dense fit launched no kernel of order d >= 1')
-    return launches, check_launches(device, 'fit', layouts)
+    return launches, (check_launches(device, 'fit_grid', grid_layouts)
+                      + check_launches(device, 'fit_dense', dense_layouts))
 
 
 # (name, primitive, orders, the TPU code it replaces: file:line, and
@@ -650,10 +793,12 @@ KERNELS = (
 )
 
 
-def kernel_records(launches, checks):
+def kernel_records(launches, checks, edge_checks):
     """The kernels' JSON record: per kernel its launches by path and by
-    order, its worst error against its plain version, and ms / plain_ms
-    at its largest checked layout (B x M)."""
+    order, its worst error against its plain version (recorded and edge
+    layouts), ms / plain_ms / bound_ms at its largest checked layout
+    (B x M) and every checked layout. No single PyTorch call computes
+    the combine or its transpose: library_ms is null."""
     out = []
     for name, primitive, orders, (replaces, part) in KERNELS:
         def mine(key):
@@ -667,6 +812,8 @@ def kernel_records(launches, checks):
                     by_order[key[1]] = by_order.get(key[1], 0) + n
         records = [r for r in checks
                    if mine((r['primitive'], r['order']))]
+        edges = [r for r in edge_checks
+                 if mine((r['primitive'], r['order']))]
         if not sum(by_path.values()) or not records:
             fail(f'{name}: no launch in any path')
         largest = max(records, key=lambda r: r['B'] * r['M'])
@@ -678,8 +825,11 @@ def kernel_records(launches, checks):
             'launches_by_path': by_path,
             'launches_by_order': {str(k): v
                                   for k, v in sorted(by_order.items())},
-            'max_abs_err': max(r['max_abs_err'] for r in records),
+            'max_abs_err': max(r['max_abs_err'] for r in records + edges),
             'ms': largest['ms'], 'plain_ms': largest['plain_ms'],
+            'bound_ms': largest['bound_ms'], 'bound_by': largest['bound_by'],
+            'library_ms': None,
+            'edge_layouts_checked': len(edges),
             'layouts': records})
     return out
 
@@ -702,13 +852,18 @@ def main():
                                           device=device)
         log(f'setup: synthetic full configuration in '
             f'{time.perf_counter() - t0:.2f} s')
-        dense_launches, dense_checks = run_dense_path(device, main_ini)
+        dense_launches, dense_checks, knot_grid = run_dense_path(
+            device, main_ini)
+        edge_checks = check_edge_layouts(device, knot_grid,
+                                         dense_checks[0]['layout'][1])
         grid_launches, grid_checks = run_grid_path(device, main_ini, card)
         fit_launches, fit_checks = run_fit_path(device, work)
 
-    print(json.dumps({'kernels': kernel_records(
+    checks = dense_checks + grid_checks + fit_checks
+    kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches},
-        dense_checks + grid_checks + fit_checks)}))
+        checks, edge_checks)
+    print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -228,6 +228,11 @@ def test_grouped_combine_has_no_gradient():
     assert out.shape == (N_B, N_Q) and not out.requires_grad
 
 
+def check_plan(plan, n_b, n_q):
+    """The wrappers hand each kernel the launch plan of its (B, M)."""
+    assert plan == sc.launch_plan(n_b, n_q)
+
+
 @pytest.fixture
 def stub_kernels(monkeypatch):
     """The kernel route on CPU tensors, with stub kernels that write the
@@ -236,15 +241,24 @@ def stub_kernels(monkeypatch):
     monkeypatch.setattr(sc, '_kernel_route',
                         lambda device, use_kernel: use_kernel)
 
-    def forward(grid, y, m, x, leg, out, order, group, x_rs, leg_rs):
+    def forward(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
+                plan):
+        check_plan(plan, y.shape[0], x.shape[1])
         out.copy_(sc.spline_legendre_combine_reference(grid, y, m, x, leg,
                                                        group, order))
 
-    def points(grid, y, m, x, out, order, group, x_rs):
+    def points(grid, y, m, x, out, order, group, x_rs, plan):
+        check_plan(plan, y.shape[0], x.shape[1])
         out.copy_(sc.spline_legendre_points_reference(grid, y, m, x, group,
                                                       order))
 
-    def transpose(grid, g, x, leg, out_y, out_m, order, x_rs, leg_rs):
+    def transpose(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
+                  leg_rs, plan):
+        check_plan(plan, *g.shape)
+        tiles = plan[0]
+        assert (scratch is None) == (tiles == 1)
+        assert scratch is None or scratch.shape == (g.shape[0], tiles, 2,
+                                                    *out_y.shape[1:])
         for out, ref in zip((out_y, out_m),
                             sc.spline_legendre_transpose_reference(
                                 grid, g, x, leg, order)):

@@ -2,6 +2,7 @@
 init-time constants, the synthetic dataset files, the data-file lookup
 and the rule that the port never imports JAX."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +17,10 @@ from vega_tpu.statics import resolve
 from vega_tpu.testing import make_synthetic_dataset as jax_make_dataset
 from vega_tpu.vega_interface import VegaInterface as JaxInterface
 from vega_tpu_torch import state
+from vega_tpu_torch.correlation_func import CorrelationFunction
+from vega_tpu_torch.model import Model
+from vega_tpu_torch.pktoxi import PktoXi
+from vega_tpu_torch.power_spectrum import PowerSpectrum
 from vega_tpu_torch.io.fits import read_fits
 from vega_tpu_torch.parameters.param_utils import get_default_values
 from vega_tpu_torch.testing import make_synthetic_dataset
@@ -82,7 +87,7 @@ def test_synthetic_files_match_jax(tiny_main, tmp_path):
     """The port's make_synthetic_dataset writes the JAX package's files:
     same layout and headers, data vectors from the port's model."""
     jax_dir, port_dir = Path(tiny_main).parent, tmp_path / 'port'
-    make_synthetic_dataset(port_dir, cross=True, size='tiny')
+    make_synthetic_dataset(port_dir, cross=True, size='tiny', device='cpu')
     fits_files = sorted(p.name for p in jax_dir.glob('*.fits'))
     assert fits_files == sorted(p.name for p in port_dir.glob('*.fits'))
     assert len(fits_files) == 3
@@ -127,6 +132,25 @@ def test_cuda_without_gpu_raises(tiny_main):
         pytest.skip('a CUDA device is present')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         VegaInterface(tiny_main, device='cuda')
+
+
+def test_synthetic_dataset_defaults_to_the_card(tmp_path):
+    """Without a device, make_synthetic_dataset runs on the card: with no
+    CUDA device it raises before writing a file, and never carries on on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        make_synthetic_dataset(tmp_path / 'out', cross=True, size='tiny')
+    assert not (tmp_path / 'out').exists()
+
+
+@pytest.mark.parametrize('cls', [Model, PowerSpectrum, CorrelationFunction,
+                                 PktoXi])
+def test_model_constructors_require_a_device(cls):
+    """Nothing under VegaInterface picks a device of its own."""
+    device = inspect.signature(cls).parameters['device']
+    assert device.default is inspect.Parameter.empty
 
 
 def test_port_never_imports_jax():

@@ -123,6 +123,7 @@ def test_full_configuration_matches_jax_goldens(dense_env, tmp_path):
     dense path (VEGA_TPU_FACTORED=0, read by the port at construction)."""
     goldens = json.loads(GOLDENS.read_text())
     port = VegaInterface(make_synthetic_dataset(tmp_path, cross=True,
-                                                size='full'), device='cpu')
+                                                size='full', device='cpu'),
+                         device='cpu')
     got = port.chi2_batch(goldens['params']).numpy()
     assert rel(got, goldens['chi2']) <= GOLDEN_RTOL

@@ -24,7 +24,7 @@ class CorrelationFunction:
     """xi-space model (reference: correlation_func.py:10-115)."""
 
     def __init__(self, config, fiducial, coordinates, scale_params,
-                 tracer1, tracer2, device='cpu'):
+                 tracer1, tracer2, device):
         self.device = torch.device(device)
         self._config = config
         self._z = coordinates.z_grid

@@ -26,8 +26,8 @@ from .utils import col, not_ported, to_tensor
 class Model:
     """Correlation model for one component (reference: model.py:8-77)."""
 
-    def __init__(self, corr_item, fiducial, scale_params, data=None,
-                 device='cpu'):
+    def __init__(self, corr_item, fiducial, scale_params, data=None, *,
+                 device):
         self.device = torch.device(device)
         self._corr_item = corr_item
         if corr_item.model_coordinates is None:

@@ -69,18 +69,18 @@ def _declare(lib):
     ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_double)
     signatures = {
-        # knots, y, m, x, leg, out, B, L, N, M, G, x / leg row strides,
-        # step, order, stream
+        # knots, y, m, x, leg, out, B, L, N, M, G, tiles, tile_q, x / leg
+        # row strides, step, order, stream
         'vega_spline_legendre_combine_f64':
-            [ptr] * 6 + [i32] * 5 + [i64, i64, f64, i32, ptr],
-        # knots, y, m, x, out, B, L, N, M, G, x row stride, step, order,
-        # stream
-        'vega_spline_legendre_points_f64':
-            [ptr] * 5 + [i32] * 5 + [i64, f64, i32, ptr],
-        # knots, g, x, leg, out_y, out_m, B, L, N, M, x / leg row strides,
+            [ptr] * 6 + [i32] * 7 + [i64, i64, f64, i32, ptr],
+        # knots, y, m, x, out, B, L, N, M, G, tiles, tile_q, x row stride,
         # step, order, stream
+        'vega_spline_legendre_points_f64':
+            [ptr] * 5 + [i32] * 7 + [i64, f64, i32, ptr],
+        # knots, g, x, leg, out_y, out_m, scratch, B, L, N, M, tiles,
+        # tile_q, x / leg row strides, step, order, stream
         'vega_spline_legendre_transpose_f64':
-            [ptr] * 6 + [i32] * 4 + [i64, i64, f64, i32, ptr],
+            [ptr] * 7 + [i32] * 6 + [i64, i64, f64, i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,6 +1,7 @@
 """The spline + Legendre combine, its derivatives and its transpose: the
-CUDA kernels' wrappers, their plain PyTorch versions, and the autograd
-Functions that make the combine differentiable twice.
+CUDA kernels' wrappers with their launch plan and cost model, their plain
+PyTorch versions, and the autograd Functions that make the combine
+differentiable twice.
 
     F_d[b, q]    = sum_l S^(d)_{b,l}(clamp(x[b / G, q])) * leg[b / G, l, q]
     P_d[b, l, q] = S^(d)_{b,l}(clamp(x[b / G, q]))
@@ -46,6 +47,7 @@ import torch
 from .spline import piece_weights, spline_eval, spline_pieces, uniform_step
 
 MAX_ORDER = 3       # S^(4) = 0
+MAX_MULTIPOLES = 8  # L a kernel launch takes (csrc kMaxL)
 
 # Kernel launches since the last reset, {(primitive, d): count}, primitive
 # 'F' (F_d), 'P' (P_d) or 'Ft' (Ft_d). Only launches count: the plain
@@ -74,11 +76,19 @@ class KnotGrid:
         return len(self.values)
 
 
+@dataclass
+class RecordedLayout:
+    """A launch layout seen while recording: its knot grid and how many
+    launches it took."""
+    grid: KnotGrid
+    launches: int = 0
+
+
 @contextlib.contextmanager
 def recorded_launches():
     """While open, record every kernel launch as {(primitive, d, B, L, N,
-    G, coordinate rows, M, x shared, leg shared): its knot grid}; x / leg
-    shared means a row stride of 0."""
+    G, coordinate rows, M, x shared, leg shared): RecordedLayout}; x /
+    leg shared means a row stride of 0."""
     layouts = {}
     _recorders.append(layouts)
     try:
@@ -90,7 +100,8 @@ def recorded_launches():
 def _launched(primitive, order, layout, grid):
     LAUNCHES[(primitive, order)] += 1
     for layouts in _recorders:
-        layouts.setdefault((primitive, order, *layout), grid)
+        layouts.setdefault((primitive, order, *layout),
+                           RecordedLayout(grid)).launches += 1
 
 
 def clamp_derivative(grid, x):
@@ -100,6 +111,64 @@ def clamp_derivative(grid, x):
     lo, hi = grid.values[0], grid.values[-1]
     inside = ((x > lo) & (x < hi)).to(x.dtype)
     return inside + 0.5 * ((x == lo) | (x == hi)).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Launch plan and cost
+# ----------------------------------------------------------------------
+THREADS = 256               # a block's threads (csrc kThreads)
+H100_SMS = 132
+BLOCK_TARGET = 2 * H100_SMS
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA's data sheet)
+F64_FLOPS_PER_S = 34e12     # H100 SXM, f64 outside the tensor cores
+# flops per query: the interval and weights, then per multipole the
+# gathered combination (F_d: times the Legendre weight; Ft_d: g * leg
+# times the four weights)
+PIECE_FLOPS = 20
+MULTIPOLE_FLOPS = {'F': 9, 'P': 7, 'Ft': 9}
+
+
+def launch_plan(n_b, n_q):
+    """(tiles, tile_q): each row's M queries in `tiles` tiles of tile_q
+    queries (whole chunks of THREADS), one block per (row, tile). Rows
+    are split until B x tiles reaches BLOCK_TARGET (two blocks per SM) or
+    a tile is one chunk: one tile per row at B >= 264, 20 tiles of 256
+    queries at B = 1, M = 5000. Every tile holds at least one query."""
+    chunks = max(1, -(-n_q // THREADS))
+    wanted = -(-BLOCK_TARGET // max(n_b, 1))
+    tile_q = THREADS * max(1, chunks // wanted)
+    return max(1, -(-n_q // tile_q)), tile_q
+
+
+def launch_bytes(primitive, order, n_b, n_ell, n_knots, group, n_x, n_q,
+                 x_shared, leg_shared):
+    """Bytes one launch must move (a recorded layout: B, L, N, G,
+    coordinate rows, M, x / leg shared), each input read once and each
+    output written once: the knots, the tables (m alone for d >= 2: S''
+    and S''' do not read y), x and leg per coordinate row (once when
+    shared), g and out per row. The transpose writes both tables."""
+    x_words = (1 if x_shared else n_x) * n_q
+    leg_words = (1 if leg_shared else n_x) * n_ell * n_q
+    table = n_ell * n_knots
+    if primitive == 'Ft':
+        words = n_b * n_q + x_words + leg_words + 2 * n_b * table
+    else:
+        words = (1 if order >= 2 else 2) * n_b * table + x_words
+        words += leg_words + n_b * n_q if primitive == 'F' else (
+            n_b * n_ell * n_q)
+    return 8 * (n_knots + words)         # f64
+
+
+def launch_bound(primitive, order, *layout):
+    """(bound_ms, bound_by): the least time the card could take for one
+    launch, the larger of its bytes over the HBM rate and its flops over
+    the f64 rate; layout as `launch_bytes` takes it."""
+    n_b, n_ell, n_q = layout[0], layout[1], layout[5]
+    bytes_s = launch_bytes(primitive, order, *layout) / HBM_BYTES_PER_S
+    flops = n_b * n_q * (PIECE_FLOPS + n_ell * MULTIPOLE_FLOPS[primitive])
+    flops_s = flops / F64_FLOPS_PER_S
+    return (1e3 * max(bytes_s, flops_s),
+            'bytes' if bytes_s >= flops_s else 'operations')
 
 
 # ----------------------------------------------------------------------
@@ -259,6 +328,12 @@ def _kernel_route(device, use_kernel):
     raise ValueError(f'no spline_legendre_combine for {device}')
 
 
+def _check_multipoles(n_ell):
+    if not 1 <= n_ell <= MAX_MULTIPOLES:
+        raise ValueError(f'the kernels take 1..{MAX_MULTIPOLES} multipoles, '
+                         f'got L = {n_ell}')
+
+
 # ----------------------------------------------------------------------
 # Kernel launches (ctypes; csrc/spline_legendre_combine.cu)
 # ----------------------------------------------------------------------
@@ -274,28 +349,32 @@ def _launch(entry, device, *args):
             f'{lib.vega_cuda_error_string(err).decode()} ({err})')
 
 
-def _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs):
+def _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
+                    plan):
     n_b, n_ell, n_knots = y.shape
     _launch('vega_spline_legendre_combine_f64', y.device,
             grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
             x.data_ptr(), leg.data_ptr(), out.data_ptr(), n_b, n_ell,
-            n_knots, x.shape[1], group, x_rs, leg_rs, grid.step, order)
+            n_knots, x.shape[1], group, *plan, x_rs, leg_rs, grid.step,
+            order)
 
 
-def _points_kernel(grid, y, m, x, out, order, group, x_rs):
+def _points_kernel(grid, y, m, x, out, order, group, x_rs, plan):
     n_b, n_ell, n_knots = y.shape
     _launch('vega_spline_legendre_points_f64', y.device,
             grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
             x.data_ptr(), out.data_ptr(), n_b, n_ell, n_knots, x.shape[1],
-            group, x_rs, grid.step, order)
+            group, *plan, x_rs, grid.step, order)
 
 
-def _transpose_kernel(grid, g, x, leg, out_y, out_m, order, x_rs, leg_rs):
+def _transpose_kernel(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
+                      leg_rs, plan):
     n_b, n_ell, n_knots = out_y.shape
     _launch('vega_spline_legendre_transpose_f64', g.device,
             grid.tensor.data_ptr(), g.data_ptr(), x.data_ptr(),
-            leg.data_ptr(), out_y.data_ptr(), out_m.data_ptr(), n_b, n_ell,
-            n_knots, g.shape[1], x_rs, leg_rs, grid.step, order)
+            leg.data_ptr(), out_y.data_ptr(), out_m.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n_b, n_ell,
+            n_knots, g.shape[1], *plan, x_rs, leg_rs, grid.step, order)
 
 
 # ----------------------------------------------------------------------
@@ -324,8 +403,10 @@ def combine_forward(grid, y, m, x, leg, *, order=0, group=1,
     if not _kernel_route(y.device, use_kernel):
         return spline_legendre_combine_reference(grid, y, m, x, leg, group,
                                                  order)
+    _check_multipoles(n_ell)
     out = torch.empty((n_b, n_q), dtype=torch.float64, device=y.device)
-    _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs)
+    _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
+                    launch_plan(n_b, n_q))
     _launched('F', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
                            x_rs == 0 and x.shape[0] > 1,
                            leg_rs == 0 and x.shape[0] > 1), grid)
@@ -340,9 +421,11 @@ def combine_points(grid, y, m, x, *, order=0, group=1, use_kernel=True):
     _refuse_graph('combine_points', y, m, x)
     if not _kernel_route(y.device, use_kernel):
         return spline_legendre_points_reference(grid, y, m, x, group, order)
+    _check_multipoles(n_ell)
     out = torch.empty((n_b, n_ell, n_q), dtype=torch.float64,
                       device=y.device)
-    _points_kernel(grid, y, m, x, out, order, group, x_rs)
+    _points_kernel(grid, y, m, x, out, order, group, x_rs,
+                   launch_plan(n_b, n_q))
     _launched('P', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
                            x_rs == 0 and x.shape[0] > 1, False), grid)
     return out
@@ -352,17 +435,24 @@ def combine_transpose(grid, g, x, leg, *, order=0, use_kernel=True):
     """Ft_d(g, x, leg): new (Ybar, Mbar), each (B, L, N) f64, with
     Ybar[b, l, i] = sum_q g[b, q] leg[b, l, q] dS^(d)_{b,l}(x_q)/dy[b, l, i]
     and Mbar the same for m. g (B, M) contiguous; x and leg as in
-    `combine_forward` with G = 1. The kernel's f64 atomics land in no
-    fixed order: results may differ from run to run in the last bits."""
+    `combine_forward` with G = 1. The kernel sums in a fixed order (no
+    atomics): its result is the same bit for bit from run to run. With
+    more than one tile per row it takes (B, tiles, 2, L, N) scratch for
+    the tiles' partial tables."""
     _check_order(order)
     n_b, n_ell, n_q, x_rs, leg_rs = _check_transpose(grid, g, x, leg)
     _refuse_graph('combine_transpose', g, x, leg)
     if not _kernel_route(g.device, use_kernel):
         return spline_legendre_transpose_reference(grid, g, x, leg, order)
+    _check_multipoles(n_ell)
     shape = (n_b, n_ell, len(grid))
     out_y = torch.empty(shape, dtype=torch.float64, device=g.device)
     out_m = torch.empty(shape, dtype=torch.float64, device=g.device)
-    _transpose_kernel(grid, g, x, leg, out_y, out_m, order, x_rs, leg_rs)
+    plan = launch_plan(n_b, n_q)
+    scratch = None if plan[0] == 1 else torch.empty(
+        (n_b, plan[0], 2, *shape[1:]), dtype=torch.float64, device=g.device)
+    _transpose_kernel(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
+                      leg_rs, plan)
     _launched('Ft', order, (n_b, n_ell, len(grid), 1, n_b, n_q,
                             x_rs == 0 and n_b > 1, leg_rs == 0 and n_b > 1),
               grid)

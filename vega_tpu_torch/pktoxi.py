@@ -64,7 +64,7 @@ def legendre(ell, x):
 class PktoXi:
     """Transform plan for one tracer pair on fixed (k, mu_k) grids."""
 
-    def __init__(self, k_grid, muk_grid, muk_weights, config, device='cpu'):
+    def __init__(self, k_grid, muk_grid, muk_weights, config, device):
         self.device = torch.device(device)
         self.k_grid = np.asarray(k_grid, dtype=np.float64)
         self.muk_grid = np.asarray(muk_grid)

@@ -86,7 +86,7 @@ class PowerSpectrum:
     power_spectrum.py:18-196)."""
 
     def __init__(self, config, fiducial, tracer1, tracer2, dataset_name=None,
-                 device='cpu'):
+                 *, device):
         self.device = torch.device(device)
         self.tracer1_name = tracer1['name']
         self.tracer2_name = tracer2['name']

@@ -153,7 +153,7 @@ def _write_correlation_data(path, is_cross, z_eff, model_xi=None, nt=50):
     return coords
 
 
-def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu',
+def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                            sample=None):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
@@ -162,8 +162,11 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu',
     `sample` ({name: [sample] entry}; default bias_LYA and beta_LYA
     sampled). size='tiny' shrinks every axis (k grid, mu_k bins, rp/rt
     bins) for fast checks. `device` is where the second pass evaluates
-    the model.
+    the model: the card unless the caller asks for 'cpu'; asking for
+    CUDA without a GPU raises before any file is written.
     """
+    from .vega_interface import VegaInterface, resolve_device
+    device = resolve_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
 
@@ -196,7 +199,6 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cpu',
 
     # Second pass: regenerate the data vectors from the actual model at
     # the default parameters so fits are well-posed (truth = defaults)
-    from .vega_interface import VegaInterface
     vega = VegaInterface(main_path, device=device)
     model_cf = vega.compute_model()
     for name, corr_item in vega.corr_items.items():
