@@ -35,7 +35,25 @@ configuration, with no JAX:
      dense goldens, the same calls with use_kernel=True against
      use_kernel=False (1e-10 relative in gradients, 1e-9 in Hessians),
      and minimize() against the JAX dense fit; it fails unless the dense
-     fit launched the transpose kernel and a kernel of order d >= 1.
+     fit launched the transpose kernel and a kernel of order d >= 1;
+6. the profile scan: batched_chi2_scan over a 40 x 40 (ap, at) grid,
+   each of linspace(0.95, 1.05, 40), on the fit configuration with
+   bias_LYA and beta_LYA re-minimised at every point on the grid
+   payload: cold (with the payload) and warm in one fit chunk, and warm
+   at the default chunk (8), with wall time, Newton iterations, rows
+   valid and peak memory; the default chunk's fval against the one
+   chunk's (1e-8: the rows are independent); 16 points against the JAX
+   scan of tests/data/torch_port_mc_goldens.json (|d fval| <= 2e-4 +
+   1e-9 |fval|, values within 1e-2 of the JAX errors);
+7. Monte-Carlo mock fits (MonteCarloEngine) on the fit configuration
+   with [monte carlo] and [mc parameters]: 64 dense mocks of (ap, at,
+   bias_LYA, beta_LYA) at the default chunk and in one chunk, 1024 in one
+   chunk, and 256 mocks of (bias_LYA, beta_LYA) through the nuisance
+   collapse without data terms; each with 4 numpy mocks held against the
+   JAX fits of the goldens (values 1e-3 of the errors, errors 1e-5
+   relative, chi^2 1e-8, valid equal), the dense ones also through the
+   plain combine; it fails unless the dense fits launched the transpose
+   and a kernel of order d >= 1 at B > 1.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -78,6 +96,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_goldens.json'
 GRID_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_grid_goldens.json'
 FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
+MC_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mc_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
@@ -105,6 +124,21 @@ KERNEL_HESS_RTOL = 1e-9      # and Hessians
 FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3}
 FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5}
 FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8}
+# the scan and MC phases: mocks per campaign, the torch generator's seed,
+# and the fit chunks (VEGA_TPU_FIT_CHUNK_PER_DEVICE): vega_tpu's default 8
+# beside the whole campaign in one chunk; a larger dense campaign in one
+# chunk gives the peak memory's growth per row
+MC_DENSE_MOCKS = 64
+MC_DENSE_PROBE_MOCKS = 1024
+MC_COLLAPSE_MOCKS = 256
+MC_SEED = 0
+DEFAULT_FIT_CHUNK = 8
+# golden mock fits: values within MC_VALUE_SIGMA of the JAX errors,
+# errors within MC_ERROR_RTOL, chi^2 within MC_CHI2_ABS, valid equal
+MC_VALUE_SIGMA, MC_ERROR_RTOL, MC_CHI2_ABS = 1e-3, 1e-5, 1e-8
+# rows are independent: a scan point's fval in chunks of 8 vs in one chunk
+# differs only by round-off in the last Newton steps
+SCAN_CHUNK_FVAL_ABS = 1e-8
 
 
 def fail(message):
@@ -468,28 +502,27 @@ def run_dense_path(device, main_ini):
     return launches, records, next(iter(layouts.values())).grid
 
 
-def profile_chi2(vega, batches, device):
-    """torch.profiler over one warm chi2_batch: device kernel time, the
+def profile_call(label, fn, device):
+    """torch.profiler over one warm call of fn(): device kernel time, the
     span from the first kernel's start to the last one's end, and the
     top kernels by time."""
     from torch.profiler import ProfilerActivity, profile
-    vega.chi2_batch(batches)
+    fn()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        vega.chi2_batch(batches).cpu()
+        fn()
         torch.cuda.synchronize(device)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log('profile: no device events recorded (not measured)')
+        log(f'profile {label}: no device events recorded (not measured)')
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span_ms = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) / 1e3
-    log(f'profile chi2_batch({len(next(iter(batches.values())))}): '
-        f'{len(kernels)} kernels, {busy_ms:.4f} ms of kernel time in a '
-        f'{span_ms:.4f} ms span')
+    log(f'profile {label}: {len(kernels)} kernels, {busy_ms:.4f} ms of '
+        f'kernel time in a {span_ms:.4f} ms span')
     by_name = {}
     for e in kernels:
         by_name.setdefault(e.name, [0, 0.0])
@@ -607,7 +640,9 @@ def run_grid_path(device, main_ini, card):
         'unit': f'evals/s/chip (batch={BATCH}, f64, 1 chip(s), {card}, '
                 f'vega_tpu_torch, collapse={collapse_s:.1f}s; batch '
                 f'{GRID_BATCHES[1]}: {rates[GRID_BATCHES[1]]:.1f})'}))
-    profile_chi2(vega, draw_batch(BATCH), device)
+    batches = draw_batch(BATCH)
+    profile_call(f'chi2_batch({BATCH})',
+                 lambda: vega.chi2_batch(batches).cpu(), device)
     return launches, records
 
 
@@ -773,8 +808,268 @@ def run_fit_path(device, work):
         fail('the dense fit launched no transpose kernel (Ft_d)')
     if not any(n for (_, order), n in dense_run.items() if order >= 1):
         fail('the dense fit launched no kernel of order d >= 1')
-    return launches, (check_launches(device, 'fit_grid', grid_layouts)
-                      + check_launches(device, 'fit_dense', dense_layouts))
+    return fit_ini, launches, (
+        check_launches(device, 'fit_grid', grid_layouts)
+        + check_launches(device, 'fit_dense', dense_layouts))
+
+
+def run_scan_path(device, fit_ini):
+    """The 40 x 40 (ap, at) profile scan on the fit phase's configuration
+    (bias_LYA, beta_LYA re-minimised at each point) through
+    batched_chi2_scan, served by the grid payload at its defaults:
+    cold (with the payload build) and warm, every point in one fit chunk;
+    then warm at vega_tpu's default chunk (8), held to the one-chunk scan
+    within SCAN_CHUNK_FVAL_ABS in fval. Holds the 16 golden points of
+    tests/data/torch_port_mc_goldens.json: |d fval| <= 2e-4 + 1e-9 |fval|,
+    free values within FIT_VALUE_SIGMA['grid'] of the JAX errors there.
+    Returns the launches of the scan's run and the kernel checks at its
+    layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import batched_chi2_scan
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(MC_GOLDENS.read_text())['scan']
+    lo, hi, n_axis = goldens['axis']
+    axis = np.linspace(lo, hi, n_axis)
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        vega = VegaInterface(fit_ini, device=device)
+
+    def scan(values, chunk, label):
+        stats = {}
+        with switch('VEGA_TPU_FIT_CHUNK_PER_DEVICE', str(chunk)):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            rows = batched_chi2_scan(vega, {'ap': values, 'at': values},
+                                     stats=stats)
+            torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        log(f'scan {label}: {len(rows)} points in chunks of {chunk}, '
+            f'{seconds:.3f} s wall, Newton iterations per chunk '
+            f'{stats["iterations"]}, host waiting in the stopping tests '
+            f'{stats["sync_s"]:.3f} s, {stats["valid_rows"]} rows valid, '
+            f'peak device memory {peak_gb:.3f} GB')
+        return rows, stats
+
+    # the scan's run: counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        rows, stats = scan(axis, n_axis ** 2,
+                           f'{n_axis} x {n_axis} cold (with the payload)')
+        payload_s = vega.grid_stats.get('total_s')
+    launches = dict(LAUNCHES)
+    log(f'scan payload build {payload_s:.3f} s; kernel launches {launches}')
+    scan(axis, n_axis ** 2, f'{n_axis} x {n_axis} warm')
+    default_rows, default_stats = scan(axis, DEFAULT_FIT_CHUNK,
+                                       f'{n_axis} x {n_axis} default chunk')
+    for label, run in (('one chunk', stats), ('default chunk', default_stats)):
+        if run['valid_rows'] != len(rows):
+            fail(f'{len(rows) - run["valid_rows"]} scan rows are not valid '
+                 f'({label})')
+    d_default = max(abs(a['fval'] - b['fval'])
+                    for a, b in zip(rows, default_rows))
+    log(f'scan default chunk vs one chunk: max |d fval| {d_default:.3e} '
+        f'(bound {SCAN_CHUNK_FVAL_ABS:g})')
+    if not d_default <= SCAN_CHUNK_FVAL_ABS:
+        fail(f'the scan in chunks of {DEFAULT_FIT_CHUNK} differs from the '
+             f'scan in one chunk by {d_default:.3e} in fval')
+    points = torch.tensor([[r['ap'], r['at']] for r in rows],
+                          dtype=torch.float64, device=device)
+    start = torch.tensor([[-0.12, 1.6]] * len(rows), dtype=torch.float64,
+                         device=device)
+    profile_call(f'scan derivatives ({len(rows)} rows, one Newton '
+                 'iteration)', lambda: vega.chi2_batch_derivatives(
+                     goldens['free'], start,
+                     fixed={'ap': points[:, 0], 'at': points[:, 1]}),
+                 device)
+    if not all(np.isfinite(r['fval']) and r['fval'] < 1e100 for r in rows):
+        fail('a scan point is not finite or took the penalty')
+
+    d_fval = d_sigma = 0.0
+    for want in goldens['rows']:
+        i = int(np.argmin(np.abs(axis - want['ap'])))
+        j = int(np.argmin(np.abs(axis - want['at'])))
+        got = rows[i * n_axis + j]
+        if (got['ap'], got['at']) != (want['ap'], want['at']):
+            fail(f'scan point {(got["ap"], got["at"])} is not the golden '
+                 f'{(want["ap"], want["at"])}')
+        bound = GRID_ABS_TOL + GRID_REL_TOL * abs(want['fval'])
+        d_fval = max(d_fval, abs(got['fval'] - want['fval']) / bound)
+        for name in goldens['free']:
+            d_sigma = max(d_sigma, abs(got[name] - want[name])
+                          / want['errors'][name])
+    log(f'scan vs JAX goldens ({len(goldens["rows"])} points): max |d fval| '
+        f'{d_fval:.3e} of its bound, max |d value| / error {d_sigma:.3e} '
+        f'(bound {FIT_VALUE_SIGMA["grid"]:g})')
+    if not d_fval <= 1.0:
+        fail('scan fval vs the JAX goldens over the bound')
+    if not d_sigma <= FIT_VALUE_SIGMA['grid']:
+        fail(f'scan values differ from the JAX scan by {d_sigma:.3e} errors')
+    return launches, check_launches(device, 'scan', layouts)
+
+
+def numpy_mocks(vega, fiducial, n_mocks, seed):
+    """The goldens tool's mocks: fid_masked + z @ L.T per correlation, z
+    from np.random.default_rng(seed) in corr_items order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, data in vega.data.items():
+        mask = data.data_mask
+        chol = np.linalg.cholesky(data.cov_mat[np.ix_(mask, mask)])
+        z = rng.standard_normal((n_mocks, int(mask.sum())))
+        out[name] = np.asarray(fiducial[name])[mask] + z @ chol.T
+    return out
+
+
+def check_mock_fits(label, got, want):
+    """Fits of the golden mocks against the JAX package's."""
+    d_sigma = float(np.max(np.abs(got['values'] - np.asarray(want['values']))
+                           / np.asarray(want['errors'])))
+    d_err = float(np.max(np.abs(got['errors'] / np.asarray(want['errors'])
+                                - 1)))
+    d_chi2 = float(np.max(np.abs(got['chisq'] - np.asarray(want['chisq']))))
+    log(f'{label} vs JAX goldens ({len(want["chisq"])} mocks): max |d value|'
+        f' / error {d_sigma:.3e}, errors max relative diff {d_err:.3e}, '
+        f'max |d chi2| {d_chi2:.3e}, valid {got["valid"].tolist()}')
+    if not d_sigma <= MC_VALUE_SIGMA:
+        fail(f'{label}: values differ by {d_sigma:.3e} errors')
+    if not d_err <= MC_ERROR_RTOL:
+        fail(f'{label}: errors differ by {d_err:.3e} relative')
+    if not d_chi2 <= MC_CHI2_ABS:
+        fail(f'{label}: chi2 differs by {d_chi2:.3e}')
+    if got['valid'].tolist() != list(want['valid']):
+        fail(f'{label}: valid {got["valid"].tolist()}, JAX {want["valid"]}')
+
+
+def timed_mock_fits(device, engine, mocks, sample, chunk, label, **kwargs):
+    """fit_mocks in chunks of `chunk` rows, synchronised; logs the wall
+    time, s per fit, Newton iterations, share valid and peak memory."""
+    stats = {}
+    n_mocks = len(next(iter(mocks.values())))
+    with switch('VEGA_TPU_FIT_CHUNK_PER_DEVICE', str(chunk)):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        fits = engine.fit_mocks(mocks, sample, stats=stats, **kwargs)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    log(f'{label}: {n_mocks} mocks in chunks of {chunk}, {seconds:.3f} s '
+        f'wall, {seconds / n_mocks:.4f} s per fit, Newton iterations per '
+        f'chunk {stats["iterations"]}, host waiting in the stopping tests '
+        f'{stats["sync_s"]:.3f} s, valid {float(np.mean(fits["valid"])):.4f}'
+        f', peak device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB')
+    return fits
+
+
+def run_mc_path(device, work):
+    """Monte-Carlo campaigns on the fit configuration with [monte carlo]
+    and [mc parameters] (the goldens' MC_CONTROL): mocks from
+    MonteCarloEngine.generate_mocks around the fiducial at [mc
+    parameters], fitted with fit_mocks.
+
+    (a) dense: (ap, at, bias_LYA, beta_LYA), MC_DENSE_MOCKS mocks at the
+    default chunk and in one chunk, then MC_DENSE_PROBE_MOCKS in one
+    chunk; the goldens' numpy mocks against the JAX fits, with the
+    kernels and with the plain combine (derivatives at the start 1e-10 /
+    1e-9 relative). Fails unless it launched the transpose and a kernel
+    of order d >= 1 at a layout with B > 1.
+    (b) collapse: (bias_LYA, beta_LYA) through the nuisance collapse
+    without data terms, MC_COLLAPSE_MOCKS mocks in one chunk; its golden
+    mocks the same way.
+
+    Returns the launches of each campaign's run and the kernel checks at
+    their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import MonteCarloEngine
+    from vega_tpu_torch.testing import make_synthetic_dataset
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(MC_GOLDENS.read_text())
+    t0 = time.perf_counter()
+    mc_ini = make_synthetic_dataset(Path(work) / 'mc', cross=True,
+                                    size='full', device=device,
+                                    sample=goldens['sample'],
+                                    extra_control=goldens['mc_control'])
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        vega = VegaInterface(mc_ini, device=device)
+    fiducial = vega.compute_model(vega.mc_config['params'])
+    engine = MonteCarloEngine(vega)
+    log(f'mc: configuration and fiducial at {vega.mc_config["params"]} in '
+        f'{time.perf_counter() - t0:.2f} s')
+
+    def sample_for(names):
+        return {key: {n: vega.mc_config['sample'][key][n] for n in names}
+                for key in ('limits', 'values', 'errors', 'fix')}
+
+    launches, checks = {}, []
+    for kind, n_mocks in (('dense', MC_DENSE_MOCKS),
+                          ('collapse', MC_COLLAPSE_MOCKS)):
+        want = goldens['mc'][kind]
+        sample = sample_for(want['names'])
+        golden_mocks = numpy_mocks(vega, fiducial, want['n_mocks'],
+                                   want['seed'])
+        # the campaign's run: counts from zero
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            campaigns = ([(n_mocks, DEFAULT_FIT_CHUNK), (n_mocks, n_mocks),
+                          (MC_DENSE_PROBE_MOCKS, MC_DENSE_PROBE_MOCKS)]
+                         if kind == 'dense' else [(n_mocks, n_mocks)])
+            for count, chunk in campaigns:
+                mocks = engine.generate_mocks(fiducial, count, seed=MC_SEED)
+                fits = timed_mock_fits(device, engine, mocks, sample, chunk,
+                                       f'mc {kind}')
+                if not np.mean(fits['valid']) >= 0.9:
+                    fail(f'mc {kind}: only {np.mean(fits["valid"]):.3f} of '
+                         'the fits are valid')
+            got = timed_mock_fits(device, engine, golden_mocks, sample,
+                                  DEFAULT_FIT_CHUNK, f'mc {kind} golden')
+            check_mock_fits(f'mc {kind}', got, want)
+        launches[f'mc_{kind}'] = dict(LAUNCHES)
+        log(f'mc {kind} kernel launches: {launches[f"mc_{kind}"]}')
+        checks += check_launches(device, f'mc_{kind}', layouts)
+        if kind != 'dense':
+            continue
+        plain = timed_mock_fits(device, engine, golden_mocks, sample,
+                                DEFAULT_FIT_CHUNK, 'mc dense golden, plain '
+                                'combine', use_kernel=False)
+        check_mock_fits('mc dense golden, plain combine', plain, want)
+        x0 = torch.tensor([[vega.mc_config['sample']['values'][n]
+                            for n in want['names']]] * want['n_mocks'],
+                          dtype=torch.float64, device=device)
+        data = {k: torch.as_tensor(v, device=device)
+                for k, v in golden_mocks.items()}
+        routes = [vega.chi2_batch_derivatives(
+            want['names'], x0, data_vecs=data,
+            cov_scales=dict.fromkeys(data, 1.0), use_kernel=use_kernel)
+            for use_kernel in (True, False)]
+        compare_derivatives(
+            'mc dense at the start, kernels vs plain combine',
+            *({'chi2': list(r[0].cpu().numpy()),
+               'gradient': list(r[1].cpu().numpy()),
+               'hessian': list(r[2].cpu().numpy())} for r in routes),
+            {'chi2': KERNEL_GRAD_RTOL, 'gradient': KERNEL_GRAD_RTOL,
+             'hessian': KERNEL_HESS_RTOL})
+        for rows in (DEFAULT_FIT_CHUNK, MC_DENSE_MOCKS):
+            profile_call(f'mc dense derivatives ({rows} rows, one Newton '
+                         'iteration)', lambda: vega.chi2_batch_derivatives(
+                             want['names'], x0[:1].expand(rows, -1),
+                             data_vecs={k: v[:rows]
+                                        for k, v in mocks.items()},
+                             cov_scales=dict.fromkeys(data, 1.0)), device)
+        batched = [key for key in layouts if key[2] > 1]
+        if not any(key[0] == 'Ft' for key in batched):
+            fail('the dense mock fits launched no transpose kernel (Ft_d) '
+                 'at B > 1')
+        if not any(key[1] >= 1 for key in batched):
+            fail('the dense mock fits launched no kernel of order d >= 1 '
+                 'at B > 1')
+    return launches, checks
 
 
 # (name, primitive, orders, the TPU code it replaces: file:line, and
@@ -857,11 +1152,14 @@ def main():
         edge_checks = check_edge_layouts(device, knot_grid,
                                          dense_checks[0]['layout'][1])
         grid_launches, grid_checks = run_grid_path(device, main_ini, card)
-        fit_launches, fit_checks = run_fit_path(device, work)
+        fit_ini, fit_launches, fit_checks = run_fit_path(device, work)
+        scan_launches, scan_checks = run_scan_path(device, fit_ini)
+        mc_launches, mc_checks = run_mc_path(device, work)
 
-    checks = dense_checks + grid_checks + fit_checks
+    checks = dense_checks + grid_checks + fit_checks + scan_checks + mc_checks
     kernels = kernel_records(
-        {'dense': dense_launches, 'grid': grid_launches, **fit_launches},
+        {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
+         'scan': scan_launches, **mc_launches},
         checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -33,6 +33,7 @@ from vega_tpu.ops.spline import spline_eval as jax_spline_eval
 from vega_tpu.testing import make_synthetic_dataset as jax_make_dataset
 from vega_tpu.vega_interface import VegaInterface as JaxInterface
 from vega_tpu_torch import gridcollapse as gc
+from vega_tpu_torch.analysis import Analysis
 from vega_tpu_torch.ops import spline_combine as sc
 from vega_tpu_torch.ops.spline_combine import (
     KnotGrid, spline_legendre_combine, spline_legendre_combine_reference)
@@ -496,6 +497,21 @@ def test_minimize_matches_jax(setup, ports, monkeypatch, regime, capsys):
     assert 'Total chi^2/(ndata-nparam)' in capsys.readouterr().out
 
 
-def test_analysis_is_not_ported(ports):
-    with pytest.raises(NotImplementedError, match='item 8'):
-        ports['grid_own'].analysis  # noqa: B018
+def test_analysis_is_not_ported(setup, ports):
+    """(Named for the raise it replaced.) The port's `analysis` is its own
+    Analysis, and a one-point profile scan (bias_LYA fixed, ap, at and
+    beta_LYA re-minimised on the port's own payload) equals vega_tpu's:
+    fval within the 2e-4 mode budget, free values within 1e-6 (their
+    errors are ~1e-2)."""
+    port, jax_vega = ports['grid_own'], setup['jax']
+    assert isinstance(port.analysis, Analysis)
+    rows = []
+    for vega in (port, jax_vega):
+        vega.main_config['chi2 scan'] = {'bias_LYA': '-0.12 -0.12 1'}
+        rows.append(vega.analysis.chi2_scan())
+    (got,), (want,) = rows
+    assert set(got) == set(want) == {*NAMES, 'fval'}
+    assert got['bias_LYA'] == want['bias_LYA'] == -0.12
+    assert abs(got['fval'] - want['fval']) <= 2e-4 + 1e-9 * abs(want['fval'])
+    for name in ('ap', 'at', 'beta_LYA'):
+        assert abs(got[name] - want[name]) <= 1e-6

@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import vega_tpu.mocks as jax_mocks
 from vega_tpu.io.fits import read_fits as jax_read_fits
 from vega_tpu.parameters.param_utils import get_default_values as jax_defaults
 from vega_tpu.statics import resolve
 from vega_tpu.testing import make_synthetic_dataset as jax_make_dataset
 from vega_tpu.vega_interface import VegaInterface as JaxInterface
-from vega_tpu_torch import state
+from vega_tpu_torch import mocks, state
 from vega_tpu_torch.correlation_func import CorrelationFunction
 from vega_tpu_torch.model import Model
 from vega_tpu_torch.pktoxi import PktoXi
@@ -86,8 +87,27 @@ def test_load_constants_round_trip(tiny_main, constants):
 def test_synthetic_files_match_jax(tiny_main, tmp_path):
     """The port's make_synthetic_dataset writes the JAX package's files:
     same layout and headers, data vectors from the port's model."""
-    jax_dir, port_dir = Path(tiny_main).parent, tmp_path / 'port'
-    make_synthetic_dataset(port_dir, cross=True, size='tiny', device='cpu')
+    make_synthetic_dataset(tmp_path / 'port', cross=True, size='tiny',
+                           device='cpu')
+    assert_same_files(Path(tiny_main).parent, tmp_path / 'port')
+
+
+def test_synthetic_files_with_options_match_jax(tmp_path):
+    """With a seed, noise and extra [control] text (here opening the
+    [monte carlo] sections) the files are the JAX package's too."""
+    options = dict(
+        cross=True, size='tiny', seed=3, noise=1.0,
+        sample={'ap': '0.5 1.5 1.02 0.02', 'bias_LYA': 'True'},
+        extra_control='mc_seed = 7\n\n[monte carlo]\nbias_LYA = True\n'
+                      '\n[mc parameters]\nbias_LYA = -0.117\n')
+    jax_make_dataset(tmp_path / 'jax', **options)
+    make_synthetic_dataset(tmp_path / 'port', device='cpu', **options)
+    assert_same_files(tmp_path / 'jax', tmp_path / 'port')
+
+
+def assert_same_files(jax_dir, port_dir):
+    """Same FITS layouts, headers and columns (DA within 1e-12 of its
+    largest entry: each package's own model), same ini texts."""
     fits_files = sorted(p.name for p in jax_dir.glob('*.fits'))
     assert fits_files == sorted(p.name for p in port_dir.glob('*.fits'))
     assert len(fits_files) == 3
@@ -169,7 +189,8 @@ leaked = [m for m in sys.modules
 assert not leaked, leaked
 assert len(names) >= 19, names
 new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
-       'vega_tpu_torch.parallel', 'vega_tpu_torch.parallel.batch'}
+       'vega_tpu_torch.parallel', 'vega_tpu_torch.parallel.batch',
+       'vega_tpu_torch.analysis', 'vega_tpu_torch.mocks'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''
@@ -177,3 +198,48 @@ print('ok', len(names))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith('ok')
+
+
+# ----------------------------------------------------------------------
+# mocks.py, a copy of vega_tpu/mocks.py
+# ----------------------------------------------------------------------
+def _mock_case(case, mod, vega):
+    data = vega.data['qsoxlya']
+    rng = np.random.default_rng(4)
+    if case == 'match_to_data_grid':
+        n_model = data.dist_model_coordinates.rp_grid.size
+        out = [mod.match_to_data_grid(rng.normal(size=data.full_data_size),
+                                      data),
+               mod.match_to_data_grid(rng.normal(size=n_model), data)]
+        with pytest.raises(ValueError, match='Could not match'):
+            mod.match_to_data_grid(np.zeros(7), data)
+        return out
+    cov = np.cov(rng.normal(size=(12, 40)))
+    if case == 'scaled_cholesky':
+        mask = rng.random(12) < 0.7
+        return [mod.scaled_cholesky(cov), mod.scaled_cholesky(cov, 2.5),
+                mod.scaled_cholesky(cov, 0.5, mask=mask)]
+    if case == 'gaussian_draw':
+        chol = np.linalg.cholesky(cov)
+        np.random.seed(11)
+        return [mod.gaussian_draw(np.arange(12.0), chol),
+                mod.gaussian_draw(np.arange(12.0), chol,
+                                  rng=np.random.default_rng(2))]
+    assert case == 'resolve_scale'
+    item = vega.corr_items['qsoxlya']
+    return [mod.resolve_scale({'qsoxlya': 3.0}, item, 'qsoxlya'),
+            mod.resolve_scale({'other': 3.0}, item, 'qsoxlya'),
+            mod.resolve_scale(2.0, item), mod.resolve_scale(None, item),
+            mod.resolve_scale(None)]
+
+
+@pytest.mark.parametrize('case', ['match_to_data_grid', 'scaled_cholesky',
+                                  'gaussian_draw', 'resolve_scale'])
+def test_mocks_match_jax(tiny_main, case):
+    """Each function of the port's mocks.py gives vega_tpu's output,
+    bit for bit, on the same inputs (the numpy global RNG seeded alike)."""
+    want = _mock_case(case, jax_mocks, JaxInterface(tiny_main))
+    got = _mock_case(case, mocks, VegaInterface(tiny_main, device='cpu'))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

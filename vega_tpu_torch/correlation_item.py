@@ -31,6 +31,7 @@ class CorrelationItem:
         }
 
         self.has_distortion = config['data'].getboolean('distortion', True)
+        self.cov_rescale = config['data'].getfloat('cov_rescale', None)
 
         self.has_data = config['data'].getboolean('has_datafile', True)
         if 'filename' not in config['data']:

@@ -1,15 +1,18 @@
 """Correlation-function data: data vector, scale-cut masks, covariance,
 masked inverse covariance, log-determinant and distortion matrix.
 
-Counterpart of vega_tpu/data.py for the dense likelihood. Host-side numpy
-throughout; the likelihood copies what it needs to the device. Mocks and
-small-scale marginalization templates are not ported yet.
+Counterpart of vega_tpu/data.py without metals and small-scale
+marginalization templates. Host-side numpy throughout; the likelihood
+copies what it needs to the device. Monte-Carlo mocks
+(`create_monte_carlo`) draw from the numpy global RNG, as vega_tpu's do,
+so a seeded host mock is the same numbers in both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import mocks
 from .coordinates import Coordinates
 from .io.fits import read_fits
 from .utils import (compute_log_cov_det, compute_masked_invcov, find_file,
@@ -21,6 +24,8 @@ class Data:
 
     def __init__(self, corr_item):
         config = corr_item.config
+        self.cholesky_masked_cov = config['data'].getboolean(
+            'cholesky-masked-cov', True)
 
         self.data_vec = None
         self._cov_mat = None
@@ -43,6 +48,12 @@ class Data:
         if self._cov_mat is None:
             self._cov_mat = np.eye(self.full_data_size)
         self.masked_data_vec = self.data_vec[self.data_mask]
+
+        # Monte-Carlo state (vega_tpu/data.py:88-91)
+        self._cholesky = None
+        self._scale = 1.
+        self.scaled_inv_masked_cov = None
+        self.scaled_log_cov_det = None
 
     @property
     def cov_mat(self):
@@ -73,6 +84,58 @@ class Data:
             self._log_cov_det = compute_log_cov_det(
                 self.cov_mat, self.data_mask)
         return self._log_cov_det
+
+    # ------------------------------------------------------------------
+    # Monte Carlo (vega_tpu/data.py:429-477)
+    # ------------------------------------------------------------------
+    def set_cov_scale(self, scale):
+        """Track the active covariance rescale for the chi^2 side
+        (scaled inverse covariance and log-determinant). Returns True
+        when the scale actually changed."""
+        changed = not np.isclose(scale, self._scale)
+        if changed:
+            self._scale = scale
+            self.scaled_inv_masked_cov = self.inv_masked_cov / scale
+            self.scaled_log_cov_det = self.log_cov_det + np.log(scale)
+        elif self.scaled_inv_masked_cov is None:
+            # first call at the default scale: the "scaled" views are
+            # simply the unscaled ones
+            self.scaled_inv_masked_cov = self.inv_masked_cov
+            self.scaled_log_cov_det = self.log_cov_det
+        return changed
+
+    def create_monte_carlo(self, fiducial_model, scale=None, seed=None,
+                           forecast=False):
+        """One Cholesky mock of the data (fiducial + L @ N(0, 1) from the
+        numpy global RNG, seeded with `seed` when given); forecast=True
+        gives the noiseless fiducial. Sets mc_mock (full grid, NaN outside
+        the mask when only the masked covariance is factored) and
+        masked_mc_mock."""
+        rescaled = self.set_cov_scale(1 if scale is None else scale)
+        fiducial = mocks.match_to_data_grid(fiducial_model, self)
+
+        if forecast:
+            if seed is not None:
+                np.random.seed(seed)
+            self.mc_mock = fiducial
+        else:
+            if self._cholesky is None or rescaled:
+                self._cholesky = mocks.scaled_cholesky(
+                    self.cov_mat, self._scale,
+                    mask=self.data_mask if self.cholesky_masked_cov
+                    else None)
+            if seed is not None:
+                np.random.seed(seed)
+            if self.cholesky_masked_cov:
+                # noise only on the unmasked bins; everything else NaN
+                self.mc_mock = np.full(self.full_data_size, np.nan)
+                self.mc_mock[self.data_mask] = mocks.gaussian_draw(
+                    fiducial[self.data_mask], self._cholesky)
+            else:
+                self.mc_mock = mocks.gaussian_draw(fiducial, self._cholesky)
+
+        self.masked_mc_mock = self.mc_mock[self.data_mask]
+        return self.mc_mock
 
     @staticmethod
     def _column(hdu_columns, *names, required=False):

@@ -561,8 +561,7 @@ def build_grid_payload(vega, sample_names, grid_names, spec,
             tmat_cache[deg] = cheb_transform_matrix(deg)
         return tmat_cache[deg]
 
-    data_vecs = {name: vega.data[name].masked_data_vec
-                 for name in vega.corr_items}
+    data_vecs = vega._current_data_vecs()
     out = {'__grid__': spec}
     for name in vega.corr_items:
         if name not in payload_nodes:

@@ -84,7 +84,8 @@ velocity dispersion = lorentz
 """
 
 
-def _main_ini(ini_files, template_file, out_file, sample=None, zeff=2.33):
+def _main_ini(ini_files, template_file, out_file, sample=None, zeff=2.33,
+              extra_control=''):
     sample = sample or {'bias_LYA': 'True', 'beta_LYA': 'True'}
     sample_block = '\n'.join(f'{k} = {v}' for k, v in sample.items())
     params_block = '\n'.join(f'{k} = {v}' for k, v in DEFAULT_PARAMS.items())
@@ -100,7 +101,7 @@ cosmo fit func = ap_at
 filename = {template_file}
 
 [control]
-
+{extra_control}
 
 [output]
 filename = {out_file}
@@ -113,7 +114,8 @@ filename = {out_file}
 """
 
 
-def _write_correlation_data(path, is_cross, z_eff, model_xi=None, nt=50):
+def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
+                            noise=0.0, nt=50):
     """Write a picca-export-style correlation FITS file with synthetic
     contents (same layout as reference tests/data/*-exp.fits.gz)."""
     if is_cross:
@@ -129,10 +131,11 @@ def _write_correlation_data(path, is_cross, z_eff, model_xi=None, nt=50):
             -(r - 105.0) ** 2 / (2 * 15.0 ** 2))))
 
     # Realistic per-bin uncertainties (S/N ~ 20) so synthetic fits are
-    # well-conditioned; written as a diagonal covariance. Noise-free: the
-    # data vector is the model itself.
+    # well-conditioned; written as a diagonal covariance. `noise` sigmas
+    # of Gaussian noise from `rng` (drawn even when noise = 0, as
+    # vega_tpu draws them, so a seed gives the same files)
     sigma = 1e-6 + 0.05 * np.abs(model_xi)
-    da = model_xi
+    da = model_xi + noise * sigma * rng.normal(size=n)
     cov = np.diag(sigma ** 2)
     z = np.full(n, z_eff)
     nb = np.full(n, 1000, dtype=np.int64)
@@ -154,21 +157,26 @@ def _write_correlation_data(path, is_cross, z_eff, model_xi=None, nt=50):
 
 
 def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
-                           sample=None):
+                           sample=None, seed=0, noise=0.0, extra_control=''):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
-    The files equal vega_tpu.testing.make_synthetic_dataset's with its
-    default options (noise-free, no distortion matrix) and the same
-    `sample` ({name: [sample] entry}; default bias_LYA and beta_LYA
-    sampled). size='tiny' shrinks every axis (k grid, mu_k bins, rp/rt
-    bins) for fast checks. `device` is where the second pass evaluates
-    the model: the card unless the caller asks for 'cpu'; asking for
-    CUDA without a GPU raises before any file is written.
+    The files equal vega_tpu.testing.make_synthetic_dataset's with no
+    distortion matrix, no global covariance and no extra [model] lines,
+    given the same `sample` ({name: [sample] entry}; default bias_LYA and
+    beta_LYA sampled), `seed` and `noise` (Gaussian noise in units of
+    each bin's sigma, from np.random.default_rng(seed); default none) and
+    `extra_control` (text placed under [control], which may open further
+    sections such as [monte carlo]). size='tiny' shrinks every axis (k
+    grid, mu_k bins, rp/rt bins) for fast checks. `device` is where the
+    second pass evaluates the model: the card unless the caller asks for
+    'cpu'; asking for CUDA without a GPU raises before any file is
+    written.
     """
     from .vega_interface import VegaInterface, resolve_device
     device = resolve_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
 
     tiny = size == 'tiny'
     n_k = 128 if tiny else 814
@@ -180,14 +188,16 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
 
     z_eff = 2.33
     auto_file = workdir / 'cf_synthetic.fits'
-    _write_correlation_data(auto_file, False, z_eff, nt=nt)
+    _write_correlation_data(auto_file, False, z_eff, rng, noise=noise,
+                            nt=nt)
     ini_files = [workdir / 'lyaxlya.ini']
     ini_files[0].write_text(_auto_ini(auto_file, extra_model=model_lines))
 
     cross_file = None
     if cross:
         cross_file = workdir / 'xcf_synthetic.fits'
-        _write_correlation_data(cross_file, True, z_eff, nt=nt)
+        _write_correlation_data(cross_file, True, z_eff, rng, noise=noise,
+                                nt=nt)
         cross_ini = workdir / 'qsoxlya.ini'
         cross_ini.write_text(_cross_ini(cross_file, extra_model=model_lines))
         ini_files.append(cross_ini)
@@ -195,7 +205,7 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     main_path = workdir / 'main.ini'
     main_path.write_text(_main_ini(
         ini_files, template_file, workdir / 'output', sample=sample,
-        zeff=z_eff))
+        zeff=z_eff, extra_control=extra_control))
 
     # Second pass: regenerate the data vectors from the actual model at
     # the default parameters so fits are well-posed (truth = defaults)
@@ -204,7 +214,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     for name, corr_item in vega.corr_items.items():
         is_cross = corr_item.tracer1['type'] != corr_item.tracer2['type']
         fname = cross_file if is_cross else auto_file
-        _write_correlation_data(fname, is_cross, z_eff,
-                                model_xi=np.asarray(model_cf[name]), nt=nt)
+        _write_correlation_data(fname, is_cross, z_eff, rng,
+                                model_xi=np.asarray(model_cf[name]),
+                                noise=noise, nt=nt)
 
     return main_path

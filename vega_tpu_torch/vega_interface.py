@@ -23,9 +23,13 @@ The fit (`minimize`, with minimizer.Minimizer) runs on exact derivatives
 of the same chi^2 at a point: `chi2_value_and_gradient` and
 `chi2_hessian` take torch autograd through whichever path the names
 dispatch to (on the dense path through the differentiable spline +
-Legendre combine, ops/spline_combine.py). The analysis (scans),
-output, plots, Monte-Carlo, global covariance, marginalization and
-blinding beyond "none" are not ported yet.
+Legendre combine, ops/spline_combine.py); `chi2_batch_derivatives`
+gives the same for B independent rows, which the batched Newton of
+parallel/batch.py (profile scans, Monte-Carlo mock fits) runs on. The
+chi^2 is taken against the current data vectors: the data, or after
+`initialize_monte_carlo` the Monte-Carlo mock. Output, plots, global
+covariance, marginalization and blinding beyond "none" are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import scipy.stats
 import torch
 
 from . import gridcollapse, utils
+from .analysis import Analysis
 from .correlation_item import CorrelationItem
 from .data import Data
 from .factored import FactoredXi, Sampling, densify
@@ -100,8 +105,6 @@ class VegaInterface:
         torch.backends.cudnn.allow_tf32 = False
 
         self.main_config = parse_ini(main_path)
-        if 'monte carlo' in self.main_config:
-            raise not_ported('Monte-Carlo', 8)
 
         self.fiducial = self._read_fiducial(self.main_config['fiducial'])
         self.fiducial['z_eff'] = self.main_config['data sets'].getfloat('zeff')
@@ -153,11 +156,24 @@ class VegaInterface:
                                    self.data[name], device=self.device)
                        for name, item in self.corr_items.items()}
 
+        # Monte Carlo config (vega_interface.py:157-164)
+        self.mc_config = None
+        if 'monte carlo' in self.main_config:
+            self.mc_config = {'params': {}}
+            for param, value in self.main_config['mc parameters'].items():
+                self.mc_config['params'][param] = float(value)
+            self.mc_config['sample'] = self._read_sample(
+                self.main_config['monte carlo'])
+
         self.priors = {}
         if 'priors' in self.main_config:
             self.priors = self._init_priors(self.main_config['priors'])
             for param in self.priors:
-                if param not in self.sample_params['limits']:
+                not_sampled = param not in self.sample_params['limits']
+                if self.mc_config is not None:
+                    not_sampled &= (param
+                                    not in self.mc_config['sample']['limits'])
+                if not_sampled:
                     raise ValueError('Prior specified for a parameter that '
                                      f'is not sampled: {param}')
 
@@ -173,9 +189,12 @@ class VegaInterface:
         self._grid_collapse = (
             os.environ.get('VEGA_TPU_GRID_COLLAPSE', '1') == '1')
         self._collapsed_cache = {}
+        # data-dependent caches, keyed on the data vectors' ids as well;
+        # each entry holds the vectors, so no id is reused while cached
         self._collapse_data_cache = {}
         self._grid_cache = {}
         self._device_memo = {}
+        self._data_vec_cache = (None, None, None)
         # timings and sizes of the last grid-payload build
         # (gridcollapse.build_grid_payload)
         self.grid_stats = {}
@@ -189,6 +208,12 @@ class VegaInterface:
                 self.chi2, self.sample_params,
                 grad_func=self.chi2_gradient, hess_func=self.chi2_hessian,
                 valgrad_func=self.chi2_value_and_gradient)
+        self.analysis = Analysis(self.chi2, self.sample_params,
+                                 self.main_config, self.corr_items,
+                                 self.data, self.mc_config,
+                                 grad_func=self.chi2_gradient,
+                                 hess_func=self.chi2_hessian, vega=self)
+        self.monte_carlo = False
 
     def set_fiducial_pk(self, pk_full, pk_smooth):
         """Install the fiducial linear spectra (host arrays)."""
@@ -199,16 +224,55 @@ class VegaInterface:
 
     def set_chi2_constants(self):
         """Copy the chi^2-side host arrays of `self.data` (masked inverse
-        covariance, masked data vector, model mask) to the device."""
+        covariance, model mask) to the device. The data vectors change
+        with Monte-Carlo mocks: `_device_data_vecs` copies those."""
         self._chi2_data = {}
         for name, d in self.data.items():
             self._chi2_data[name] = {
                 'inv_cov': to_tensor(d.inv_masked_cov, self.device),
-                'data_vec': to_tensor(d.masked_data_vec, self.device),
                 'model_index': torch.as_tensor(
                     np.flatnonzero(d.model_mask), dtype=torch.int64,
                     device=self.device),
             }
+
+    def _current_data_vecs(self):
+        """The masked data vector each chi^2 compares with, host numpy:
+        the data, or the Monte-Carlo mock (vega_interface.py:977-988)."""
+        if self.monte_carlo:
+            return {name: self.data[name].masked_mc_mock
+                    for name in self.corr_items}
+        return {name: self.data[name].masked_data_vec
+                for name in self.corr_items}
+
+    def _data_key(self):
+        """(key, vectors): the current data vectors' version (Monte-Carlo
+        mode and ids, vega_interface.py:642-644,786) and the vectors
+        themselves, which a cache entry keeps so their ids stay unique."""
+        vecs = tuple(self._current_data_vecs().values())
+        return (self.monte_carlo,) + tuple(id(v) for v in vecs), vecs
+
+    def _device_data_vecs(self):
+        """Device copies of `_current_data_vecs`, made again when the
+        vectors change (vega_interface.py:990-999)."""
+        key, vecs = self._data_key()
+        if self._data_vec_cache[0] != key:
+            self._data_vec_cache = (key, {
+                name: to_tensor(v, self.device)
+                for name, v in zip(self.corr_items, vecs)}, vecs)
+        return self._data_vec_cache[1]
+
+    def _current_cov_scales(self):
+        """Each correlation's chi^2 scale: 1 / the Monte-Carlo covariance
+        scale in MC mode, else 1 (vega_interface.py:1001-1010)."""
+        scales = {}
+        for name in self.corr_items:
+            corr_data = self.data[name]
+            if (self.monte_carlo
+                    and corr_data.scaled_inv_masked_cov is not None):
+                scales[name] = 1.0 / corr_data._scale
+            else:
+                scales[name] = 1.0
+        return scales
 
     # ------------------------------------------------------------------
     # Batched model + chi^2
@@ -241,14 +305,27 @@ class VegaInterface:
         return model_cf, bad
 
     def _chi2_rows(self, local_params, n_b, use_kernel=True, names=(),
-                   collapsed=None):
+                   collapsed=None, data_vecs=None, cov_scales=None):
         """chi^2 of B rows (vega_interface.py:374-530): correlations in
         `collapsed` from their quadratic form in the coefficients, every
-        other one densely at the true values."""
+        other one densely at the true values, each times its scale.
+
+        data_vecs: {name: (n_masked,) or (B, n_masked) device tensor}, a
+        data vector per row (Monte-Carlo mock fits); default the current
+        ones (`_device_data_vecs`). A collapse with data terms (y, s) or a
+        grid payload bakes the current data in and takes none.
+        cov_scales: {name: float}, default `_current_cov_scales`."""
         if self._chi2_data is None:
             self.set_chi2_constants()
         collapsed = self._device_collapsed(collapsed or {})
         spec = collapsed.get('__grid__')
+        if data_vecs is None:
+            data_vecs = self._device_data_vecs()
+        elif spec is not None or any('y' in t for t in collapsed.values()):
+            raise ValueError('a collapse with the data terms baked in cannot '
+                             'serve per-row data vectors')
+        if cov_scales is None:
+            cov_scales = self._current_cov_scales()
         sampling = Sampling(frozenset(names)) if self._factored and names \
             else None
         coeff_params = local_params
@@ -260,6 +337,7 @@ class VegaInterface:
         chi2 = torch.zeros(n_b, dtype=DTYPE, device=self.device)
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         for name in self.corr_items:
+            arrays = self._chi2_data[name]
             if name in collapsed:
                 tensors = collapsed[name]
                 coeffs = self.models[name].coefficients(coeff_params, n_b)
@@ -268,25 +346,38 @@ class VegaInterface:
                         'collapsed tensors do not match the factored term '
                         f'structure of {name}')
                 if spec is not None:
-                    chi2 = chi2 + gridcollapse.grid_corr_chi2(
-                        tensors, tvecs, coeffs)
+                    corr_chi2 = gridcollapse.grid_corr_chi2(tensors, tvecs,
+                                                            coeffs)
                 else:
-                    # centered quadratic form (vega_interface.py:491-506)
+                    # centered quadratic form (vega_interface.py:491-511):
+                    # r'Ci r - 2 dc.(W r) + dc.(A dc) with r = d - m0, the
+                    # data terms (y = W r, s = r'Ci r) taken on the host
+                    # when the collapse has them
                     dc = coeffs - tensors['cref']
-                    chi2 = chi2 + (tensors['s'] - 2.0 * (dc @ tensors['y'])
-                                   + torch.sum(dc * (dc @ tensors['A'].T),
-                                               dim=-1))
-                continue
-            cf, cf_bad = self.models[name].compute(
-                local_params, self._pk_full, self._pk_smooth,
-                use_kernel=use_kernel, sampling=sampling)
-            arrays = self._chi2_data[name]
-            model = densify(cf).expand(n_b, -1)
-            diff = arrays['data_vec'] - model[:, arrays['model_index']]
-            # row-wise diff . (C^-1 diff), as the JAX package orders it
-            chi2 = chi2 + torch.sum(diff * (diff @ arrays['inv_cov'].T),
-                                    dim=-1)
-            bad = bad | cf_bad
+                    quad = torch.sum(dc * (dc @ tensors['A'].T), dim=-1)
+                    if 'y' in tensors:
+                        corr_chi2 = (tensors['s'] - 2.0 * (dc @ tensors['y'])
+                                     + quad)
+                    else:
+                        r = data_vecs[name] - tensors['m0']
+                        corr_chi2 = (
+                            torch.sum(r * (r @ arrays['inv_cov'].T), dim=-1)
+                            - 2.0 * torch.sum(dc * (r @ tensors['W'].T),
+                                              dim=-1)
+                            + quad)
+            else:
+                cf, cf_bad = self.models[name].compute(
+                    local_params, self._pk_full, self._pk_smooth,
+                    use_kernel=use_kernel, sampling=sampling)
+                model = densify(cf).expand(n_b, -1)
+                diff = data_vecs[name] - model[:, arrays['model_index']]
+                # row-wise diff . (C^-1 diff), as the JAX package orders it
+                corr_chi2 = torch.sum(diff * (diff @ arrays['inv_cov'].T),
+                                      dim=-1)
+                bad = bad | cf_bad
+            # a scale of 1 multiplies nothing (exact either way)
+            scale = cov_scales[name]
+            chi2 = chi2 + (corr_chi2 if scale == 1.0 else scale * corr_chi2)
         chi2 = chi2 + self._prior_chi2(local_params)
         if spec is not None:
             # smooth wall outside the node domain (GRID_WALL_CHI2)
@@ -360,35 +451,32 @@ class VegaInterface:
         log_norm = 0.
         for name in self.corr_items:
             log_norm -= 0.5 * self.data[name].data_size * np.log(2 * np.pi)
-            log_norm -= 0.5 * self.data[name].log_cov_det
+            if (self.monte_carlo
+                    and self.data[name].scaled_log_cov_det is not None):
+                log_norm -= 0.5 * self.data[name].scaled_log_cov_det
+            else:
+                log_norm -= 0.5 * self.data[name].log_cov_det
         return log_norm
 
     # ------------------------------------------------------------------
     # Derivatives (vega_interface.py:883-912,949-975)
     # ------------------------------------------------------------------
-    def _chi2_at(self, params, free_names, use_kernel):
-        """(chi^2 as a 0-d tensor, {name: leaf}) at one point, dispatched
-        by the names of `params` as chi2_batch dispatches them: a 0-d f64
-        leaf on the device that requires grad for each of `free_names`,
-        the other values as floats; `_chi2_rows` on a batch of one."""
-        names = frozenset(params)
-        collapsed = self.get_collapsed(names)
-        leaves = {name: torch.tensor(float(params[name]), dtype=DTYPE,
-                                     device=self.device, requires_grad=True)
-                  for name in free_names}
-        local, _ = self._batch_params(
-            {name: leaves.get(name, float(value))
-             for name, value in params.items()})
-        chi2 = self._chi2_rows(local, 1, use_kernel, names, collapsed)
-        return chi2[0], leaves
-
     def chi2_value_and_gradient(self, params, use_kernel=True):
         """(chi^2, {name: d chi^2 / d name}) over every key of `params`,
         exact (torch autograd, reverse mode): the minimizer's hot path.
-        use_kernel=False takes the plain PyTorch combine on a CUDA device
-        (for comparing it with the kernels)."""
+        Dispatched by the names of `params` as chi2_batch dispatches
+        them, each a 0-d f64 leaf on the device; `_chi2_rows` on a batch
+        of one. use_kernel=False takes the plain PyTorch combine on a CUDA
+        device (for comparing it with the kernels)."""
+        names = frozenset(params)
+        collapsed = self.get_collapsed(names)
         with torch.enable_grad():
-            chi2, leaves = self._chi2_at(params, list(params), use_kernel)
+            leaves = {name: torch.tensor(float(value), dtype=DTYPE,
+                                         device=self.device,
+                                         requires_grad=True)
+                      for name, value in params.items()}
+            local, _ = self._batch_params(leaves)
+            chi2 = self._chi2_rows(local, 1, use_kernel, names, collapsed)[0]
             grads = torch.autograd.grad(chi2, list(leaves.values()),
                                         materialize_grads=True)
         return float(chi2.detach()), {name: float(g)
@@ -401,26 +489,68 @@ class VegaInterface:
 
     def chi2_hessian(self, params, free_names, use_kernel=True):
         """Exact chi^2 Hessian over free_names, {n1: {n2: value}}, the
-        other names of `params` held fixed: reverse over reverse, the
-        gradient with its graph (create_graph), then one backward pass per
-        free name. Through the combine that is the Functions' double
-        backward (ops/spline_combine.py)."""
+        other names of `params` held fixed: `chi2_batch_derivatives` on a
+        batch of one."""
         free_names = list(free_names)
-        with torch.enable_grad():
-            chi2, leaves = self._chi2_at(params, free_names, use_kernel)
-            free = [leaves[name] for name in free_names]
-            grads = torch.autograd.grad(chi2, free, create_graph=True,
-                                        materialize_grads=True)
-            rows = []
-            for grad in grads:
-                if not grad.requires_grad:      # chi^2 linear in it
-                    rows.append([0.0] * len(free))
-                    continue
-                row = torch.autograd.grad(grad, free, retain_graph=True,
-                                          materialize_grads=True)
-                rows.append([float(h) for h in row])
-        return {n1: {n2: rows[i][j] for j, n2 in enumerate(free_names)}
+        hess = self.chi2_batch_derivatives(
+            free_names, [[float(params[n]) for n in free_names]],
+            fixed={n: float(v) for n, v in params.items()
+                   if n not in free_names},
+            use_kernel=use_kernel)[2][0].tolist()
+        return {n1: {n2: hess[i][j] for j, n2 in enumerate(free_names)}
                 for i, n1 in enumerate(free_names)}
+
+    def chi2_batch_derivatives(self, free_names, values, fixed=None,
+                               data_vecs=None, cov_scales=None,
+                               use_kernel=True):
+        """Exact chi^2 (B,), gradient (B, n) and Hessian (B, n, n) over
+        the n `free_names` for B independent rows, as f64 tensors on the
+        device: the batched Newton's derivatives (what vega_tpu takes with
+        jax.grad / jax.hessian under jax.vmap, parallel/batch.py:313-314).
+
+        values: (B, n) free values; fixed: {name: float or (B,) values}
+        for other parameters (a scan's fixed grid values); the rest keep
+        their stored values. Dispatched by the names as chi2_batch
+        dispatches them. data_vecs: {name: (B, n_masked)} a data vector
+        per row (Monte-Carlo mocks): the call then takes the collapse
+        without data terms (`get_collapsed(..., with_data_terms=False)`,
+        {} for a grid payload: the dense path). cov_scales as in
+        `_chi2_rows`. use_kernel=False takes the plain combine on a CUDA
+        device.
+
+        Each free parameter is a (B,) leaf; the rows are independent, so
+        the gradient of chi^2.sum() is each row's gradient, and one more
+        backward pass per free name gives each row's Hessian row (reverse
+        over reverse; through the combine that is the Functions' double
+        backward, ops/spline_combine.py)."""
+        free_names = list(free_names)
+        fixed = dict(fixed or {})
+        names = frozenset(free_names) | frozenset(fixed)
+        collapsed = self.get_collapsed(names,
+                                       with_data_terms=data_vecs is None)
+        values = torch.as_tensor(values, dtype=DTYPE, device=self.device)
+        with torch.enable_grad():
+            leaves = [values[:, i].detach().clone().requires_grad_(True)
+                      for i in range(len(free_names))]
+            local, n_b = self._batch_params(
+                {**fixed, **dict(zip(free_names, leaves))})
+            n_b = max(n_b, values.shape[0])
+            chi2 = self._chi2_rows(local, n_b, use_kernel, names, collapsed,
+                                   data_vecs, cov_scales)
+            n_free = len(leaves)
+            hess = torch.zeros((n_b, n_free, n_free), dtype=DTYPE,
+                               device=self.device)
+            if not n_free:
+                return chi2.detach(), hess.new_zeros((n_b, 0)), hess
+            grads = torch.autograd.grad(chi2.sum(), leaves, create_graph=True,
+                                        materialize_grads=True)
+            for i, grad in enumerate(grads):
+                if grad.requires_grad:      # else chi^2 is linear in it
+                    row = torch.autograd.grad(grad.sum(), leaves,
+                                              retain_graph=True,
+                                              materialize_grads=True)
+                    hess[:, i] = torch.stack(row, dim=-1)
+        return chi2.detach(), torch.stack(grads, dim=-1).detach(), hess
 
     # ------------------------------------------------------------------
     # The fit (vega_interface.py:1443-1506)
@@ -428,10 +558,10 @@ class VegaInterface:
     def minimize(self):
         """Minimize chi^2 over the sampled parameters, then the best-fit
         model, per-correlation chi^2, reduced chi^2 and PTE
-        (vega_interface.py:1443-1502). The port has no Monte-Carlo mocks
-        or marginalization templates yet (both raise at construction), so
-        the data vector is the data and the effective size the masked
-        size."""
+        (vega_interface.py:1443-1502): against the Monte-Carlo mock and
+        its scaled covariance in MC mode. The port has no marginalization
+        templates (they raise at construction), so the effective size is
+        the masked size."""
         if self.minimizer is None:
             print('No sampled parameters. Skipping minimization.')
             return
@@ -448,9 +578,14 @@ class VegaInterface:
             corr_data = self.data[name]
             data_size = corr_data.data_size
             self.total_data_size += data_size
-            diff = corr_data.masked_data_vec \
-                - self.bestfit_model[name][corr_data.model_mask]
-            chisq = diff.T.dot(corr_data.inv_masked_cov.dot(diff))
+            if self.monte_carlo:
+                diff = corr_data.masked_mc_mock \
+                    - self.bestfit_model[name][corr_data.model_mask]
+                chisq = diff.T.dot(corr_data.scaled_inv_masked_cov.dot(diff))
+            else:
+                diff = corr_data.masked_data_vec \
+                    - self.bestfit_model[name][corr_data.model_mask]
+                chisq = diff.T.dot(corr_data.inv_masked_cov.dot(diff))
             reduced_chisq = chisq / (data_size - num_pars)
             p_value = 1 - scipy.stats.chi2.cdf(chisq, data_size - num_pars)
             print(f'{name} chi^2/(ndata-nparam): {chisq:.1f}/({data_size}'
@@ -477,10 +612,52 @@ class VegaInterface:
     def bestfit(self):
         return self.minimizer
 
-    @property
-    def analysis(self):
-        """vega_tpu's Analysis (parameter scans, Monte-Carlo fits)."""
-        raise not_ported('Analysis (parameter scans, Monte-Carlo fits)', 8)
+    # ------------------------------------------------------------------
+    # Monte Carlo (vega_interface.py:1373-1428)
+    # ------------------------------------------------------------------
+    def get_fiducial_for_monte_carlo(self, print_func=print):
+        """The model the mocks are drawn around: at [mc parameters] over
+        the best fit of [sample] (a fit runs first when anything is
+        sampled), or read from the files [control] mc_fiducial_<name>
+        names when use_measured_fiducial is set."""
+        mc_params = self.mc_config['params']
+        control = self.main_config['control']
+        if control.get('mc_start_from_fit', None) is not None:
+            raise not_ported('mc_start_from_fit (it reads a fit with '
+                             'postprocess/fit_results.py)', 12)
+        if control.getboolean('use_full_pk_for_mc', False):
+            raise not_ported('use_full_pk_for_mc (the model from a given '
+                             'power spectrum, compute_direct)', 10)
+        if self.sample_params['limits']:
+            print_func('Running initial fit')
+            self.minimize()
+            mc_params = self.bestfit.values | mc_params
+
+        if control.getboolean('use_measured_fiducial', False):
+            fiducial_model = {}
+            for name in self.corr_items:
+                path = control.get(f'mc_fiducial_{name}')
+                hdul = read_fits(utils.find_file(path))
+                fiducial_model[name] = hdul[1]['DA']
+            return fiducial_model
+        return self.compute_model(mc_params)
+
+    def initialize_monte_carlo(self, scale=None, print_func=print):
+        """Draw one mock per correlation around the fiducial (seed
+        [control] mc_seed, noiseless with forecast = True), fit the
+        [monte carlo] parameters from now on, and switch the chi^2 to the
+        mock. Returns the mocks."""
+        fiducial_model = self.get_fiducial_for_monte_carlo(print_func)
+        self.minimizer = Minimizer(
+            self.chi2, self.mc_config['sample'],
+            grad_func=self.chi2_gradient, hess_func=self.chi2_hessian,
+            valgrad_func=self.chi2_value_and_gradient)
+        control = self.main_config['control']
+        mocks = self.analysis.create_monte_carlo_sim(
+            fiducial_model, seed=control.getint('mc_seed', 0), scale=scale,
+            forecast=control.getboolean('forecast', False))
+        self.monte_carlo = True
+        return mocks
 
     @torch.no_grad()
     def compute_model(self, params=None, use_kernel=True):
@@ -562,31 +739,42 @@ class VegaInterface:
                     f'factored model {c0}')
 
     def _with_collapse_data_terms(self, key, collapsed):
-        """y = W r and s = r' Ci r with r = d - m0 against the data
-        vector, host f64 (vega_interface.py:631-657)."""
+        """y = W r and s = r' Ci r with r = d - m0 against the current
+        data vector, host f64, cached per data version
+        (vega_interface.py:631-657)."""
         if not collapsed:
             return collapsed
-        if key not in self._collapse_data_cache:
+        data_key, vecs = self._data_key()
+        cache_key = (key, data_key)
+        if cache_key not in self._collapse_data_cache:
+            by_name = dict(zip(self.corr_items, vecs))
             merged = {}
             for name, tensors in collapsed.items():
-                r = self.data[name].masked_data_vec - tensors['m0']
+                r = by_name[name] - tensors['m0']
                 inv_cov = np.asarray(self.data[name].inv_masked_cov)
                 merged[name] = dict(tensors, y=tensors['W'] @ r,
                                     s=float(r @ (inv_cov @ r)))
-            self._collapse_data_cache[key] = merged
-        return self._collapse_data_cache[key]
+            self._collapse_data_cache[cache_key] = (vecs, merged)
+        return self._collapse_data_cache[cache_key][1]
 
     def use_grid_payload(self, sample_names, payload):
         """Serve `sample_names` from a given grid payload (for example
         one built by vega_tpu and read with gridcollapse.load_payload)
         instead of sweeping: it takes the place of the in-memory entry
-        for the current sampling limits."""
+        for the current sampling limits and data vectors."""
         key = frozenset(sample_names)
         grid_names = self._grid_candidate_names(key)
         if tuple(payload['__grid__'].names) != grid_names:
             raise ValueError(f'the payload is over {payload["__grid__"]}, '
                              f'the names sample the grid {grid_names}')
-        self._grid_cache[(key, self._limits_key())] = payload
+        self._grid_cache[self._grid_cache_key(key)] = (
+            self._data_key()[1], payload)
+
+    def _grid_cache_key(self, key):
+        """A grid payload depends on the sampled set, the sampling limits
+        (through measure_dc_max; vega_tpu's key omits them) and the data
+        vectors it bakes in (vega_interface.py:785-790)."""
+        return key, self._limits_key(), self._data_key()[0]
 
     def _limits_key(self):
         return tuple(sorted(
@@ -603,11 +791,17 @@ class VegaInterface:
             if '__grid__' in collapsed:
                 tensors = gridcollapse.device_payload(collapsed, self.device)
             else:
+                # with the host data terms (y, s), or without them (W, m0:
+                # the data vector enters per evaluation, _chi2_rows)
+                parts = (('y', 's') if 'y' in next(iter(collapsed.values()))
+                         else ('W', 'm0'))
                 tensors = {name: {
                     'A': to_tensor(t['A'], self.device),
                     'cref': to_tensor(t['c0'], self.device),
-                    'y': to_tensor(t['y'], self.device),
-                    's': float(t['s'])} for name, t in collapsed.items()}
+                    **{part: (float(t[part]) if part == 's'
+                              else to_tensor(t[part], self.device))
+                       for part in parts}}
+                    for name, t in collapsed.items()}
             memo = self._device_memo[id(collapsed)] = (collapsed, tensors)
         return memo[1]
 
@@ -633,6 +827,7 @@ class VegaInterface:
         model's node-independent power spectra between chunks."""
         if self._chi2_data is None:
             self.set_chi2_constants()
+        data_vecs = self._device_data_vecs()
         sampling = Sampling(frozenset(sampled), frozenset(grid_names))
         local = dict(self.params)
         local.update({k: v for k, v in sample_params.items()
@@ -656,7 +851,7 @@ class VegaInterface:
             w_mat = (v_mat.reshape(n_c * n_t, n_m)
                      @ arrays['inv_cov']).reshape(n_c, n_t, n_m)
             payload[name] = {'A': w_mat @ v_mat.transpose(1, 2),
-                             'e': w_mat @ arrays['data_vec']}
+                             'e': w_mat @ data_vecs[name]}
             c0s[name] = fxi.coeff_vector()
         return payload, c0s, bad
 
@@ -686,6 +881,8 @@ class VegaInterface:
             lo, hi = (float(v) for v in override.split())
         else:
             limits = self.sample_params['limits'].get(name)
+            if limits is None and self.mc_config is not None:
+                limits = self.mc_config['sample']['limits'].get(name)
             if limits is None or limits[0] is None or limits[1] is None:
                 lo, hi = value - 0.25, value + 0.25
             else:
@@ -712,12 +909,13 @@ class VegaInterface:
 
     def _get_grid_collapsed(self, key, grid_names):
         """Grid-collapse payload for one sampled-parameter set, cached in
-        memory on the set AND the sampling limits, which the payload
-        depends on through measure_dc_max (vega_interface.py:778-875,
-        whose key omits the limits). No disk cache yet."""
-        cache_key = (key, self._limits_key())
+        memory (`_grid_cache_key`: a new data vector, e.g. a Monte-Carlo
+        mock, builds a new payload; vega_interface.py:778-875). No disk
+        cache yet."""
+        cache_key = self._grid_cache_key(key)
         if cache_key in self._grid_cache:
-            return self._grid_cache[cache_key]
+            return self._grid_cache[cache_key][1]
+        vecs = self._data_key()[1]
 
         dims = [self._grid_dim_setup(n) for n in grid_names]
         spec = gridcollapse.GridSpec(grid_names, [d[0] for d in dims],
@@ -733,7 +931,7 @@ class VegaInterface:
             print(f'INFO: grid collapse disabled: {spec} needs '
                   f'{sweep_nodes} swept nodes > {max_nodes} '
                   '(VEGA_TPU_GRID_MAX_NODES); using the dense path')
-            self._grid_cache[cache_key] = {}
+            self._grid_cache[cache_key] = (vecs, {})
             return {}
         mode_budget = self._control_get('grid-mode-budget')
         if mode_budget is None:
@@ -753,7 +951,7 @@ class VegaInterface:
             {name: p['cref'] for name, p in payload.items()
              if name != '__grid__'}, zip(spec.names, spec.ref))
         self.grid_stats = stats
-        self._grid_cache[cache_key] = payload
+        self._grid_cache[cache_key] = (vecs, payload)
         return payload
 
     # ------------------------------------------------------------------
