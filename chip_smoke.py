@@ -39,10 +39,11 @@ configuration, with no JAX:
 6. the profile scan: batched_chi2_scan over a 40 x 40 (ap, at) grid,
    each of linspace(0.95, 1.05, 40), on the fit configuration with
    bias_LYA and beta_LYA re-minimised at every point on the grid
-   payload: cold (with the payload) and warm in one fit chunk, and warm
-   at the default chunk (8), with wall time, Newton iterations, rows
-   valid and peak memory; the default chunk's fval against the one
-   chunk's (1e-8: the rows are independent); 16 points against the JAX
+   payload: cold (with the payload) and warm in one fit chunk, and a
+   10 x 10 corner of it warm at the default chunk (8), with wall time,
+   Newton iterations, rows valid and peak memory; the default chunk's
+   fval against the one chunk's (1e-8: the rows are independent); 16
+   points against the JAX
    scan of tests/data/torch_port_mc_goldens.json (|d fval| <= 2e-4 +
    1e-9 |fval|, values within 1e-2 of the JAX errors);
 7. Monte-Carlo mock fits (MonteCarloEngine) on the fit configuration
@@ -97,6 +98,7 @@ GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_goldens.json'
 GRID_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_grid_goldens.json'
 FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
 MC_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mc_goldens.json'
+SAMPLER_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_sampler_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
@@ -139,6 +141,27 @@ MC_VALUE_SIGMA, MC_ERROR_RTOL, MC_CHI2_ABS = 1e-3, 1e-5, 1e-8
 # rows are independent: a scan point's fval in chunks of 8 vs in one chunk
 # differs only by round-off in the last Newton steps
 SCAN_CHUNK_FVAL_ABS = 1e-8
+# the default-chunk scan runs on this corner of the 40 x 40 grid (100
+# points in 13 chunks of 8: the whole grid took 28 s of a run that now
+# also drives the samplers)
+SCAN_DEFAULT_CHUNK_CORNER = 10
+# the sampler phase. NS takes the goldens' [NestedJax] settings. Posterior
+# mean within NS_MEAN_SIGMA of the fit goldens' errors of their grid best
+# fit, posterior sigma within NS_STD_RTOL of those errors (SMC and HMC:
+# twice that, as the JAX package's tests allow); a chain's -2 ln L column
+# against log_lik_batch; a replayed evolution against the eager one
+NS_MEAN_SIGMA, NS_STD_RTOL = 0.5, 0.3
+SAMPLER_LOGL_RTOL = 1e-9
+EVOLVE_LOGL_RTOL = 1e-12
+NS_HOST_ITERATIONS = 5
+SMC_SETTINGS = {'n_effective': 512, 'n_mcmc': 5, 'seed': 0}
+HMC_GRID_SETTINGS = {'num_chains': 32, 'num_warmup': 200,
+                     'num_samples': 200, 'num_leapfrog': 16, 'seed': 0}
+HMC_DENSE_SETTINGS = {'num_chains': 32, 'num_warmup': 20, 'num_samples': 20,
+                      'num_leapfrog': 8, 'seed': 0}
+# the dense log-likelihood's evolution as a graph: chains, repeats,
+# shrink steps
+NS_DENSE_SHAPE = (8, 2, 3)
 
 
 def fail(message):
@@ -522,7 +545,8 @@ def profile_call(label, fn, device):
     span_ms = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) / 1e3
     log(f'profile {label}: {len(kernels)} kernels, {busy_ms:.4f} ms of '
-        f'kernel time in a {span_ms:.4f} ms span')
+        f'kernel time in a {span_ms:.4f} ms span (device idle '
+        f'{max(0.0, 1 - busy_ms / span_ms):.1%})')
     by_name = {}
     for e in kernels:
         by_name.setdefault(e.name, [0, 0.0])
@@ -818,8 +842,8 @@ def run_scan_path(device, fit_ini):
     (bias_LYA, beta_LYA re-minimised at each point) through
     batched_chi2_scan, served by the grid payload at its defaults:
     cold (with the payload build) and warm, every point in one fit chunk;
-    then warm at vega_tpu's default chunk (8), held to the one-chunk scan
-    within SCAN_CHUNK_FVAL_ABS in fval. Holds the 16 golden points of
+    then a 10 x 10 corner warm at vega_tpu's default chunk (8), held to
+    the one-chunk scan within SCAN_CHUNK_FVAL_ABS in fval. Holds the 16 golden points of
     tests/data/torch_port_mc_goldens.json: |d fval| <= 2e-4 + 1e-9 |fval|,
     free values within FIT_VALUE_SIGMA['grid'] of the JAX errors there.
     Returns the launches of the scan's run and the kernel checks at its
@@ -863,14 +887,20 @@ def run_scan_path(device, fit_ini):
     launches = dict(LAUNCHES)
     log(f'scan payload build {payload_s:.3f} s; kernel launches {launches}')
     scan(axis, n_axis ** 2, f'{n_axis} x {n_axis} warm')
-    default_rows, default_stats = scan(axis, DEFAULT_FIT_CHUNK,
-                                       f'{n_axis} x {n_axis} default chunk')
-    for label, run in (('one chunk', stats), ('default chunk', default_stats)):
-        if run['valid_rows'] != len(rows):
-            fail(f'{len(rows) - run["valid_rows"]} scan rows are not valid '
+    corner = SCAN_DEFAULT_CHUNK_CORNER
+    default_rows, default_stats = scan(
+        axis[:corner], DEFAULT_FIT_CHUNK,
+        f'{corner} x {corner} corner, default chunk')
+    for label, run, n_rows in (('one chunk', stats, len(rows)),
+                               ('default chunk', default_stats,
+                                len(default_rows))):
+        if run['valid_rows'] != n_rows:
+            fail(f'{n_rows - run["valid_rows"]} scan rows are not valid '
                  f'({label})')
+    corner_rows = [rows[i * n_axis + j] for i in range(corner)
+                   for j in range(corner)]
     d_default = max(abs(a['fval'] - b['fval'])
-                    for a, b in zip(rows, default_rows))
+                    for a, b in zip(corner_rows, default_rows))
     log(f'scan default chunk vs one chunk: max |d fval| {d_default:.3e} '
         f'(bound {SCAN_CHUNK_FVAL_ABS:g})')
     if not d_default <= SCAN_CHUNK_FVAL_ABS:
@@ -1072,6 +1102,573 @@ def run_mc_path(device, work):
     return launches, checks
 
 
+# ----------------------------------------------------------------------
+# The sampler phase
+# ----------------------------------------------------------------------
+def weighted_moments(samples, weights):
+    mean = np.average(samples, axis=0, weights=weights)
+    return mean, np.sqrt(np.average((samples - mean) ** 2, axis=0,
+                                    weights=weights))
+
+
+def sampler_ini(fit_ini, out_dir, name, settings):
+    """The fit configuration with `run_sampler`, `sampler = name` and the
+    sampler's section, as a user would write it; returns its path."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = Path(fit_ini).read_text().replace(
+        '[control]\n', f'[control]\nrun_sampler = True\nsampler = {name}\n')
+    text += f'\n[{name}]\npath = {out_dir}\nname = chain\n' + ''.join(
+        f'{key} = {value}\n' for key, value in settings.items())
+    path = Path(fit_ini).parent / f'main_{out_dir.name}.ini'
+    path.write_text(text)
+    return path
+
+
+@contextlib.contextmanager
+def timed_method(cls, name, device, times):
+    """While open, every call of cls.name is timed (synchronised) into
+    `times`."""
+    original = getattr(cls, name)
+
+    def wrapper(self, *args, **kwargs):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, original)
+
+
+def run_sampler_script(device, ini, label, sampler_class):
+    """scripts/run_vega_sampler.py on `ini`: (interface, sampler, results,
+    the s of sampler_class.run alone)."""
+    from vega_tpu_torch.scripts import run_vega_sampler
+    run_s = []
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with timed_method(sampler_class, 'run', device, run_s):
+        vega, sampler, results = run_vega_sampler.run(
+            [str(ini), '--device', str(device)])
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if type(sampler) is not sampler_class or len(run_s) != 1:
+        fail(f'{label}: the script did not run {sampler_class.__name__}')
+    log(f'{label}: run_vega_sampler {seconds:.3f} s wall, of which the '
+        f'sampler\'s run {run_s[0]:.3f} s (with the payload build at its '
+        f'first likelihood call; the rest is the interface); peak device '
+        f'memory {peak_gb:.3f} GB')
+    return vega, sampler, results, run_s[0]
+
+
+def read_stats(out_dir):
+    return dict(line.split(' = ') for line in
+                (out_dir / 'chain.stats').read_text().splitlines())
+
+
+def check_chain(label, vega, out_dir, names, limits, logl_column=True):
+    """The written chain: finite, inside the limits, and its -2 ln L
+    column equal to -2 log_lik_batch at its points (SAMPLER_LOGL_RTOL;
+    not for HMC, whose column is twice the potential, log-Jacobian
+    included). Returns the chain."""
+    chain = np.loadtxt(out_dir / 'chain.txt')
+    if chain.shape[1] != 2 + len(names) or not np.all(np.isfinite(chain)):
+        fail(f'{label}: the chain is not finite with {2 + len(names)} '
+             'columns')
+    lo = np.array([limits[n][0] for n in names])
+    hi = np.array([limits[n][1] for n in names])
+    if not np.all((chain[:, 2:] >= lo) & (chain[:, 2:] <= hi)):
+        fail(f'{label}: a chain point lies outside the prior limits')
+    if not logl_column:
+        log(f'{label}: chain {chain.shape[0]} x {chain.shape[1]}, finite, '
+            'inside the limits')
+        return chain
+    want = -2.0 * vega.log_lik_batch(
+        {n: chain[:, 2 + i] for i, n in enumerate(names)}).cpu().numpy()
+    rel = float(np.max(np.abs(chain[:, 1] - want) / np.abs(want)))
+    log(f'{label}: chain {chain.shape[0]} x {chain.shape[1]}, finite, '
+        f'inside the limits; -2 ln L column vs -2 log_lik_batch: max '
+        f'relative diff {rel:.3e} (bound {SAMPLER_LOGL_RTOL:g})')
+    if not rel <= SAMPLER_LOGL_RTOL:
+        fail(f'{label}: the chain\'s -2 ln L differs from log_lik_batch by '
+             f'{rel:.3e}')
+    return chain
+
+
+def check_moments(label, names, mean, std, fit, mean_sigma, std_rtol):
+    """Posterior mean within mean_sigma of the fit goldens' errors of
+    their grid best fit, posterior sigma within std_rtol of those
+    errors."""
+    d_mean = np.abs(mean - np.asarray(fit['values'])) / np.asarray(
+        fit['errors'])
+    d_std = np.abs(std / np.asarray(fit['errors']) - 1)
+    log(f'{label}: posterior mean {mean.tolist()}, sigma {std.tolist()}; '
+        f'|mean - best fit| / error {d_mean.tolist()} (bound '
+        f'{mean_sigma:g}), |sigma / error - 1| {d_std.tolist()} (bound '
+        f'{std_rtol:g}) for {names}')
+    if not np.all(d_mean <= mean_sigma):
+        fail(f'{label}: posterior mean off the best fit by '
+             f'{d_mean.max():.3f} errors')
+    if not np.all(d_std <= std_rtol):
+        fail(f'{label}: posterior sigma off the fit errors by '
+             f'{d_std.max():.3f}')
+
+
+def time_chi2_batch(device, vega, n_rows):
+    """evals/s of chi2_batch at n_rows drawn rows, the result fetched:
+    median of GRID_ROUNDS rounds after a warm call."""
+    rows = draw_batch(n_rows)
+    vega.chi2_batch(rows).cpu()
+    rates = []
+    for _ in range(GRID_ROUNDS):
+        for name in rows:
+            rows[name] = rows[name] + 1e-6
+        t0 = time.perf_counter()
+        vega.chi2_batch(rows).cpu()
+        rates.append(n_rows / (time.perf_counter() - t0))
+    return float(np.median(rates))
+
+
+def compare_evolutions(device, label, evolve, start, l_min, width, chol,
+                       replays, eager_runs):
+    """One evolution on the same inputs and random numbers, replayed from
+    the CUDA graph and run eagerly: logl within EVOLVE_LOGL_RTOL, u and
+    the counts equal (an accept test within round-off of l_min could part
+    the two; the message says so if it happens). Returns the median
+    seconds of a replay and of an eager run."""
+    evolve.load(start, l_min, width, chol)
+    evolve.draw(1_000_000)
+    n_u = evolve.n * evolve.ndim
+    outs, seconds = {}, {}
+    for graph, count in ((True, replays), (False, eager_runs)):
+        times = []
+        for _ in range(count):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = evolve.run(graph)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        outs[graph] = out.clone().cpu().numpy()
+        seconds[graph] = float(np.median(times))
+    d_logl = float(np.max(np.abs(
+        outs[True][n_u:-2] - outs[False][n_u:-2])
+        / np.abs(outs[False][n_u:-2])))
+    same_u = np.array_equal(outs[True][:n_u], outs[False][:n_u])
+    same_counts = np.array_equal(outs[True][-2:], outs[False][-2:])
+    log(f'{label}: replayed vs eager evolution on the same inputs: logl max '
+        f'relative diff {d_logl:.3e} (bound {EVOLVE_LOGL_RTOL:g}), u '
+        f'{"equal" if same_u else "DIFFERENT"}, steps and moves '
+        f'{outs[True][-2:].tolist()} vs {outs[False][-2:].tolist()}; s per '
+        f'evolution replayed {seconds[True]:.4f} (median of {replays}), '
+        f'eager {seconds[False]:.4f} (median of {eager_runs}), x'
+        f'{seconds[False] / seconds[True]:.2f}')
+    if not (d_logl <= EVOLVE_LOGL_RTOL and same_u and same_counts):
+        fail(f'{label}: the replayed evolution differs from the eager one '
+             '(unless an accept test sat within round-off of l_min)')
+    return seconds[True], seconds[False]
+
+
+def run_ns_paths(device, fit_ini, out, goldens, fit_goldens):
+    """Phases 1 and 2: the nested sampler with its device loop (one CUDA
+    graph replay per iteration) on the grid payload, held to the JAX
+    goldens; then the host loop for a few iterations."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES, REPLAYED,
+                                                   recorded_launches)
+    from vega_tpu_torch.samplers.nested import NestedSampler
+
+    names = goldens['names']
+    settings = goldens['settings']
+    ini = sampler_ini(fit_ini, out / 'ns_device', 'NestedJax', settings)
+    evolve_s = []
+    # the NS path's run: counts from zero
+    LAUNCHES.clear()
+    REPLAYED.clear()
+    with recorded_launches() as layouts, timed_method(
+            NestedSampler, '_slice_evolve_device', device, evolve_s):
+        vega, sampler, result, seconds = run_sampler_script(
+            device, ini, 'NS device loop', NestedSampler)
+    launches, replays = dict(LAUNCHES), dict(REPLAYED)
+    if not launches.get(('F', 0)):
+        fail('the NS run launched no spline_legendre_combine kernel (the '
+             'payload sweep)')
+    evolve = sampler._evolve_fn
+    if evolve is None or evolve.graph is None:
+        fail('the NS device loop did not run as a CUDA graph')
+    stats = read_stats(out / 'ns_device')
+    iterations = int(stats['num_iterations'])
+    evals = int(stats['num_like_evals'])
+    n = evolve.n
+    per_iteration = n * (1 + sampler.num_repeats * sampler.max_shrink)
+    if evals != sampler.num_live + iterations * per_iteration:
+        fail(f'num_like_evals {evals} is not num_live + iterations x '
+             f'{per_iteration}')
+    # the first call holds the capture (warm-up run, capture,
+    # instantiation)
+    replay_s = float(np.median(evolve_s[1:]))
+    log(f'NS device loop: settings {settings}; {iterations} iterations, '
+        f'{evals} likelihood rows, logZ = {result["logz"]:.4f} +/- '
+        f'{result["logz_err"]:.4f} (JAX host loop '
+        f'{goldens["nested"]["logz"]:.4f} +/- '
+        f'{goldens["nested"]["logz_err"]:.4f}, '
+        f'{goldens["nested"]["iterations"]} iterations); first iteration '
+        f'with the graph\'s capture {evolve_s[0]:.3f} s, then '
+        f'{replay_s:.4f} s per iteration (median; load, draw, replay, '
+        f'fetch), {sum(evolve_s):.3f} s of {seconds:.3f} s in the '
+        f'evolutions; {per_iteration / replay_s:.1f} evals/s inside the '
+        f'sampler ({n} chains x {per_iteration // n} dependent calls per '
+        f'iteration); kernel launches {launches}, of them from graph '
+        f'replays {replays}')
+    rates = {rows: time_chi2_batch(device, vega, rows)
+             for rows in (n, BATCH)}
+    log(f'NS device loop: chi2_batch({n}) {rates[n]:.1f} evals/s, '
+        f'chi2_batch({BATCH}) {rates[BATCH]:.1f} evals/s (median of '
+        f'{GRID_ROUNDS}, result fetched)')
+
+    limits = vega.sample_params['limits']
+    check_chain('NS device loop', vega, out / 'ns_device', names, limits)
+    mean, std = weighted_moments(result['samples'], result['weights'])
+    check_moments('NS device loop', names, mean, std,
+                  fit_goldens['fit_grid'], NS_MEAN_SIGMA, NS_STD_RTOL)
+    want = goldens['nested']
+    bound = 3.0 * max(result['logz_err'], want['logz_err'], 0.1)
+    if not abs(result['logz'] - want['logz']) <= bound:
+        fail(f'NS logZ {result["logz"]:.4f} is not within {bound:.3f} of '
+             f'the JAX package\'s {want["logz"]:.4f}')
+
+    live_logl = sampler._batch_log_lik(
+        sampler.prior_transform(sampler.live_u))
+    chol = np.linalg.cholesky(np.cov(sampler.live_u, rowvar=False)
+                              + 1e-12 * np.eye(len(names)))
+    replayed_s, eager_s = compare_evolutions(
+        device, 'NS device loop', evolve, sampler.live_u[:n],
+        float(np.percentile(live_logl, 25)), 2.0, chol, 5, 3)
+    log(f'NS device loop: {per_iteration / replayed_s:.1f} evals/s '
+        f'replayed, {per_iteration / eager_s:.1f} eager')
+    profile_call('NS evolution, eager (one iteration)',
+                 lambda: evolve.run(False), device)
+    profile_call('NS evolution, replayed (one iteration)',
+                 lambda: evolve.run(True), device)
+    checks = check_launches(device, 'ns', layouts)
+
+    ini = sampler_ini(fit_ini, out / 'ns_host', 'NestedJax',
+                      {**settings, 'device_loop': False,
+                       'max_iters': NS_HOST_ITERATIONS})
+    host_s = []
+    with timed_method(NestedSampler, '_slice_evolve', device, host_s):
+        _, host_sampler, _, _ = run_sampler_script(
+            device, ini, 'NS host loop', NestedSampler)
+    calls = (host_sampler._n_evals - host_sampler.num_live) / n
+    log(f'NS host loop (device_loop = False), {len(host_s)} iterations: s '
+        f'per iteration {", ".join(f"{t:.4f}" for t in host_s)} (median '
+        f'{np.median(host_s):.4f}), {calls / len(host_s):.1f} batched '
+        f'likelihood calls of {n} rows per iteration, '
+        f'{calls * n / sum(host_s):.1f} evals/s')
+    if host_sampler._evolve_fn is not None or len(host_s) != \
+            NS_HOST_ITERATIONS:
+        fail('device_loop = False did not run the host loop')
+    return {'ns': launches}, {'ns': replays}, checks
+
+
+def run_smc_path(device, fit_ini, out, goldens, fit_goldens):
+    """Phase 3: a [PocoMC] section, routed to the native SMC sampler."""
+    from vega_tpu_torch.samplers.smc import SMCSampler
+    names = goldens['names']
+    ini = sampler_ini(fit_ini, out / 'smc', 'PocoMC',
+                      {**SMC_SETTINGS, 'resume': False})
+    vega, sampler, result, seconds = run_sampler_script(device, ini, 'SMC',
+                                                        SMCSampler)
+    stats = read_stats(out / 'smc')
+    stages = int(stats['num_stages'])
+    n = sampler.n_particles
+    evals = n * (1 + stages * sampler.n_mcmc)
+    log(f'SMC: settings {SMC_SETTINGS}; {stages} stages, logZ = '
+        f'{result["logz"]:.4f}, {evals} likelihood rows in calls of {n}, '
+        f'{seconds:.3f} s, {evals / seconds:.1f} evals/s over the run '
+        '(payload included)')
+    check_chain('SMC', vega, out / 'smc', names,
+                vega.sample_params['limits'])
+    mean, std = weighted_moments(result['samples'], result['weights'])
+    check_moments('SMC', names, mean, std, fit_goldens['fit_grid'],
+                  2 * NS_MEAN_SIGMA, 2 * NS_STD_RTOL)
+    if not np.isfinite(result['logz']):
+        fail('SMC logZ is not finite')
+
+
+def hmc_trajectory_times(device, label, sampler, result):
+    """One trajectory at the run's last positions, step size and metric:
+    eager and as a CUDA graph, on the same momenta and uniforms (u within
+    1e-12); a torch.profiler breakdown of the eager one. Returns
+    (graph s, eager s)."""
+    from vega_tpu_torch.samplers.hmc import GraphedStep, make_hmc_step
+
+    chains, ndim = sampler.num_chains, sampler.num_params
+    lo = np.array([sampler.limits[n][0] for n in sampler.names])
+    hi = np.array([sampler.limits[n][1] for n in sampler.names])
+    unit = (result['samples'][-chains:] - lo) / (hi - lo)
+
+    def tensor(values):
+        return torch.as_tensor(np.asarray(values, dtype=np.float64),
+                               device=device)
+
+    with torch.no_grad():
+        u = tensor(np.log(unit / (1 - unit)))
+        pot_vg = sampler._build_potential()
+        v, g = pot_vg(u)
+        eps = tensor(result['step_size'])
+        inv_mass = tensor(result['inv_mass'])
+        chol_mass = tensor(np.linalg.cholesky(np.linalg.inv(
+            result['inv_mass'])))
+        generator = torch.Generator(device=device).manual_seed(1)
+        z = torch.randn((chains, ndim), generator=generator,
+                        dtype=torch.float64, device=device)
+        log_unif = torch.log(torch.rand(chains, generator=generator,
+                                        dtype=torch.float64, device=device))
+        args = (z, log_unif, u, v, g, eps, inv_mass, chol_mass)
+        eager = make_hmc_step(pot_vg, sampler.num_leapfrog)
+        t0 = time.perf_counter()
+        graphed = GraphedStep(eager, (u, v, g), eps, inv_mass, chol_mass)
+        torch.cuda.synchronize(device)
+        capture_s = time.perf_counter() - t0
+        seconds, outs = {}, {}
+        for kind, step, count in (('graph', graphed, 10),
+                                  ('eager', eager, 3)):
+            step(*args)
+            times = []
+            for _ in range(count):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize(device)
+                times.append(time.perf_counter() - t0)
+            outs[kind] = [t.clone() for t in out]
+            seconds[kind] = float(np.median(times))
+        d_u = float((outs['graph'][0] - outs['eager'][0]).abs().max())
+        calls = sampler.num_leapfrog
+        log(f'{label}: one trajectory of {calls} leapfrog steps for '
+            f'{chains} chains at step {result["step_size"]:.4g}: replayed '
+            f'{seconds["graph"]:.4f} s ({calls / seconds["graph"]:.1f} '
+            f'gradient calls/s), eager {seconds["eager"]:.4f} s '
+            f'({calls / seconds["eager"]:.1f}), x'
+            f'{seconds["eager"] / seconds["graph"]:.2f}; capture '
+            f'{capture_s:.3f} s; max |u replayed - u eager| {d_u:.3e}')
+        if not d_u <= 1e-12:
+            fail(f'{label}: the replayed trajectory differs from the eager '
+                 f'one by {d_u:.3e}')
+        profile_call(f'{label} trajectory, eager', lambda: eager(*args),
+                     device)
+        profile_call(f'{label} trajectory, replayed',
+                     lambda: graphed(*args), device)
+    return seconds['graph'], seconds['eager']
+
+
+HOOK_LIMITS = {'a': (-2.0, 3.0), 'b': (0.0, 4.0), 'c': (-1.0, 1.0)}
+HOOK_MEAN = (0.4, 1.7, -0.2)
+HOOK_SIGMA = (0.5, 0.4, 0.3)
+HOOK_SETTINGS = {'num_chains': 32, 'num_warmup': 200, 'num_samples': 300,
+                 'num_leapfrog': 8, 'seed': 1}
+
+
+def run_hmc_hook(device, out):
+    """HMC's standalone hook on the card: a plain torch chi^2 (an
+    uncorrelated Gaussian inside a box) with no device argument, its
+    trajectory captured as a CUDA graph like the interface's. Mean within
+    0.2 sigma of the truth, sigma within 15%, acceptance in (0.5, 1],
+    split-R-hat < 1.1."""
+    import configparser
+    from vega_tpu_torch.samplers.hmc import HMC, GraphedStep
+
+    mean = torch.tensor(HOOK_MEAN, dtype=torch.float64, device=device)
+    sigma = torch.tensor(HOOK_SIGMA, dtype=torch.float64, device=device)
+
+    def chi2(x):
+        return torch.sum(((x - mean) / sigma) ** 2, dim=-1)
+
+    path = Path(out) / 'hmc_hook'
+    path.mkdir(parents=True, exist_ok=True)
+    config = configparser.ConfigParser()
+    config['HMC'] = {'path': str(path), 'name': 'hook',
+                     **{k: str(v) for k, v in HOOK_SETTINGS.items()}}
+    t0 = time.perf_counter()
+    sampler = HMC(config['HMC'], HOOK_LIMITS, chi2)
+    result = sampler.run()
+    seconds = time.perf_counter() - t0
+    if sampler.device.type != 'cuda' or not isinstance(sampler._step,
+                                                        GraphedStep):
+        fail('the HMC hook did not run its trajectory as a CUDA graph on '
+             'the card')
+    got_mean = result['samples'].mean(axis=0)
+    got_sigma = result['samples'].std(axis=0)
+    d_mean = np.abs(got_mean - np.array(HOOK_MEAN)) / np.array(HOOK_SIGMA)
+    d_sigma = np.abs(got_sigma / np.array(HOOK_SIGMA) - 1)
+    log(f'HMC hook (plain torch chi^2 on {sampler.device}): settings '
+        f'{HOOK_SETTINGS}; {seconds:.3f} s, acceptance '
+        f'{result["accept_rate"]:.3f}, split-R-hat '
+        f'{result["r_hat"].tolist()}, |mean - truth| / sigma '
+        f'{d_mean.tolist()} (bound 0.2), |sigma / truth - 1| '
+        f'{d_sigma.tolist()} (bound 0.15)')
+    if not (0.5 < result['accept_rate'] <= 1.0
+            and np.max(result['r_hat']) < 1.1 and np.all(d_mean <= 0.2)
+            and np.all(d_sigma <= 0.15)):
+        fail('the HMC hook\'s run on the card missed its bounds')
+
+
+def run_hmc_paths(device, fit_ini, out, goldens, fit_goldens):
+    """Phases 4 and 5: HMC on the grid payload, then a short run in the
+    dense regime (VEGA_TPU_FACTORED=0), where each gradient call runs the
+    combine's forward and first backward kernels at B = num_chains; the
+    dense log-likelihood's evolution as a CUDA graph beside them."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES, REPLAYED,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import BatchedLikelihood
+    from vega_tpu_torch.samplers.hmc import HMC
+    from vega_tpu_torch.samplers.nested import DeviceEvolve
+
+    names = goldens['names']
+    launches, replays, checks = {}, {}, []
+    ini = sampler_ini(fit_ini, out / 'hmc_grid', 'HMC', HMC_GRID_SETTINGS)
+    LAUNCHES.clear()
+    REPLAYED.clear()
+    with recorded_launches() as layouts:
+        vega, sampler, result, seconds = run_sampler_script(
+            device, ini, 'HMC grid', HMC)
+    launches['hmc_grid'] = dict(LAUNCHES)
+    replays['hmc_grid'] = dict(REPLAYED)
+    if not launches['hmc_grid'].get(('F', 0)):
+        fail('the HMC grid run launched no spline_legendre_combine kernel '
+             '(the payload sweep)')
+    trajectories = (sum(max(5, max(sampler.num_warmup, 20) // d)
+                        for d in (4, 2, 4)) + sampler.num_samples)
+    log(f'HMC grid: settings {HMC_GRID_SETTINGS}; {trajectories} '
+        f'trajectories in {seconds:.3f} s ({seconds / trajectories:.4f} s '
+        f'per trajectory, payload and capture included), acceptance {result["accept_rate"]:.3f}, step '
+        f'{result["step_size"]:.4g}, split-R-hat '
+        f'{result["r_hat"].tolist()}, ESS {result["ess"].tolist()}; '
+        f'kernel launches {launches["hmc_grid"]}, of them from graph '
+        f'replays {replays["hmc_grid"]}')
+    if not 0.5 < result['accept_rate'] <= 1.0:
+        fail(f'HMC grid acceptance {result["accept_rate"]:.3f} outside '
+             '(0.5, 1]')
+    if not np.max(result['r_hat']) < 1.1:
+        fail(f'HMC grid max split-R-hat {np.max(result["r_hat"]):.3f} '
+             '>= 1.1')
+    check_chain('HMC grid', vega, out / 'hmc_grid', names,
+                vega.sample_params['limits'], logl_column=False)
+    mean, std = weighted_moments(result['samples'],
+                                 np.ones(len(result['samples'])))
+    check_moments('HMC grid', names, mean, std, fit_goldens['fit_grid'],
+                  2 * NS_MEAN_SIGMA, 2 * NS_STD_RTOL)
+    hmc_trajectory_times(device, 'HMC grid', sampler, result)
+    checks += check_launches(device, 'hmc_grid', layouts)
+
+    ini = sampler_ini(fit_ini, out / 'hmc_dense', 'HMC', HMC_DENSE_SETTINGS)
+    LAUNCHES.clear()
+    REPLAYED.clear()
+    with recorded_launches() as layouts, switch('VEGA_TPU_FACTORED', '0'):
+        vega, sampler, result, seconds = run_sampler_script(
+            device, ini, 'HMC dense', HMC)
+    launches['hmc_dense'] = dict(LAUNCHES)
+    replays['hmc_dense'] = dict(REPLAYED)
+    chains = sampler.num_chains
+    log(f'HMC dense: settings {HMC_DENSE_SETTINGS}; run {seconds:.3f} s; '
+        f'acceptance '
+        f'{result["accept_rate"]:.3f}, step {result["step_size"]:.4g}; '
+        f'kernel launches {launches["hmc_dense"]}, of them from graph '
+        f'replays {replays["hmc_dense"]} (the rest eager: the start, the '
+        'warm-up runs before the capture)')
+    if not replays['hmc_dense'].get(('Ft', 0)):
+        fail('the dense HMC run replayed no captured Ft_0 launch')
+    at_chains = [key for key in layouts if key[2] == chains]
+    for wanted, found in (
+            ('F_d with d >= 1', any(k[0] == 'F' and k[1] >= 1
+                                    for k in at_chains)),
+            ('P_d', any(k[0] == 'P' for k in at_chains)),
+            ('Ft_d', any(k[0] == 'Ft' for k in at_chains))):
+        if not found:
+            fail(f'the dense HMC run launched no {wanted} at B = {chains}')
+    if not np.all(np.isfinite(result['samples'])):
+        fail('the dense HMC chain is not finite')
+    x = torch.as_tensor(result['samples'][-chains:], device=device)
+    routes = [vega.chi2_batch_derivatives(names, x, use_kernel=use_kernel,
+                                          hessian=False)
+              for use_kernel in (True, False)]
+    compare_derivatives(
+        'HMC dense at the last positions, kernels vs plain combine',
+        *({'chi2': list(r[0].cpu().numpy()),
+           'gradient': list(r[1].cpu().numpy())} for r in routes),
+        {'chi2': KERNEL_GRAD_RTOL, 'gradient': KERNEL_GRAD_RTOL})
+    hmc_trajectory_times(device, 'HMC dense', sampler, result)
+    checks += check_launches(device, 'hmc_dense', layouts)
+
+    # the dense log-likelihood inside a CUDA graph: the combine's
+    # launches are captured, count at each replay, and give the eager
+    # evolution's result
+    LAUNCHES.clear()
+    REPLAYED.clear()
+    with recorded_launches() as layouts:
+        evolve = DeviceEvolve(BatchedLikelihood(vega), names,
+                              vega.sample_params['limits'], *NS_DENSE_SHAPE,
+                              seed=0)
+        captured = len(evolve.graph.launches)
+        if LAUNCHES[('F', 0)] == 0 or not captured:
+            fail('the dense evolution captured no combine launch')
+        lo = np.array([vega.sample_params['limits'][n][0] for n in names])
+        hi = np.array([vega.sample_params['limits'][n][1] for n in names])
+        start = (result['samples'][-NS_DENSE_SHAPE[0]:] - lo) / (hi - lo)
+        l_min = float(np.median(vega.log_lik_batch(dict(zip(
+            names, result['samples'][-NS_DENSE_SHAPE[0]:].T))).cpu()
+            .numpy()))
+        before = LAUNCHES[('F', 0)]
+        compare_evolutions(device, 'NS dense evolution', evolve, start,
+                           l_min, 2.0, 1e-4 * np.eye(len(names)), 3, 2)
+    moved = LAUNCHES[('F', 0)] - before
+    replayed = REPLAYED[('F', 0)]
+    log(f'NS dense evolution ({NS_DENSE_SHAPE[0]} chains, '
+        f'{NS_DENSE_SHAPE[1]} repeats x {NS_DENSE_SHAPE[2]} shrink steps): '
+        f'{captured} combine launches in the graph, F_0 count moved by '
+        f'{moved} over 3 replays and 2 eager runs, {replayed} of it from '
+        'the replays')
+    if moved != 5 * captured or replayed != 3 * captured:
+        fail(f'F_0 count moved by {moved} ({replayed} from replays), not '
+             f'5 x {captured} (3 x {captured}): a replay does not count '
+             'its launches as an eager run does')
+    launches['ns_dense'] = dict(LAUNCHES)
+    replays['ns_dense'] = dict(REPLAYED)
+    checks += check_launches(device, 'ns_dense', layouts)
+    run_hmc_hook(device, out)
+    return launches, replays, checks
+
+
+def run_sampler_paths(device, work, fit_ini):
+    """The sampler phase: NS (device loop, host loop), SMC and HMC on the
+    fit configuration through scripts/run_vega_sampler.py. Returns the
+    kernel launches of each path's run and the kernel checks at their
+    layouts."""
+    goldens = json.loads(SAMPLER_GOLDENS.read_text())
+    fit_goldens = json.loads(FIT_GOLDENS.read_text())
+    if goldens['sample'] != fit_goldens['sample']:
+        fail('the sampler goldens and the fit goldens sample differently')
+    out = Path(work) / 'samplers'
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None), \
+            switch('VEGA_TPU_NS_DEVICE_LOOP', None):
+        launches, replays, checks = run_ns_paths(device, fit_ini, out,
+                                                 goldens, fit_goldens)
+        run_smc_path(device, fit_ini, out, goldens, fit_goldens)
+        hmc_launches, hmc_replays, hmc_checks = run_hmc_paths(
+            device, fit_ini, out, goldens, fit_goldens)
+    log(f'sampler phase: {time.perf_counter() - t0:.1f} s')
+    return ({**launches, **hmc_launches}, {**replays, **hmc_replays},
+            checks + hmc_checks)
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -1088,9 +1685,10 @@ KERNELS = (
 )
 
 
-def kernel_records(launches, checks, edge_checks):
-    """The kernels' JSON record: per kernel its launches by path and by
-    order, its worst error against its plain version (recorded and edge
+def kernel_records(launches, replays, checks, edge_checks):
+    """The kernels' JSON record: per kernel its launches by path (and
+    how many of them came from replays of a CUDA graph) and by order, its
+    worst error against its plain version (recorded and edge
     layouts), ms / plain_ms / bound_ms at its largest checked layout
     (B x M) and every checked layout. No single PyTorch call computes
     the combine or its transpose: library_ms is null."""
@@ -1100,6 +1698,9 @@ def kernel_records(launches, checks, edge_checks):
             return key[0] == primitive and key[1] in orders
         by_path = {path: sum(n for key, n in counts.items() if mine(key))
                    for path, counts in launches.items()}
+        replayed_by_path = {
+            path: sum(n for key, n in counts.items() if mine(key))
+            for path, counts in replays.items()}
         by_order = {}
         for counts in launches.values():
             for key, n in counts.items():
@@ -1118,6 +1719,7 @@ def kernel_records(launches, checks, edge_checks):
             'replaces': replaces, 'replaces_part': part,
             'launches': sum(by_path.values()),
             'launches_by_path': by_path,
+            'replayed_by_path': replayed_by_path,
             'launches_by_order': {str(k): v
                                   for k, v in sorted(by_order.items())},
             'max_abs_err': max(r['max_abs_err'] for r in records + edges),
@@ -1155,12 +1757,15 @@ def main():
         fit_ini, fit_launches, fit_checks = run_fit_path(device, work)
         scan_launches, scan_checks = run_scan_path(device, fit_ini)
         mc_launches, mc_checks = run_mc_path(device, work)
+        sampler_launches, sampler_replays, sampler_checks = \
+            run_sampler_paths(device, work, fit_ini)
 
-    checks = dense_checks + grid_checks + fit_checks + scan_checks + mc_checks
+    checks = (dense_checks + grid_checks + fit_checks + scan_checks
+              + mc_checks + sampler_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
-         'scan': scan_launches, **mc_launches},
-        checks, edge_checks)
+         'scan': scan_launches, **mc_launches, **sampler_launches},
+        sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

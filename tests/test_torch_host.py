@@ -13,6 +13,7 @@ import torch
 
 import vega_tpu.mocks as jax_mocks
 from vega_tpu.io.fits import read_fits as jax_read_fits
+from vega_tpu.parameters import param_utils as jax_param_utils
 from vega_tpu.parameters.param_utils import get_default_values as jax_defaults
 from vega_tpu.statics import resolve
 from vega_tpu.testing import make_synthetic_dataset as jax_make_dataset
@@ -23,6 +24,7 @@ from vega_tpu_torch.model import Model
 from vega_tpu_torch.pktoxi import PktoXi
 from vega_tpu_torch.power_spectrum import PowerSpectrum
 from vega_tpu_torch.io.fits import read_fits
+from vega_tpu_torch.parameters import param_utils
 from vega_tpu_torch.parameters.param_utils import get_default_values
 from vega_tpu_torch.testing import make_synthetic_dataset
 from vega_tpu_torch.utils import JAX_PACKAGE_DIR, find_file
@@ -139,6 +141,27 @@ def test_default_values_match_jax():
     assert get_default_values() == jax_defaults()
 
 
+@pytest.mark.parametrize('names', [
+    ['ap', 'at', 'sigmaNL_par', 'bao_amp', 'growth_rate'],       # full names
+    ['bias_LYA', 'beta_LYA', 'bias_eta_QSO', 'alpha_SiII(1190)',
+     'beta_hcd', 'par_sigma_smooth_QSO'],                         # composites
+    ['bias_nosuchtracer', 'beta_X', 'alpha_'],      # a composite, no tracer
+    ['no_such_parameter', 'drp_QSO', 'x'],                        # unknown
+    [],
+], ids=['full', 'composite', 'composite_no_tracer', 'unknown', 'empty'])
+def test_build_names_match_jax(names):
+    """The .paramnames labels: a copy of vega_tpu's build_names, reading
+    its latex files by path."""
+    got = param_utils.build_names(names)
+    assert got == jax_param_utils.build_names(names)
+    assert list(got) == list(jax_param_utils.build_names(names))
+    assert param_utils.COMPOSITES == jax_param_utils.COMPOSITES
+    for path in (param_utils.LATEX_NAMES_FILE,
+                 param_utils.LATEX_COMPOSITE_FILE):
+        assert path.parent == JAX_PACKAGE_DIR / 'parameters'
+        assert param_utils.get_latex(path) == jax_param_utils.get_latex(path)
+
+
 def test_find_file_reads_jax_models_by_path():
     path = find_file('PlanckDR16/PlanckDR16.fits')
     assert path == JAX_PACKAGE_DIR / 'models' / 'PlanckDR16' / \
@@ -190,7 +213,12 @@ assert not leaked, leaked
 assert len(names) >= 19, names
 new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.parallel', 'vega_tpu_torch.parallel.batch',
-       'vega_tpu_torch.analysis', 'vega_tpu_torch.mocks'}
+       'vega_tpu_torch.analysis', 'vega_tpu_torch.mocks',
+       'vega_tpu_torch.samplers.sampler_interface',
+       'vega_tpu_torch.samplers.nested', 'vega_tpu_torch.samplers.smc',
+       'vega_tpu_torch.samplers.hmc', 'vega_tpu_torch.samplers.polychord',
+       'vega_tpu_torch.samplers.pocomc',
+       'vega_tpu_torch.scripts.run_vega_sampler'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''

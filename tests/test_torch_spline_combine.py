@@ -176,3 +176,36 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out, spline_legendre_combine_reference(
         grid, y, m, x, leg))
     assert sum(LAUNCHES.values()) == before   # no kernel here
+
+
+def test_captured_launches_count_only_with_their_replay():
+    """A launch made while a CUDA graph is captured counts nothing; each
+    replay through the capture's record replays the graph once and counts
+    its launches (in LAUNCHES, in REPLAYED and for an open recorder),
+    while an eager launch leaves REPLAYED alone."""
+    from vega_tpu_torch.ops import spline_combine as sc
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    grid = KnotGrid.build(np.linspace(0.0, 1.0, 8), 'cpu')
+    layout = (4, 2, 8, 1, 4, 16, False, False)
+    key = ('F', 0)
+    before = sc.LAUNCHES[key], sc.REPLAYED[key]
+    with sc.captured_launches() as captured:
+        sc._launched('F', 0, layout, grid)
+        sc._launched('F', 0, layout, grid)
+    assert len(captured) == 2
+    assert (sc.LAUNCHES[key], sc.REPLAYED[key]) == before
+    graph = Graph()
+    with sc.recorded_launches() as layouts:
+        captured.replay(graph)
+        captured.replay(graph)
+        sc._launched('F', 0, layout, grid)
+    assert graph.replays == 2
+    assert sc.LAUNCHES[key] == before[0] + 5
+    assert sc.REPLAYED[key] == before[1] + 4
+    assert layouts[('F', 0, *layout)].launches == 5

@@ -141,8 +141,13 @@ class FactoredXi:
 
 def stack_coefficients(coeffs, like):
     """Coefficients (floats, 0-d or (B,) tensors) as one f64 tensor on the
-    device of `like`: (T,) when all are scalars, else (B, T)."""
-    tensors = [torch.as_tensor(c, dtype=like.dtype, device=like.device)
+    device of `like`: (T,) when all are scalars, else (B, T). A float
+    becomes a tensor by a fill on the device, not a copy from the host:
+    the samplers' device loops run this inside a CUDA graph."""
+    tensors = [c.to(dtype=like.dtype, device=like.device)
+               if isinstance(c, torch.Tensor)
+               else torch.full((), float(c), dtype=like.dtype,
+                               device=like.device)
                for c in coeffs]
     return torch.stack(torch.broadcast_tensors(*tensors), dim=-1)
 

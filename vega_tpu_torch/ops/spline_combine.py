@@ -51,9 +51,13 @@ MAX_MULTIPOLES = 8  # L a kernel launch takes (csrc kMaxL)
 
 # Kernel launches since the last reset, {(primitive, d): count}, primitive
 # 'F' (F_d), 'P' (P_d) or 'Ft' (Ft_d). Only launches count: the plain
-# version on CPU tensors launches nothing.
+# version on CPU tensors launches nothing, and a launch captured into a
+# CUDA graph counts at each replay of the graph, not at the capture.
+# REPLAYED holds the part of LAUNCHES that came from replays.
 LAUNCHES = Counter()
+REPLAYED = Counter()
 _recorders = []
+_captures = []
 
 
 @dataclass(frozen=True)
@@ -97,11 +101,54 @@ def recorded_launches():
         _recorders.remove(layouts)
 
 
-def _launched(primitive, order, layout, grid):
-    LAUNCHES[(primitive, order)] += 1
+class CapturedLaunches:
+    """The kernel launches captured into one CUDA graph, as
+    `recorded_launches` keys them. `replay` is the only way to count
+    them: it replays the graph and counts in one call."""
+
+    def __init__(self):
+        self.layouts = {}
+
+    def __len__(self):
+        return sum(record.launches for record in self.layouts.values())
+
+    def replay(self, graph):
+        """Replay `graph` (the torch.cuda.CUDAGraph captured while this
+        was open) and count its kernel launches."""
+        graph.replay()
+        for key, record in self.layouts.items():
+            _count(key, record.grid, record.launches, replayed=True)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While open (around the capture of a CUDA graph), a kernel launch
+    is a node of the graph and runs nothing: it is recorded in the
+    CapturedLaunches this yields alone, and counted when the graph is
+    replayed through it."""
+    captured = CapturedLaunches()
+    _captures.append(captured.layouts)
+    try:
+        yield captured
+    finally:
+        _captures.remove(captured.layouts)
+
+
+def _count(key, grid, launches, replayed=False):
+    LAUNCHES[key[:2]] += launches
+    if replayed:
+        REPLAYED[key[:2]] += launches
     for layouts in _recorders:
-        layouts.setdefault((primitive, order, *layout),
-                           RecordedLayout(grid)).launches += 1
+        layouts.setdefault(key, RecordedLayout(grid)).launches += launches
+
+
+def _launched(primitive, order, layout, grid):
+    key = (primitive, order, *layout)
+    if _captures:
+        for layouts in _captures:
+            layouts.setdefault(key, RecordedLayout(grid)).launches += 1
+    else:
+        _count(key, grid, 1)
 
 
 def clamp_derivative(grid, x):

@@ -9,8 +9,10 @@ and `MonteCarloEngine` (:488-586) run every grid point or mock as one row
 of a damped-Newton minimization on exact derivatives
 (`_newton_minimize_batched`, :287-418, with
 `VegaInterface.chi2_batch_derivatives` in place of jax.grad / jax.hessian
-under jax.vmap). Sharding over several cards and `traceable_log_lik`
-(for the samplers) are not ported yet.
+under jax.vmap). `BatchedLikelihood.traceable_log_lik` (:198-237) gives
+the samplers' device loops a log-likelihood of device tensors with
+nothing left to resolve on the host. Sharding over several cards is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +48,59 @@ class BatchedLikelihood:
     def log_lik(self, param_batches):
         return self.vega.log_lik_batch(param_batches,
                                        chunk_rows=self.chunk_rows)
+
+    def traceable_log_lik(self, names):
+        """The log-likelihood as a function of a device tensor, for a
+        sampler's device loop (`TraceableLogLik`)."""
+        return TraceableLogLik(self.vega, names)
+
+
+class TraceableLogLik:
+    """(n, ndim) device tensor of physical parameter values, columns
+    ordered as `names` -> (n,) log-likelihoods, equal to `log_lik_batch`
+    on the same rows.
+
+    Everything a call needs is resolved at construction and held here:
+    the collapse or grid payload the names dispatch to and its device
+    copy, the device data vectors, the covariance scales, the
+    normalisation and the priors' normalisations. A call then runs
+    device ops only: no host sync, no branch on a tensor's values, no
+    allocation sized by values, so a CUDA graph can capture it. It reads
+    the data vectors current at construction: `stale()` says when they
+    have changed since (a Monte-Carlo mock), and the function must be
+    built again."""
+
+    def __init__(self, vega, names):
+        self.vega = vega
+        self.names = tuple(names)
+        self._key = frozenset(self.names)
+        if vega._chi2_data is None:
+            vega.set_chi2_constants()
+        self._data_key, self._host_vecs = vega._data_key()
+        # the host collapse, its device copy and the device data vectors:
+        # held so the interface's memos keep serving these very tensors
+        self._collapsed = vega.get_collapsed(self._key)
+        self._device_collapsed = vega._device_collapsed(self._collapsed)
+        self._data_vecs = vega._device_data_vecs()
+        self._cov_scales = vega._current_cov_scales()
+        self._params = dict(vega.params)
+        log_norm = float(vega._log_norm())
+        for prior in vega.priors.values():
+            log_norm += float(vega._gaussian_lik_prior(prior[1]))
+        self.log_norm = log_norm
+
+    def stale(self):
+        return self.vega._data_key()[0] != self._data_key
+
+    @torch.no_grad()
+    def __call__(self, theta):
+        local = dict(self._params)
+        local.update({name: theta[:, i]
+                      for i, name in enumerate(self.names)})
+        chi2 = self.vega._chi2_rows(
+            local, theta.shape[0], names=self._key,
+            collapsed=self._collapsed, cov_scales=self._cov_scales)
+        return self.log_norm - 0.5 * chi2
 
 
 # ----------------------------------------------------------------------

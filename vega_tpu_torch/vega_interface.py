@@ -27,9 +27,10 @@ Legendre combine, ops/spline_combine.py); `chi2_batch_derivatives`
 gives the same for B independent rows, which the batched Newton of
 parallel/batch.py (profile scans, Monte-Carlo mock fits) runs on. The
 chi^2 is taken against the current data vectors: the data, or after
-`initialize_monte_carlo` the Monte-Carlo mock. Output, plots, global
-covariance, marginalization and blinding beyond "none" are not ported
-yet.
+`initialize_monte_carlo` the Monte-Carlo mock. The `run_sampler` and
+`sampler` flags of [control] name the sampler scripts/run_vega_sampler.py
+runs (samplers/). Output, plots, global covariance, marginalization and
+blinding beyond "none" are not ported yet.
 """
 
 from __future__ import annotations
@@ -213,6 +214,27 @@ class VegaInterface:
                                  self.data, self.mc_config,
                                  grad_func=self.chi2_gradient,
                                  hess_func=self.chi2_hessian, vega=self)
+        # the port has no marginalization templates (they raise at
+        # construction): no correlation carries derived sampler columns
+        self.corr_num_marg_modes = None
+
+        # Sampler flags (vega_interface.py:206-220); the names are
+        # vega_tpu's, so one ini serves both packages
+        self.run_sampler = False
+        self.sampler = None
+        if 'control' in self.main_config:
+            self.run_sampler = self.main_config['control'].getboolean(
+                'run_sampler', False)
+            self.sampler = self.main_config['control'].get('sampler', None)
+            if self.run_sampler:
+                if self.sampler not in ['Polychord', 'PocoMC', 'NestedJax',
+                                        'HMC']:
+                    raise ValueError('Sampler not recognized. Use Polychord, '
+                                     'PocoMC, NestedJax or HMC.')
+                if self.sampler not in self.main_config:
+                    raise RuntimeError(
+                        'run_sampler set, but no sampler config found')
+
         self.monte_carlo = False
 
     def set_fiducial_pk(self, pk_full, pk_smooth):
@@ -502,7 +524,7 @@ class VegaInterface:
 
     def chi2_batch_derivatives(self, free_names, values, fixed=None,
                                data_vecs=None, cov_scales=None,
-                               use_kernel=True):
+                               use_kernel=True, hessian=True):
         """Exact chi^2 (B,), gradient (B, n) and Hessian (B, n, n) over
         the n `free_names` for B independent rows, as f64 tensors on the
         device: the batched Newton's derivatives (what vega_tpu takes with
@@ -516,7 +538,9 @@ class VegaInterface:
         without data terms (`get_collapsed(..., with_data_terms=False)`,
         {} for a grid payload: the dense path). cov_scales as in
         `_chi2_rows`. use_kernel=False takes the plain combine on a CUDA
-        device.
+        device. hessian=False stops after the gradient (one backward pass
+        that builds no graph of its own: HMC's leapfrog steps) and gives
+        None for the Hessian.
 
         Each free parameter is a (B,) leaf; the rows are independent, so
         the gradient of chi^2.sum() is each row's gradient, and one more
@@ -538,6 +562,12 @@ class VegaInterface:
             chi2 = self._chi2_rows(local, n_b, use_kernel, names, collapsed,
                                    data_vecs, cov_scales)
             n_free = len(leaves)
+            if not hessian:
+                if not n_free:
+                    return chi2.detach(), chi2.new_zeros((n_b, 0)), None
+                grads = torch.autograd.grad(chi2.sum(), leaves,
+                                            materialize_grads=True)
+                return chi2.detach(), torch.stack(grads, dim=-1), None
             hess = torch.zeros((n_b, n_free, n_free), dtype=DTYPE,
                                device=self.device)
             if not n_free:
