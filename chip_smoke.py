@@ -47,14 +47,32 @@ configuration, with no JAX:
    scan of tests/data/torch_port_mc_goldens.json (|d fval| <= 2e-4 +
    1e-9 |fval|, values within 1e-2 of the JAX errors);
 7. Monte-Carlo mock fits (MonteCarloEngine) on the fit configuration
-   with [monte carlo] and [mc parameters]: 64 dense mocks of (ap, at,
-   bias_LYA, beta_LYA) at the default chunk and in one chunk, 1024 in one
+   with [monte carlo] and [mc parameters]: 32 dense mocks of (ap, at,
+   bias_LYA, beta_LYA) at the default chunk and in one chunk, 512 in one
    chunk, and 256 mocks of (bias_LYA, beta_LYA) through the nuisance
    collapse without data terms; each with 4 numpy mocks held against the
    JAX fits of the goldens (values 1e-3 of the errors, errors 1e-5
    relative, chi^2 1e-8, valid equal), the dense ones also through the
    plain combine; it fails unless the dense fits launched the transpose
    and a kernel of order d >= 1 at B > 1.
+
+8. the DR16-shaped model (phase dr16), configuration synthetic-dr16-full:
+   the same dataset with Rogers HCD, Arinyo small-scale NL and the metals
+   SiII(1190), SiII(1193), SiII(1260), SiIII(1207) in every LYA tracer
+   (identity metal matrices), and (ap, at, bias_LYA, beta_LYA, bias_hcd,
+   beta_hcd, bias_SiII(1260), bias_SiIII(1207)) sampled, against the JAX
+   goldens of tests/data/torch_port_dr16_goldens.json:
+   - dense regime: chi2_batch(8192) (1e-8 relative; kernel vs plain
+     route 1e-10), evals/s, peak memory, and the shares of the metal
+     stack and of the power-spectrum grids (HCD, NL, Kaiser) in one call
+     (CUDA events around them);
+   - grid regime, 32 x 32 nodes: collapse time, T, payload modes,
+     chi2_batch at 8192 / 32768 in bench.py's JSON shape (2e-4 + 1e-9
+     |chi2| against the JAX grid chi^2), kernels per call and idle share;
+   - the fit in each regime against the JAX fit (values 1e-2 / 1e-3 of
+     the JAX errors, derivatives 1e-6 / 1e-8);
+   it fails unless the metal stack launched F_0 on the dense and the
+   grid path and Ft_d in the dense fit.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -99,6 +117,7 @@ GRID_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_grid_goldens.json'
 FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
 MC_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mc_goldens.json'
 SAMPLER_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_sampler_goldens.json'
+DR16_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
@@ -129,9 +148,10 @@ FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8}
 # the scan and MC phases: mocks per campaign, the torch generator's seed,
 # and the fit chunks (VEGA_TPU_FIT_CHUNK_PER_DEVICE): vega_tpu's default 8
 # beside the whole campaign in one chunk; a larger dense campaign in one
-# chunk gives the peak memory's growth per row
-MC_DENSE_MOCKS = 64
-MC_DENSE_PROBE_MOCKS = 1024
+# chunk gives the peak memory's growth per row (32 and 512 mocks: half
+# the earlier 64 and 1024, to make room for the dr16 phase)
+MC_DENSE_MOCKS = 32
+MC_DENSE_PROBE_MOCKS = 512
 MC_COLLAPSE_MOCKS = 256
 MC_SEED = 0
 DEFAULT_FIT_CHUNK = 8
@@ -1669,6 +1689,294 @@ def run_sampler_paths(device, work, fit_ini):
             checks + hmc_checks)
 
 
+# ----------------------------------------------------------------------
+# The DR16-shaped model: metals, HCD, small-scale NL
+# ----------------------------------------------------------------------
+def watch_metals(vega):
+    """Record the kernel launches made inside each model's metal stack
+    (`Metals.compute`) apart from the rest: returns the {layout:
+    RecordedLayout} dict they accumulate in."""
+    from vega_tpu_torch.ops.spline_combine import recorded_launches
+    seen = {}
+    for model in vega.models.values():
+        def compute(*args, _inner=model.metals.compute, **kwargs):
+            with recorded_launches() as layouts:
+                out = _inner(*args, **kwargs)
+            for key, record in layouts.items():
+                if key in seen:
+                    seen[key].launches += record.launches
+                else:
+                    seen[key] = record
+            return out
+        model.metals.compute = compute
+    return seen
+
+
+def metal_launches(seen, primitive):
+    return sum(r.launches for key, r in seen.items() if key[0] == primitive)
+
+
+def device_shares(device, vega, batches):
+    """Device ms of one chi2_batch(batches), and within it of the metal
+    stacks and of the power-spectrum grids (compute_peak_smooth: Kaiser
+    with HCD, NL, G(k), peak broadening), from CUDA events around each
+    call of them (the dense path keeps the device busy, so the time
+    between two events is device work)."""
+    spans = {'metals': [], 'pk': []}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            spans[key].append((start, stop))
+            return out
+        return wrapper
+
+    saved = []
+    for model in vega.models.values():
+        saved.append((model.metals, 'compute', model.metals.compute))
+        saved.append((model.Pk_core, 'compute_peak_smooth',
+                      model.Pk_core.compute_peak_smooth))
+        model.metals.compute = timed(model.metals.compute, 'metals')
+        model.Pk_core.compute_peak_smooth = timed(
+            model.Pk_core.compute_peak_smooth, 'pk')
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    vega.chi2_batch(batches)
+    stop.record()
+    torch.cuda.synchronize(device)
+    for owner, name, fn in saved:
+        setattr(owner, name, fn)
+    total = start.elapsed_time(stop)
+    return total, {key: sum(a.elapsed_time(b) for a, b in pairs)
+                   for key, pairs in spans.items()}
+
+
+def run_dr16_path(device, work, card):
+    """Phase dr16 (see the module docstring); returns the kernel launches
+    of its three paths and the kernel checks at their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (DR16_METALS, dr16_extra_model,
+                                        make_synthetic_dataset)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(DR16_GOLDENS.read_text())
+    names = goldens['names']
+    t_phase = time.perf_counter()
+    main_ini = make_synthetic_dataset(
+        Path(work) / 'dr16', cross=True, size='full', device=device,
+        sample=goldens['sample'], extra_model=dr16_extra_model(),
+        metals=list(DR16_METALS))
+    log(f'dr16: configuration synthetic-dr16-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    log(f'dr16 dense: interface in {time.perf_counter() - t0:.2f} s; metal '
+        'pairs ' + ', '.join(
+            f'{n} {len(item.metal_correlations)} in '
+            f'{len(dense_vega.models[n].metals._stacked_plans)} classes'
+            for n, item in dense_vega.corr_items.items()))
+    rng = np.random.default_rng(0)
+    batches = {n: dense_vega.params[n] + 0.01 * abs(dense_vega.params[n])
+               * rng.normal(size=BATCH) for n in names}
+    launches, checks = {}, []
+
+    # --- the dense regime: counts from zero
+    seen = watch_metals(dense_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        chi2_default = dense_vega.chi2()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches['dr16_dense'] = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    checks += check_launches(device, 'dr16_dense', layouts)
+    if not abs(chi2_default) < DEFAULT_CHI2_MAX:
+        fail(f'dr16 chi2 at the defaults {chi2_default!r} >= '
+             f'{DEFAULT_CHI2_MAX}')
+    chi2_np = chi2.cpu().numpy()
+    if chi2_np.shape != (BATCH,) or not np.all(np.isfinite(chi2_np)) \
+            or np.any(chi2_np >= 1e100):
+        fail('dr16 dense chi2_batch is not finite of shape (8192,) '
+             'without a penalty')
+    n_metal = metal_launches(seen, 'F')
+    log(f'dr16 dense chi2_batch({BATCH}): chi2 at the defaults '
+        f'{chi2_default!r}, first call {first_s:.3f} s, peak device memory '
+        f'{peak_gb:.2f} GB, chi2 in [{chi2_np.min():.6g}, '
+        f'{chi2_np.max():.6g}], kernel launches {launches["dr16_dense"]}, '
+        f'{n_metal} of F_0 from the metal stack at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen))
+    if not n_metal:
+        fail('the dr16 dense path launched no F_0 from metals.py')
+
+    plain = dense_vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
+    rel = float(np.max(np.abs(plain - chi2_np) / np.abs(plain)))
+    log(f'dr16 dense kernel path vs plain path: max relative diff {rel:.3e}')
+    if not rel <= PLAIN_RTOL:
+        fail(f'dr16 kernel path vs plain path differ by {rel:.3e}')
+    got = dense_vega.chi2_batch(goldens['params']).cpu().numpy()
+    want = np.asarray(goldens['chi2_dense'])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f'dr16 dense vs JAX goldens ({len(want)} points): max relative '
+        f'diff {rel:.3e}')
+    if not rel <= GOLDEN_RTOL:
+        fail(f'dr16 dense chi2 vs the JAX goldens differ by {rel:.3e} > '
+             f'{GOLDEN_RTOL}')
+    times = []
+    for _ in range(TIMED_ROUNDS):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    log(f'dr16 dense chi2_batch({BATCH}): '
+        f'{BATCH / np.median(times):.1f} evals/s (median of '
+        f'{TIMED_ROUNDS}, s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)})')
+    total_ms, parts = device_shares(device, dense_vega, batches)
+    log(f'dr16 dense chi2_batch({BATCH}) on CUDA events: {total_ms:.1f} ms; '
+        f'metal stacks {parts["metals"]:.1f} ms '
+        f'({parts["metals"] / total_ms:.1%}), power-spectrum grids (HCD '
+        f'Kaiser, NL, G(k), peak) {parts["pk"]:.1f} ms '
+        f'({parts["pk"] / total_ms:.1%}), the rest (transform, combine, '
+        f'chi^2) {total_ms - sum(parts.values()):.1f} ms')
+    profile_call(f'dr16 dense chi2_batch({BATCH})',
+                 lambda: dense_vega.chi2_batch(batches).cpu(), device)
+
+    # --- the grid regime: counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid_vega = VegaInterface(main_ini, device=device)
+    seen_grid = watch_metals(grid_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        payload = grid_vega.get_collapsed(frozenset(names))
+        torch.cuda.synchronize(device)
+        collapse_s = time.perf_counter() - t0
+        chi2 = grid_vega.chi2_batch(batches).cpu().numpy()
+    launches['dr16_grid'] = dict(LAUNCHES)
+    checks += check_launches(device, 'dr16_grid', layouts)
+    stats = grid_vega.grid_stats
+    log(f'dr16 grid collapse: {payload["__grid__"]}, {stats["nodes"]} '
+        f'nodes; chi^2 constants {stats["constants_s"]:.3f} s, device sweep '
+        f'{stats["sweep_s"]:.3f} s, host payload build '
+        f'{stats["host_s"]:.3f} s, total {collapse_s:.3f} s; kernel '
+        f'launches {launches["dr16_grid"]}, '
+        f'{metal_launches(seen_grid, "F")} of F_0 from the metal stack at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen_grid))
+    for name in grid_vega.corr_items:
+        if name not in payload:
+            fail(f'dr16: {name} is not served by the grid payload')
+        p, want = payload[name], goldens['payload'][name]
+        log(f'  {name}: T = {p["cref"].shape[0]}, retained modes '
+            f'A {p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+            f'SVD rank A {p["B_A"].shape[1]} / sy {p["B_sy"].shape[1]} '
+            f'(JAX package: T = {want["terms"]}, modes {want["modes_A"]} / '
+            f'{want["modes_sy"]}, rank {want["rank_A"]} / '
+            f'{want["rank_sy"]}), dc_max {float(p["dc_max"]):.6g}')
+        if p['cref'].shape[0] != want['terms']:
+            fail(f'dr16: {name} has {p["cref"].shape[0]} terms, the JAX '
+                 f'package {want["terms"]}')
+    if not metal_launches(seen_grid, 'F'):
+        fail('the dr16 grid sweep launched no F_0 from metals.py')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('dr16 grid chi2_batch is not finite without a penalty')
+    got = grid_vega.chi2_batch(goldens['params']).cpu().numpy()
+    want_grid = np.asarray(goldens['chi2_grid'])
+    d_grid = np.abs(got - want_grid)
+    bound = GRID_ABS_TOL + GRID_REL_TOL * np.abs(want_grid)
+    log(f'dr16 grid vs JAX grid goldens ({len(got)} points): max |d chi2| '
+        f'{d_grid.max():.3e} (bound {bound.min():.3e} .. {bound.max():.3e}); '
+        f'vs the JAX dense chi2 {np.abs(got - goldens["chi2_dense"]).max():.6g}'
+        f' (the JAX grid path\'s own {goldens["max_abs_grid_minus_dense"]:.6g})')
+    if not np.all(d_grid <= bound):
+        fail(f'dr16 grid chi2 vs the JAX grid chi2: |d| {d_grid.max():.3e} '
+             'over the bound')
+    rates = {}
+    for n_rows in GRID_BATCHES:
+        rows = {n: grid_vega.params[n] + 0.01 * abs(grid_vega.params[n])
+                * rng.normal(size=n_rows) for n in names}
+        grid_vega.chi2_batch(rows).cpu()
+        per_round = []
+        for _ in range(GRID_ROUNDS):
+            for name in rows:
+                rows[name] = rows[name] + 1e-9
+            t0 = time.perf_counter()
+            grid_vega.chi2_batch(rows).cpu()
+            per_round.append(n_rows / (time.perf_counter() - t0))
+        rates[n_rows] = float(np.median(per_round))
+        log(f'dr16 grid chi2_batch({n_rows}): {rates[n_rows]:.1f} evals/s '
+            f'(median of {GRID_ROUNDS}; per round '
+            f'{", ".join(f"{r:.1f}" for r in per_round)})')
+    log(f'dr16 grid path peak device memory (collapse and both batches): '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB')
+    log(json.dumps({
+        'metric': 'likelihood evals/sec/chip',
+        'value': round(rates[BATCH], 3),
+        'unit': f'evals/s/chip (synthetic-dr16-full, batch={BATCH}, f64, 1 '
+                f'chip(s), {card}, vega_tpu_torch, collapse='
+                f'{collapse_s:.1f}s; batch {GRID_BATCHES[1]}: '
+                f'{rates[GRID_BATCHES[1]]:.1f})'}))
+    profile_call(f'dr16 grid chi2_batch({BATCH})',
+                 lambda: grid_vega.chi2_batch(batches).cpu(), device)
+
+    # --- the fit in each regime: counts from zero
+    points = goldens['derivative_points']
+    seen.clear()
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        grid = derivatives_at(device, grid_vega, points, names,
+                              'dr16 fit grid regime')
+        compare_derivatives(
+            'dr16 fit grid regime vs JAX grid goldens', grid,
+            goldens['grid'],
+            dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_GRID_RTOL))
+        timed_fit(device, grid_vega, 'dr16 grid')
+        check_fit('dr16 grid', 'grid', grid_vega, names, goldens['fit_grid'])
+        dense = derivatives_at(device, dense_vega, points, names,
+                               'dr16 fit dense regime')
+        compare_derivatives(
+            'dr16 fit dense regime vs JAX dense goldens', dense,
+            goldens['dense'],
+            dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_DENSE_RTOL))
+        timed_fit(device, dense_vega, 'dr16 dense')
+        check_fit('dr16 dense', 'dense', dense_vega, names,
+                  goldens['fit_dense'])
+    launches['dr16_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'dr16_fit', layouts)
+    # the backward's launches come from autograd, outside Metals.compute:
+    # they are the fit's launches at the (B, M) of the stack's forward
+    # launches (B = pairs: 14 / 4; the core model's have B = 1)
+    metal_shapes = {(key[2], key[7]) for key in seen}
+    by_primitive = {
+        primitive: sum(r.launches for key, r in layouts.items()
+                       if key[0] == primitive
+                       and (key[2], key[7]) in metal_shapes)
+        for primitive in ('F', 'P', 'Ft')}
+    log(f'dr16 fit kernel launches: {launches["dr16_fit"]}; at the metal '
+        f'stack\'s layouts (B, M) {sorted(metal_shapes)}: {by_primitive}, '
+        f'{metal_launches(seen, "F")} of them F_0 inside Metals.compute')
+    if not by_primitive['F'] or not by_primitive['Ft']:
+        fail('the dr16 dense fit launched no F_d or no Ft_d from metals.py')
+    log(f'dr16 phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -1759,12 +2067,14 @@ def main():
         mc_launches, mc_checks = run_mc_path(device, work)
         sampler_launches, sampler_replays, sampler_checks = \
             run_sampler_paths(device, work, fit_ini)
+        dr16_launches, dr16_checks = run_dr16_path(device, work, card)
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
-              + mc_checks + sampler_checks)
+              + mc_checks + sampler_checks + dr16_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
-         'scan': scan_launches, **mc_launches, **sampler_launches},
+         'scan': scan_launches, **mc_launches, **sampler_launches,
+         **dr16_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

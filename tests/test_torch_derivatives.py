@@ -216,13 +216,34 @@ def test_combine_gradients_match_pallas_f32():
 
 
 def test_grouped_combine_has_no_gradient():
-    knots, y, m, x, leg, _ = combine_inputs(2, False)
+    """A combine with row groups under a gradient no longer raises: it
+    runs group by group through the G = 1 Functions, and its gradients
+    (to x and leg summed over each group) are those of the same rows
+    with the coordinates written out per row. Under no_grad it is one
+    grouped call that builds no graph."""
+    knots, y, m, x, leg, w = combine_inputs(2, False)
     grid = KnotGrid.build(knots, 'cpu')
+    y4, m4 = np.concatenate([y, y[:1]]), np.concatenate([m, m[:1]])
+    w4 = torch.as_tensor(np.concatenate([w, w[:1]]))
+
+    def gradients(group):
+        leaves = [torch.tensor(a, requires_grad=True)
+                  for a in (y4, m4, x[:2], leg[:2])]
+        xs, legs = leaves[2:]
+        if group == 1:      # two coordinate rows, written out for 4 rows
+            xs, legs = (xs.repeat_interleave(2, dim=0),
+                        legs.repeat_interleave(2, dim=0))
+        out = spline_legendre_combine(grid, leaves[0], leaves[1], xs, legs,
+                                      group=group)
+        grads = torch.autograd.grad(torch.sum(w4 * out ** 2), leaves)
+        return out.detach().numpy(), [g.numpy() for g in grads]
+
+    (out_g, grads_g), (out_1, grads_1) = gradients(2), gradients(1)
+    assert np.array_equal(out_g, out_1)
+    for got, want in zip(grads_g, grads_1):
+        assert max_rel(got, want) <= GRAD_RTOL
     y_t = torch.tensor(y, requires_grad=True)
     x1, leg1 = torch.as_tensor(x[:1]), torch.as_tensor(leg[:1])
-    with pytest.raises(ValueError, match='row groups'):
-        spline_legendre_combine(grid, y_t, torch.as_tensor(m), x1, leg1,
-                                group=N_B)
     with torch.no_grad():       # the sweep's way: no gradient asked
         out = spline_legendre_combine(grid, y_t, torch.as_tensor(m), x1,
                                       leg1, group=N_B)

@@ -120,9 +120,11 @@ def test_kaiser_product_terms_match_jax(pair, name):
     pk_core = port.models[name].Pk_core
     got = pk_core._kaiser_product_terms(params)
     assert [c for c, _ in got] == [c for c, _ in want]
-    for (_, mupow), (_, grid) in zip(got, want):
-        np.testing.assert_array_equal(
-            pk_core._mu_pow_grids[mupow].numpy(), np.asarray(grid))
+    grids = pk_core._kaiser_basis_grids([key for _, key in got], params)
+    for (_, key), mine, (_, grid) in zip(got, grids, want):
+        assert key[:2] == ('one', 'one')        # no HCD in this config
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(grid))
+        assert mine is pk_core._mu_pow_grids[key[2]]
     assert pk_core.kaiser_coefficients(params) == [c for c, _ in want]
 
 

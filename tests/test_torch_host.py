@@ -11,6 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
+
+from jax_metal_dataset import make_jax_metal_dataset  # noqa: E402
+import vega_tpu.testing as jax_testing  # noqa: E402
+from vega_tpu.coordinates import Coordinates as JaxCoordinates  # noqa: E402
+
 import vega_tpu.mocks as jax_mocks
 from vega_tpu.io.fits import read_fits as jax_read_fits
 from vega_tpu.parameters import param_utils as jax_param_utils
@@ -24,9 +30,13 @@ from vega_tpu_torch.model import Model
 from vega_tpu_torch.pktoxi import PktoXi
 from vega_tpu_torch.power_spectrum import PowerSpectrum
 from vega_tpu_torch.io.fits import read_fits
+from vega_tpu_torch.metals import PLAN_CONSTANTS
 from vega_tpu_torch.parameters import param_utils
 from vega_tpu_torch.parameters.param_utils import get_default_values
-from vega_tpu_torch.testing import make_synthetic_dataset
+from vega_tpu_torch import testing as port_testing
+from vega_tpu_torch.coordinates import Coordinates
+from vega_tpu_torch.testing import (DR16_METALS, dr16_extra_model,
+                                    make_synthetic_dataset)
 from vega_tpu_torch.utils import JAX_PACKAGE_DIR, find_file
 from vega_tpu_torch.vega_interface import VegaInterface
 
@@ -47,6 +57,16 @@ def jax_constants(vega):
         for attr, owner in state.PER_CORRELATION.items():
             out[f'{corr}/{attr}'] = np.asarray(
                 resolve(getattr(owners[owner], attr)))
+        # the stacked metal classes: plan arrays and the representative
+        # pair's constants
+        plans = getattr(model.metals, '_stacked_plans', None) or []
+        for i, plan in enumerate(plans):
+            for name in PLAN_CONSTANTS:
+                out[f'{corr}/metals/{i}/{name}'] = np.asarray(
+                    resolve(plan[name]))
+            for attr, owner in state.METAL_REPRESENTATIVE.items():
+                out[f'{corr}/metals/{i}/{attr}'] = np.asarray(
+                    resolve(getattr(plan[owner], attr)))
     return out
 
 
@@ -98,7 +118,9 @@ def test_synthetic_files_with_options_match_jax(tmp_path):
     """With a seed, noise and extra [control] text (here opening the
     [monte carlo] sections) the files are the JAX package's too."""
     options = dict(
-        cross=True, size='tiny', seed=3, noise=1.0,
+        cross=True, size='tiny', seed=3, noise=1.0, with_distortion=True,
+        extra_model='model-hcd = Rogers2018\n\n[parameters]\n'
+                    'bias_hcd = -0.05\nbeta_hcd = 0.65\nL0_hcd = 10.\n',
         sample={'ap': '0.5 1.5 1.02 0.02', 'bias_LYA': 'True'},
         extra_control='mc_seed = 7\n\n[monte carlo]\nbias_LYA = True\n'
                       '\n[mc parameters]\nbias_LYA = -0.117\n')
@@ -107,12 +129,109 @@ def test_synthetic_files_with_options_match_jax(tmp_path):
     assert_same_files(tmp_path / 'jax', tmp_path / 'port')
 
 
-def assert_same_files(jax_dir, port_dir):
+def test_synthetic_files_with_metals_match_jax(tmp_path):
+    """The DR16-shaped dataset (HCD, Arinyo, four metals with their metal
+    files, [metals] sections and `test = True`): the port's `metals=`
+    option writes what vega_tpu's own functions write when driven by
+    hand, data vectors from each package's model."""
+    options = dict(cross=True, size='tiny', seed=5, noise=0.5,
+                   extra_model=dr16_extra_model())
+    make_jax_metal_dataset(tmp_path / 'jax', list(DR16_METALS), **options)
+    make_synthetic_dataset(tmp_path / 'port', device='cpu',
+                           metals=list(DR16_METALS), **options)
+    assert_same_files(tmp_path / 'jax', tmp_path / 'port', n_fits=5)
+    text = (tmp_path / 'port' / 'qsoxlya.ini').read_text()
+    assert 'test = True' in text and '[metals]' in text
+    assert 'in tracer1' not in text and 'in tracer2 = SiII(1190)' in text
+
+
+def test_metal_helpers_match_jax(tmp_path):
+    """metal_rp_shifts and write_metal_file, copies of vega_tpu's: equal
+    numbers, equal files byte for byte."""
+    metals = ['SiII(1260)', 'SiIII(1207)', 'CIV(eff)']
+    shifts = port_testing.metal_rp_shifts(metals, 2.33)
+    assert shifts == jax_testing.metal_rp_shifts(metals, 2.33)
+    assert shifts != port_testing.metal_rp_shifts(metals, 2.33,
+                                                  omega_m=0.3)
+    for mod, coords, name in (
+            (port_testing, Coordinates(-200., 200., 200., 20, 10), 'port'),
+            (jax_testing, JaxCoordinates(-200., 200., 200., 20, 10), 'jax')):
+        mod.write_metal_file(tmp_path / f'{name}.fits', coords, 2.33, 'QSO',
+                             'LYA', metals_in2=metals, rp_shifts=shifts)
+        mod.write_metal_file(tmp_path / f'{name}_auto.fits', coords, 2.33,
+                             'LYA', 'LYA', metals_in1=metals[:2],
+                             metals_in2=metals[:2])
+    for stem in ('', '_auto'):
+        assert (tmp_path / f'port{stem}.fits').read_bytes() == \
+            (tmp_path / f'jax{stem}.fits').read_bytes()
+
+
+@pytest.fixture(scope='module')
+def metal_pair(tmp_path_factory):
+    """(vega_tpu interface, port interface) on a tiny dataset with four
+    metals, `use_metal_autos = False` in the auto-correlation."""
+    main = make_jax_metal_dataset(
+        tmp_path_factory.mktemp('metals'), list(DR16_METALS), cross=True,
+        size='tiny', extra_model=dr16_extra_model())
+    ini = Path(main).parent / 'lyaxlya.ini'
+    ini.write_text(ini.read_text().replace(
+        '[model]\n', '[model]\nuse_metal_autos = False\n'))
+    return JaxInterface(main), VegaInterface(main, device='cpu')
+
+
+@pytest.mark.parametrize('corr', CORRS)
+def test_metal_readers_match_jax(metal_pair, corr):
+    """data.py's metal readers and correlation_item.init_metals, copies
+    of vega_tpu's: the same pairs in the same order, tracer catalog,
+    coordinate grids and (identity: None) matrices."""
+    jax_vega, port = metal_pair
+    want_item, got_item = jax_vega.corr_items[corr], port.corr_items[corr]
+    assert got_item.has_metals and got_item.test_flag
+    assert got_item.metal_correlations == want_item.metal_correlations
+    assert got_item.tracer_catalog == want_item.tracer_catalog
+    # no metal x metal pair: 'SiII' is in every one of these names
+    n_pairs = 4
+    assert len(got_item.metal_correlations) == n_pairs
+    want, got = jax_vega.data[corr], port.data[corr]
+    assert list(got.metal_coordinates) == list(want.metal_coordinates)
+    assert got.metal_mats == want.metal_mats
+    assert set(got.metal_mats.values()) == {None}
+    for pair, coords in want.metal_coordinates.items():
+        for grid in ('rp_grid', 'rt_grid', 'z_grid', 'r_grid', 'mu_grid'):
+            np.testing.assert_array_equal(
+                getattr(got.metal_coordinates[pair], grid),
+                getattr(coords, grid))
+    config = got_item.config['metals']
+    assert got._metal_lists(config) == want._metal_lists(config)
+    for names in (('CIV(eff)', 'CIV(eff)'), ('CIV(eff)', 'LYA'),
+                  ('SiII(1190)', 'SiII(1260)'), ('SiII(1190)', 'LYA')):
+        assert got._use_correlation(*names) == want._use_correlation(*names)
+
+
+def test_metal_readers_refuse_what_is_not_ported(metal_pair, tmp_path):
+    """A metal file without matrices needs `test = True`; the new-metals
+    mode raises not_ported."""
+    _, port = metal_pair
+    source = Path(port.main_config['data sets'].get('ini files').split()[0])
+    for old, new, error, match in (
+            ('test = True\n', '', ValueError, 'metal matrices'),
+            ('[model]\n', '[model]\nnew_metals = True\n',
+             NotImplementedError, 'new_metals')):
+        (tmp_path / 'lyaxlya.ini').write_text(
+            source.read_text().replace(old, new))
+        main = (source.parent / 'main.ini').read_text().replace(
+            str(source), str(tmp_path / 'lyaxlya.ini'))
+        (tmp_path / 'main.ini').write_text(main)
+        with pytest.raises(error, match=match):
+            VegaInterface(tmp_path / 'main.ini', device='cpu')
+
+
+def assert_same_files(jax_dir, port_dir, n_fits=3):
     """Same FITS layouts, headers and columns (DA within 1e-12 of its
     largest entry: each package's own model), same ini texts."""
     fits_files = sorted(p.name for p in jax_dir.glob('*.fits'))
     assert fits_files == sorted(p.name for p in port_dir.glob('*.fits'))
-    assert len(fits_files) == 3
+    assert len(fits_files) == n_fits
     for name in fits_files:
         want, got = jax_read_fits(jax_dir / name), read_fits(port_dir / name)
         assert len(want) == len(got)
@@ -210,7 +329,7 @@ for name in names:
 leaked = [m for m in sys.modules
           if m == 'vega_tpu' or m.startswith('vega_tpu.')]
 assert not leaked, leaked
-assert len(names) >= 19, names
+assert len(names) >= 20, names
 new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.parallel', 'vega_tpu_torch.parallel.batch',
        'vega_tpu_torch.analysis', 'vega_tpu_torch.mocks',
@@ -218,7 +337,7 @@ new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.samplers.nested', 'vega_tpu_torch.samplers.smc',
        'vega_tpu_torch.samplers.hmc', 'vega_tpu_torch.samplers.polychord',
        'vega_tpu_torch.samplers.pocomc',
-       'vega_tpu_torch.scripts.run_vega_sampler'}
+       'vega_tpu_torch.scripts.run_vega_sampler', 'vega_tpu_torch.metals'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''

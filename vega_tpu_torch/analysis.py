@@ -116,7 +116,7 @@ class Analysis:
                                   scale=None, forecast=False):
         """A mock of the joint data vector from the global covariance
         (vega_tpu/analysis.py:134-154)."""
-        raise not_ported('Global covariance', 10)
+        raise not_ported('Global covariance', 5)
 
     # ------------------------------------------------------------------
     # Serial Monte-Carlo loop

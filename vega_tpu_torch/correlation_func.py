@@ -24,7 +24,7 @@ class CorrelationFunction:
     """xi-space model (reference: correlation_func.py:10-115)."""
 
     def __init__(self, config, fiducial, coordinates, scale_params,
-                 tracer1, tracer2, device):
+                 tracer1, tracer2, device, metal_corr=False):
         self.device = torch.device(device)
         self._config = config
         self._z = coordinates.z_grid
@@ -34,6 +34,8 @@ class CorrelationFunction:
         self._tracer2 = tracer2
         self._corr_name = f'{tracer1["name"]}x{tracer2["name"]}'
         self._scale_params = scale_params
+        # a metal correlation: ap = at = 1 unless metal-scaling
+        self._metal_corr = metal_corr
 
         for option, feature in (
                 ('radiation effects', 'QSO radiation'),
@@ -42,15 +44,15 @@ class CorrelationFunction:
                 ('UVB-shotnoise', 'UV shotnoise'),
                 ('old_growth_func', 'old_growth_func')):
             if config.getboolean(option, False):
-                raise not_ported(feature, 10)
+                raise not_ported(feature, 4)
         if config.getint('single_multipole', -1) >= 0:
-            raise not_ported('single_multipole', 10)
+            raise not_ported('single_multipole', 4)
         if (config.getboolean('new-bias-evolution', False)
                 and tracer1['type'] != tracer2['type']):
-            raise not_ported('new-bias-evolution', 10)
+            raise not_ported('new-bias-evolution', 4)
         for name in (tracer1['name'], tracer2['name']):
             if 'croom' in self._evol_model(name):
-                raise not_ported('Croom bias evolution', 10)
+                raise not_ported('Croom bias evolution', 4)
 
         # delta rp only for the cross (reference: correlation_func.py:64-69)
         self._delta_rp_name = None
@@ -113,8 +115,8 @@ class CorrelationFunction:
         delta_rp = 0.
         if self._delta_rp_name is not None:
             delta_rp = rec.get(self._delta_rp_name, 0.)
-        ap, at = self._scale_params.get_ap_at(rec,
-                                              corr_name=self._corr_name)
+        ap, at = self._scale_params.get_ap_at(
+            rec, corr_name=self._corr_name, metal_corr=self._metal_corr)
         rescaled_r, rescaled_mu = self._rescale_coords(
             self._r, self._mu, col(ap, 1), col(at, 1), col(delta_rp, 1))
         return pktoxi_obj.compute(rescaled_r, rescaled_mu, pk,

@@ -1,7 +1,8 @@
 """Per-correlation configuration item.
 
 Counterpart of vega_tpu/correlation_item.py for the dense likelihood:
-tracer info, config sections and coordinates. Metals, broadband and
+tracer info, config sections, coordinates and the metal correlation
+list of the legacy metal-file mode. The new-metals mode, broadband and
 small-scale marginalization are not ported yet and raise at construction.
 """
 
@@ -37,17 +38,34 @@ class CorrelationItem:
         if 'filename' not in config['data']:
             self.has_data = False
 
-        if 'metals' in config or config['model'].getboolean('new_metals',
-                                                            False):
-            raise not_ported('Metals', 10)
+        self.new_metals = config['model'].getboolean('new_metals', False)
+        if self.new_metals:
+            raise not_ported('new_metals (stacked-delta metal distortion '
+                             'matrices)', 4)
+        self.test_flag = config['data'].getboolean('test', False)
+        self.has_metals = False
         if 'broadband' in config:
-            raise not_ported('Broadband polynomials', 10)
+            raise not_ported('Broadband polynomials', 4)
         marg_options = ('marginalize-below-rtmax', 'marginalize-above-rtmin',
                         'marginalize-below-rpmax', 'marginalize-above-rpmin')
         if (any(config['model'].getfloat(opt, 0) > 0 for opt in marg_options)
                 or config['model'].getboolean('marginalize-all-rmin-cuts',
                                               False)):
-            raise not_ported('Small-scale marginalization', 10)
+            raise not_ported('Small-scale marginalization', 5)
+
+    def init_metals(self, tracer_catalog, metal_correlations):
+        """Normalize and dedupe the metal correlation list
+        (reference: correlation_item.py:77-106)."""
+        self.tracer_catalog = tracer_catalog
+        self.metal_correlations = []
+        for corr in metal_correlations:
+            corr_hash = tuple(sorted([corr[0], corr[1]]))
+            if (corr_hash[0] == self.tracer2['name']
+                    or corr_hash[1] == self.tracer1['name']):
+                corr_hash = (corr_hash[1], corr_hash[0])
+            if corr_hash not in self.metal_correlations:
+                self.metal_correlations.append(corr_hash)
+        self.has_metals = True
 
     def init_coordinates(self, model_coordinates, dist_model_coordinates=None,
                          data_coordinates=None):

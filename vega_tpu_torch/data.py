@@ -1,8 +1,10 @@
 """Correlation-function data: data vector, scale-cut masks, covariance,
 masked inverse covariance, log-determinant and distortion matrix.
 
-Counterpart of vega_tpu/data.py without metals and small-scale
-marginalization templates. Host-side numpy throughout; the likelihood
+Counterpart of vega_tpu/data.py without small-scale marginalization
+templates, with the metal grids and matrices of the legacy metal-file
+mode (`_init_metals`; the new-metals mode is not ported and raises).
+Host-side numpy throughout; the likelihood
 copies what it needs to the device. Monte-Carlo mocks
 (`create_monte_carlo`) draw from the numpy global RNG, as vega_tpu's do,
 so a seeded host mock is the same numbers in both packages.
@@ -23,7 +25,12 @@ class Data:
     """Data for one correlation component (reference: data.py:12-134)."""
 
     def __init__(self, corr_item):
+        self.corr_item = corr_item
+        self.tracer1 = corr_item.tracer1
+        self.tracer2 = corr_item.tracer2
         config = corr_item.config
+        self.use_metal_autos = config['model'].getboolean(
+            'use_metal_autos', True)
         self.cholesky_masked_cov = config['data'].getboolean(
             'cholesky-masked-cov', True)
 
@@ -40,6 +47,7 @@ class Data:
         corr_item.init_coordinates(self.model_coordinates,
                                    self.dist_model_coordinates,
                                    self.data_coordinates)
+        self._wire_corr_item(corr_item)
 
         # absent matrices become exact identities (the model skips
         # identity matmuls entirely)
@@ -54,6 +62,18 @@ class Data:
         self._scale = 1.
         self.scaled_inv_masked_cov = None
         self.scaled_log_cov_det = None
+
+    def _wire_corr_item(self, corr_item):
+        """Hand the metal grids and matrices read here to the
+        CorrelationItem (vega_tpu/data.py:94-108 without broadband and
+        the FITS header's cosmology, which only unported features
+        read)."""
+        if 'metals' in corr_item.config:
+            if corr_item.new_metals:
+                raise not_ported('new_metals (stacked-delta metal '
+                                 'distortion matrices)', 4)
+            catalog, pairs = self._init_metals(corr_item.config['metals'])
+            corr_item.init_metals(catalog, pairs)
 
     @property
     def cov_mat(self):
@@ -166,7 +186,7 @@ class Data:
         strat = header.get('BLINDING', None)
         if strat not in (None, 'none', 'None', 'desi_m2', 'desi_y1',
                          'desi_y3'):
-            raise not_ported(f'Data-level blinding ({strat})', 10)
+            raise not_ported(f'Data-level blinding ({strat})', 5)
         self.data_vec = self._column(columns, 'DA', required=True)
         self.full_data_size = len(self.data_vec)
 
@@ -201,6 +221,100 @@ class Data:
                                        or self.model_coordinates)
         self.model_mask = self.dist_model_coordinates.get_mask_scale_cuts(
             cuts_config)
+
+    # ------------------------------------------------------------------
+    # Metals (vega_tpu/data.py:328-424)
+    # ------------------------------------------------------------------
+    def _metal_lists(self, metal_config):
+        """The 'in tracer1' / 'in tracer2' metal name lists (None when
+        the side is absent)."""
+        if not ('in tracer1' in metal_config or 'in tracer2' in metal_config):
+            raise ValueError("The metals config must specify 'in tracer1' "
+                             "and/or 'in tracer2'")
+        return tuple(
+            metal_config.get(side).split() if side in metal_config else None
+            for side in ('in tracer1', 'in tracer2'))
+
+    def _init_metal_tracers(self, metal_config):
+        in1, in2 = self._metal_lists(metal_config)
+        tracer_catalog = {
+            self.tracer1['name']: self.tracer1,
+            self.tracer2['name']: self.tracer2,
+        }
+        for metal in (in1 or []) + (in2 or []):
+            tracer_catalog[metal] = {'name': metal, 'type': 'continuous'}
+        return in1, in2, tracer_catalog
+
+    def _metal_pairs(self, in1, in2):
+        """Every metal correlation pair this component needs, in the
+        reference's order: main1 x (in2), (in1) x main2, then the
+        metal x metal block with the symmetric half skipped for autos
+        (reference: data.py:556-630 loop structure)."""
+        pairs = []
+        for metal in in2 or []:
+            pairs.append((self.tracer1['name'], metal))
+        for metal in in1 or []:
+            pairs.append((metal, self.tracer2['name']))
+        if in1 and in2:
+            is_auto = self.tracer1 == self.tracer2
+            for i, metal1 in enumerate(in1):
+                for metal2 in in2[i if is_auto else 0:]:
+                    pairs.append((metal1, metal2))
+        return [p for p in pairs if self._use_correlation(*p)]
+
+    def _init_metals(self, metal_config):
+        """Legacy mode: metal coordinates, and distortion matrices where
+        the file has them, read from a picca metal FITS file."""
+        in1, in2, tracer_catalog = self._init_metal_tracers(metal_config)
+
+        self.metal_mats = {}
+        self.metal_coordinates = {}
+
+        metal_hdul = read_fits(find_file(metal_config.get('filename')))
+        blinded = metal_hdul[1].header.get('BLINDING', 'none') != 'none'
+        dm_prefix = 'DM_BLIND_' if blinded else 'DM_'
+
+        metal_correlations = self._metal_pairs(in1, in2)
+        for tracers in metal_correlations:
+            # column names may carry the pair in either order
+            name = '_'.join(tracers)
+            if 'RP_' + name not in metal_hdul[2].columns:
+                name = '_'.join(reversed(tracers))
+            self._read_metal_correlation(metal_hdul, tracers, name,
+                                         dm_prefix)
+        return tracer_catalog, metal_correlations
+
+    def _use_correlation(self, name1, name2):
+        """(reference: data.py:632-653)"""
+        if name1 == 'CIV(eff)' or name2 == 'CIV(eff)':
+            return name1 == name2
+        if 'SiII' in name1 and 'SiII' in name2 and not self.use_metal_autos:
+            return False
+        return True
+
+    def _read_metal_correlation(self, metal_hdul, tracers, name, dm_prefix):
+        """(reference: data.py:655-687)"""
+        header = metal_hdul[1].header
+        self.metal_coordinates[tracers] = Coordinates(
+            header['RPMIN'], header['RPMAX'], header['RTMAX'],
+            header['NP'], header['NT'],
+            rp_grid=metal_hdul[2]['RP_' + name],
+            rt_grid=metal_hdul[2]['RT_' + name],
+            z_grid=metal_hdul[2]['Z_' + name])
+
+        dm_name = dm_prefix + name
+        if dm_name in metal_hdul[2].columns:
+            self.metal_mats[tracers] = metal_hdul[2][dm_name].astype(float)
+        elif len(metal_hdul) > 3 and dm_name in metal_hdul[3].columns:
+            self.metal_mats[tracers] = metal_hdul[3][dm_name].astype(float)
+        elif self.corr_item.test_flag:
+            # identity metal matrix: None, so the model skips the matmul
+            # (the reference multiplies by sparse.eye)
+            self.metal_mats[tracers] = None
+        else:
+            raise ValueError('Cannot find correct metal matrices. Check that '
+                             'blinding is consistent between cf and metal '
+                             'files.')
 
     def _read_dmat(self, dmat_path):
         """Separate distortion-matrix file (reference: data.py:441-473)."""

@@ -1,15 +1,17 @@
 """Per-correlation model assembly: the peak/smooth decomposition and the
 distortion matrix.
 
-Counterpart of vega_tpu/model.py (`compute`, :211-245) without metals,
-broadband and instrumental systematics. The distortion matrix, where the
-data carry one that is not the identity, is a dense f64 matmul
+Counterpart of vega_tpu/model.py (`compute`, :211-245) with the metal
+correlations of the legacy metal-file mode (metals.py), without broadband
+and instrumental systematics. The distortion matrix, where the data
+carry one that is not the identity, is a dense f64 matmul
 (vega_tpu/model.py:93-97,152-157).
 
 With a `Sampling` the model takes the factored path where it can and
 returns a FactoredXi whose terms are the peak's then the smooth's, in
-the order of vega_tpu's; `coefficients` is its coefficient part, run per
-evaluation on (B,) tensors.
+the order of vega_tpu's, the metals' after the component's Kaiser terms;
+`coefficients` is its coefficient part, run per evaluation on (B,)
+tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from . import correlation_func as corr_func
-from . import pktoxi, power_spectrum
+from . import metals, pktoxi, power_spectrum
 from .factored import FactoredXi, densify, stack_coefficients
 from .utils import col, not_ported, to_tensor
 
@@ -34,7 +36,7 @@ class Model:
             raise ValueError('CorrelationItem has no model coordinates')
         if corr_item.config['model'].getboolean(
                 'desi-instrumental-systematics', False):
-            raise not_ported('DESI instrumental systematics', 10)
+            raise not_ported('DESI instrumental systematics', 4)
 
         corr_item.config['model']['bin_size_rp'] = \
             str(corr_item.data_coordinates.rp_binsize)
@@ -51,6 +53,16 @@ class Model:
             scale_params, corr_item.tracer1, corr_item.tracer2,
             device=self.device)
 
+        # Metals are added once to the smooth component, computed on the
+        # full linear spectrum (no-metal-decomp, the default), or to each
+        # component on its own spectrum
+        self.metals = None
+        if corr_item.has_metals:
+            self.metals = metals.Metals(corr_item, fiducial, scale_params,
+                                        data, device=self.device)
+            self.no_metal_decomp = corr_item.config['model'].getboolean(
+                'no-metal-decomp', True)
+
         # Dense distortion matrix; skipped when it is exactly the
         # identity (the data layer substitutes eye for an absent one)
         self._dist_mat = None
@@ -60,17 +72,37 @@ class Model:
             if not np.array_equal(dist, np.eye(*dist.shape)):
                 self._dist_mat = to_tensor(dist, self.device)
 
-    def _compute_model(self, pars, pk_model, use_kernel, sampling=None):
+    def _compute_model(self, pars, pk_model, use_kernel, sampling=None,
+                       xi_metals=None, pk_lin=None):
         """One component's correlation function
-        (vega_tpu/model.py:100-165)."""
+        (vega_tpu/model.py:100-165): the core model, plus `xi_metals`
+        when given (no-metal-decomp), else with metals the metal stack on
+        this component's linear spectrum `pk_lin`."""
         xi_model, bad = self.Xi_core.compute(pk_model, self.PktoXi, pars,
                                              use_kernel, sampling)
+        if self.metals is not None:
+            if self.no_metal_decomp and xi_metals is not None:
+                xi_model = self._add_xi(xi_model, xi_metals)
+            elif not self.no_metal_decomp:
+                xi_m, bad_m = self.metals.compute(pars, pk_lin, use_kernel,
+                                                  sampling)
+                xi_model = self._add_xi(xi_model, xi_m)
+                bad = bad | bad_m
         if self._dist_mat is not None:
             if isinstance(xi_model, FactoredXi):
                 xi_model = xi_model.matmul(self._dist_mat)
             else:
                 xi_model = xi_model @ self._dist_mat.T
         return xi_model, bad
+
+    @staticmethod
+    def _add_xi(a, b):
+        """Add two xi values, keeping the factored form when both sides
+        carry one; a mixed pair densifies the factored side
+        (vega_tpu/model.py:167-178)."""
+        if isinstance(a, FactoredXi) and isinstance(b, FactoredXi):
+            return a + b
+        return densify(a) + densify(b)
 
     def compute(self, pars, pk_full, pk_smooth, use_kernel=True,
                 sampling=None, pk_cache=None):
@@ -80,45 +112,64 @@ class Model:
         pk_full, pk_smooth : (n_k,) tensors
         sampling : a factored.Sampling for the factored path, or None
         pk_cache : a dict that keeps the factored power spectra (and their
-            knot tables) between calls with the same sampled set, when no
-            grid parameter shaped them (the grid sweep's node chunks)
+            knot tables) and the factored metal stack between calls with
+            the same sampled set, when no grid parameter shaped them (the
+            grid sweep's node chunks)
         Returns (xi_full, bad (B',)): xi_full is (B', M), B' = 1 when no
         parameter the model reads is batched, or a FactoredXi.
         """
         pars = dict(pars)
         pars['peak'] = True
+        pk_peak_lin = pk_full - pk_smooth
         if pk_cache is not None and 'pk' in pk_cache:
-            pk_peak, pk_smooth_grid = pk_cache['pk']
+            pk_peak, pk_smooth_grid, bad_pk = pk_cache['pk']
         else:
-            pk_peak, pk_smooth_grid, _ = self.Pk_core.compute_peak_smooth(
-                pars, pk_full - pk_smooth, pk_smooth, sampling)
+            pk_peak, pk_smooth_grid, bad_pk = \
+                self.Pk_core.compute_peak_smooth(pars, pk_peak_lin,
+                                                 pk_smooth, sampling)
             if (pk_cache is not None
                     and isinstance(pk_peak, power_spectrum.FactoredPk)
                     and pk_peak.grid_free):
-                pk_cache['pk'] = (pk_peak, pk_smooth_grid)
-        xi_peak, bad_peak = self._compute_model(pars, pk_peak, use_kernel,
-                                                sampling)
+                pk_cache['pk'] = (pk_peak, pk_smooth_grid, bad_pk)
+        xi_peak, bad_peak = self._compute_model(
+            pars, pk_peak, use_kernel, sampling, pk_lin=pk_peak_lin)
         del pk_peak
 
         pars['peak'] = False
-        xi_smooth, bad_smooth = self._compute_model(pars, pk_smooth_grid,
-                                                    use_kernel, sampling)
+        xi_metals, bad_metals = None, False
+        if self.metals is not None and self.no_metal_decomp:
+            if pk_cache is not None and 'metals' in pk_cache:
+                xi_metals, bad_metals = pk_cache['metals']
+            else:
+                xi_metals, bad_metals = self.metals.compute(
+                    pars, pk_full, use_kernel, sampling)
+                # basis rows without a leading axis: no grid parameter
+                # moved them, every node chunk gets the same
+                if (pk_cache is not None
+                        and isinstance(xi_metals, FactoredXi)
+                        and xi_metals.V.dim() == 2):
+                    pk_cache['metals'] = (xi_metals, bad_metals)
+        xi_smooth, bad_smooth = self._compute_model(
+            pars, pk_smooth_grid, use_kernel, sampling, xi_metals=xi_metals,
+            pk_lin=pk_smooth)
         if isinstance(xi_peak, FactoredXi):
             xi_peak = xi_peak.scale(pars['bao_amp'])
         else:
             xi_peak = col(pars['bao_amp'], 1) * xi_peak
-        # both factored: the terms concatenate; a mixed pair densifies
-        # the factored side (vega_tpu/model.py:167-178)
-        if isinstance(xi_peak, FactoredXi) and isinstance(xi_smooth,
-                                                          FactoredXi):
-            return xi_peak + xi_smooth, bad_peak | bad_smooth
-        return densify(xi_peak) + densify(xi_smooth), bad_peak | bad_smooth
+        return (self._add_xi(xi_peak, xi_smooth),
+                bad_peak | bad_metals | bad_smooth | bad_pk)
 
     def coefficients(self, pars, n_rows):
         """The coefficient part of the factored model: (n_rows, T), the
         peak's terms times bao_amp, then the smooth's, as `compute`
-        orders them. Reads only scalars and (B,) tensors."""
+        orders them: each component's HCD-merged Kaiser coefficients,
+        then the metals' weight x (1, b1 + b2, b1 b2) per pair (after the
+        smooth's alone with no-metal-decomp, after both without). Reads
+        only scalars and (B,) tensors."""
         kaiser = self.Pk_core.kaiser_coefficients(pars)
-        coeffs = [pars['bao_amp'] * c for c in kaiser] + kaiser
+        metal = [] if self.metals is None else self.metals.coefficients(pars)
+        peak = kaiser if self.metals is None or self.no_metal_decomp \
+            else kaiser + metal
+        coeffs = [pars['bao_amp'] * c for c in peak] + kaiser + metal
         return stack_coefficients(coeffs, self.Pk_core._muk_t).expand(
             n_rows, len(coeffs))

@@ -10,7 +10,8 @@ differentiable twice.
 S^(d) is the d-th x-derivative (d = 0..3) of the cubic spline of row b,
 multipole l; F_0 is the forward. Rows come in groups of G that share one
 coordinate row (G = 1: a coordinate row per row; G = T in the grid
-sweep, which runs under no_grad: a combine with G > 1 has no gradient).
+sweep, G = 3 or the batch in the metal stack; under a gradient a combine
+with G > 1 runs group by group, `spline_legendre_combine`).
 
 Counterpart of vega_tpu/ops/pallas_spline.py: the Pallas kernels (F_0)
 and the backward of `make_vmappable_combine` (:233, the XLA VJP of
@@ -621,15 +622,23 @@ def spline_legendre_combine(grid, y, m, x, leg, *, group=1,
     """Fused evaluate-and-combine F_0 for B rows (arguments as
     `combine_forward`), differentiable: when grad mode is on and an input
     requires grad it goes through the autograd Functions, whose forward
-    and backwards are the kernels on CUDA tensors. A combine with row
-    groups (G > 1) serves the grid sweep, which runs under no_grad, and
-    raises if it would need a gradient."""
+    and backwards are the kernels on CUDA tensors. The Functions take
+    G = 1 only, so a combine with row groups (G > 1) that needs a gradient
+    runs as one Function call per coordinate row, its G rows reading that
+    row with stride 0: B / G launches of each kernel instead of one, and
+    the gradients to x and leg summed over each group by autograd."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (y, m, x, leg)):
-        if group != 1:
-            raise ValueError(f'a combine with row groups (G = {group!r}) '
-                             'has no gradient: it serves the no_grad grid '
-                             'sweep')
-        return _Combine.apply(y, m, x, leg, grid, 0, use_kernel)
+        if group == 1:
+            return _Combine.apply(y, m, x, leg, grid, 0, use_kernel)
+        _check(grid, y, m, x, leg, group)
+        n_ell, n_q = y.shape[1], x.shape[1]
+        return torch.cat([
+            _Combine.apply(y[i * group:(i + 1) * group],
+                           m[i * group:(i + 1) * group],
+                           x[i:i + 1].expand(group, n_q),
+                           leg[i:i + 1].expand(group, n_ell, n_q),
+                           grid, 0, use_kernel)
+            for i in range(x.shape[0])])
     return combine_forward(grid, y, m, x, leg, group=group,
                            use_kernel=use_kernel)

@@ -72,9 +72,9 @@ class PktoXi:
 
         self.ell_max = config.getint('ell_max', 6)
         if config.getboolean('old_fftlog', False):
-            raise not_ported('old_fftlog', 10)
+            raise not_ported('old_fftlog', 4)
         if config.getboolean('fht_extrap', False):
-            raise not_ported('fht_extrap', 10)
+            raise not_ported('fht_extrap', 4)
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
                               np.arange(0, self.ell_max + 1, 2))

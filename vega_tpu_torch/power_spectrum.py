@@ -1,18 +1,21 @@
 """Anisotropic power-spectrum model P(k, mu_k).
 
 Counterpart of vega_tpu/power_spectrum.py: `compute_peak_smooth`
-(vega_tpu/power_spectrum.py:203-320), dense and factored, with the
-factors the synthetic auto+cross configuration uses: the static binning
-window G(k), the Lorentzian velocity dispersion, the BAO peak broadening
-and the division-free Kaiser polynomial. Every other factor raises
-NotImplementedError naming its ROADMAP.md item.
+(vega_tpu/power_spectrum.py:203-320), dense and factored, and the
+single-component `compute` the metal correlations use, with the factors
+of a DR16-shaped configuration: the static binning window G(k), the
+Lorentzian velocity dispersion, the BAO peak broadening, the HCD
+effective biases (Rogers, fvoigt, sinc), the small-scale non-linear
+terms (Arinyo, McDonald) and the division-free Kaiser polynomial. Every
+other factor raises NotImplementedError naming its ROADMAP.md item.
 
 Parameters arrive as a dict of Python floats and (B,) tensors; a factor
 that reads only floats stays an unbatched (mu_k, k) grid, and a factor
 that reads a (B,) tensor becomes (B, mu_k, k) (see `utils.col`).
 
 The factored branch splits the Kaiser term into scalar coefficients times
-static mu_k^2n grids (`FactoredPk`). Its basis part (`compute_peak_smooth`
+static grids, mu_k^2n times the HCD profile to the power 0, 1 or 2
+(`FactoredPk`). Its basis part (`compute_peak_smooth`
 with a `Sampling`) builds the grids once per sampled set; its coefficient
 part (`kaiser_coefficients`) is what each evaluation runs, on (B,)
 tensors, and never touches a grid.
@@ -90,6 +93,7 @@ class PowerSpectrum:
         self.device = torch.device(device)
         self.tracer1_name = tracer1['name']
         self.tracer2_name = tracer2['name']
+        self._corr_name = f'{self.tracer1_name}x{self.tracer2_name}'
         self.tracer1_type = tracer1['type']
         self.tracer2_type = tracer2['type']
         self._name = dataset_name
@@ -100,24 +104,56 @@ class PowerSpectrum:
         self.use_Gk = config.getboolean('model binning', True)
 
         unported = {
-            'pk-damping-scale': 'Pk damping', 'model-hcd': 'HCD model',
-            'small scale nl': 'Small-scale non-linear models',
+            'pk-damping-scale': 'Pk damping',
             'fullshape smoothing': 'Full-shape smoothing',
             'mock-bin-size': 'Mock binning window',
         }
         for option, feature in unported.items():
             if config.get(option, None) is not None:
-                raise not_ported(feature, 10)
+                raise not_ported(feature, 4)
         for option, feature in (('UVB-fluctuations', 'UV fluctuations'),
                                 ('HeII-reionization', 'HeII reionization'),
                                 ('skip-nl-model-in-peak',
                                  'skip-nl-model-in-peak')):
             if config.getboolean(option, False):
-                raise not_ported(feature, 10)
+                raise not_ported(feature, 4)
         self.velocity_dispersion = config.get('velocity dispersion', None)
         if self.velocity_dispersion not in (None, 'lorentz'):
             raise not_ported(
-                f'Velocity dispersion "{self.velocity_dispersion}"', 10)
+                f'Velocity dispersion "{self.velocity_dispersion}"', 4)
+
+        self.hcd_model = config.get('model-hcd', None)
+        if self.hcd_model is not None and not any(
+                kind in self.hcd_model
+                for kind in ('Rogers', 'fvoigt', 'sinc')):
+            raise ValueError(f'Unknown hcd model {self.hcd_model}. '
+                             "Choose from ['Rogers', 'fvoigt', 'sinc']")
+        self.small_scale_nl = config.get('small scale nl', None)
+        if self.small_scale_nl is not None and not any(
+                kind in self.small_scale_nl
+                for kind in ('arinyo', 'mcdonald')):
+            raise ValueError("Incorrect 'small scale nl' specified")
+
+        # Fvoigt HCD profile table (vega_tpu/power_spectrum.py:145-155),
+        # read from the JAX package's models directory by path
+        self._fvoigt = None
+        if self.hcd_model is not None and 'fvoigt' in self.hcd_model:
+            if 'fvoigt_model' not in config.keys():
+                raise ValueError('No fvoigt_model specified in config')
+            fvoigt_model = config.get('fvoigt_model')
+            path = (fvoigt_model if '/' in fvoigt_model else utils.find_file(
+                f'fvoigt_models/Fvoigt_{fvoigt_model}.txt'))
+            table = np.loadtxt(path)
+            self._fvoigt = (to_tensor(table[:, 0], self.device),
+                            to_tensor(table[:, 1], self.device))
+
+        # Delta^2(k) of the fiducial Pk rescaled to z_eff, for the Arinyo
+        # term (vega_tpu/power_spectrum.py:157-160,640)
+        pk_fid = np.asarray(fiducial['pk_full']) * (
+            (1 + fiducial['z_fiducial']) / (1. + fiducial['z_eff'])) ** 2
+        self._k_t = to_tensor(self.k_grid, self.device)
+        self._delta_sq = to_tensor(
+            self.k_grid ** 3 * pk_fid / (2 * np.pi ** 2), self.device)
 
         num_bins_muk = config.getint('num_bins_muk', 1000)
         quadrature = config.get('muk-quadrature', 'midpoint')
@@ -157,7 +193,7 @@ class PowerSpectrum:
         (vega_tpu/power_spectrum.py:298-315)."""
         if (f'par binsize {self._name}' in params
                 or f'per binsize {self._name}' in params):
-            raise not_ported('Per-dataset binsize parameters', 10)
+            raise not_ported('Per-dataset binsize parameters', 4)
 
         def mul(acc, fac):
             if fac is None:
@@ -165,75 +201,271 @@ class PowerSpectrum:
             return fac if acc is None else acc * fac
 
         rec_common = RecordingParams(params, sampling)
-        common = None
-        if self.use_Gk:
-            common = mul(common, self.pk_Gk)
-        if self.velocity_dispersion == 'lorentz':
-            common = mul(common,
-                         self.compute_velocity_dispersion_lorentz(rec_common))
+        common = self._common_factors(rec_common)
+
+        # Non-linear factors (vega_tpu/power_spectrum.py:267-286)
+        rec_nl = RecordingParams(params, sampling)
+        nl, bad = self._nl_factor(rec_nl)
+
         rec_peak = RecordingParams(params, sampling)
         peak_nl = self.compute_peak_nl(rec_peak)
 
-        smooth_static = mul(pk_smooth_lin, common)
-        peak_static = mul(mul(pk_peak_lin, common), peak_nl)
+        smooth_static = mul(mul(pk_smooth_lin, common), nl)
+        peak_static = mul(mul(mul(pk_peak_lin, common), nl), peak_nl)
 
         if (sampling is not None and sampling.sampled
-                and not (rec_common.traced() or rec_peak.traced())):
-            grid_free = not any(key in sampling.grid for key in
-                                rec_common.accessed + rec_peak.accessed)
-            coeffs, mupows = zip(*self._kaiser_product_terms(params))
-            grids = [self._mu_pow_grids[p] for p in mupows]
-            return (FactoredPk(coeffs, [peak_static * g for g in grids],
-                               grid_free),
-                    FactoredPk(coeffs, [smooth_static * g for g in grids],
-                               grid_free),
-                    False)
+                and not (rec_common.traced() or rec_nl.traced()
+                         or rec_peak.traced())):
+            terms = self._kaiser_product_terms(params, sampling)
+            if terms is not None:
+                grid_free = not any(
+                    key in sampling.grid for key in rec_common.accessed
+                    + rec_nl.accessed + rec_peak.accessed)
+                coeffs = [c for c, _ in terms]
+                grids = self._kaiser_basis_grids([key for _, key in terms],
+                                                 params)
+                return (FactoredPk(coeffs, [peak_static * g for g in grids],
+                                   grid_free),
+                        FactoredPk(coeffs,
+                                   [smooth_static * g for g in grids],
+                                   grid_free),
+                        bad)
 
         kaiser = self.compute_kaiser_poly(params)
-        return peak_static * kaiser, smooth_static * kaiser, False
+        return peak_static * kaiser, smooth_static * kaiser, bad
+
+    def _common_factors(self, params):
+        """G(k) and the velocity dispersion, or None
+        (vega_tpu/power_spectrum.py:232-265)."""
+        common = self.pk_Gk if self.use_Gk else None
+        if self.velocity_dispersion == 'lorentz':
+            lorentz = self.compute_velocity_dispersion_lorentz(params)
+            common = lorentz if common is None else common * lorentz
+        return common
+
+    def _nl_factor(self, params):
+        """(small-scale NL factor or None, bad flag): Arinyo with its
+        not-finite flag, or McDonald."""
+        if self.small_scale_nl is None:
+            return None, False
+        if 'arinyo' in self.small_scale_nl:
+            return self.compute_dnl_arinyo(params)
+        return self.compute_dnl_mcdonald(), False
+
+    def compute(self, pk_lin, params, fast_metals=False):
+        """One component: P(k, mu_k) = pk_lin x every factor, returns
+        (pk, bad) (vega_tpu/power_spectrum.py:189-201,462-535; the metal
+        correlations' unrolled path). fast_metals leaves the bias product
+        out of the Kaiser term."""
+        bias1, beta1, bias2, beta2 = utils.bias_beta(
+            params, self.tracer1_name, self.tracer2_name)
+        if self.hcd_model is not None:
+            if self.tracer1_name == 'LYA':
+                bias1, beta1 = self.compute_bias_beta_hcd(bias1, beta1,
+                                                          params)
+            if self.tracer2_name == 'LYA':
+                bias2, beta2 = self.compute_bias_beta_hcd(bias2, beta2,
+                                                          params)
+        factor = self.compute_kaiser(bias1, beta1, bias2, beta2, fast_metals)
+        nl, bad = self._nl_factor(params)
+        if nl is not None:
+            factor = factor * nl
+        if self.use_Gk:
+            factor = factor * self.pk_Gk
+        if self.velocity_dispersion == 'lorentz':
+            factor = factor * self.compute_velocity_dispersion_lorentz(params)
+        pk_full = pk_lin * factor
+        if bool(params['peak']):
+            pk_full = pk_full * self.compute_peak_nl(params)
+        return pk_full, bad
 
     # ------------------------------------------------------------------
     # Kaiser decomposition for the factored path
     # ------------------------------------------------------------------
-    @staticmethod
-    def _tracer_poly_terms(bias, beta):
-        """One tracer's Kaiser polynomial b + b beta mu_k^2 as
-        [(coeff, key, mupow)] (vega_tpu/power_spectrum.py:325-362; the
-        HCD and UV keys are not ported, those models raise at init)."""
-        return [(bias, 'one', 0), (bias * beta, 'one', 2)]
+    HCD_SHAPE_PARAMS = ('L0_hcd', 'L0_fvoigt', 'L0_sinc')
 
-    def _kaiser_product_terms(self, params):
-        """The Kaiser factor as merged [(coeff, mupow)] product terms, in
-        the order of vega_tpu/power_spectrum.py:377-421: the coefficient
-        of the mu_k^mupow basis grid."""
+    def _hcd_bias_beta(self, params):
+        """(bias_hcd, beta_hcd), the correlation's own where given."""
+        bias_hcd = params.get(f'bias_hcd_{self._corr_name}')
+        if bias_hcd is None:
+            bias_hcd = params['bias_hcd']
+        beta_hcd = params.get(f'beta_hcd_{self._corr_name}')
+        if beta_hcd is None:
+            beta_hcd = params['beta_hcd']
+        return bias_hcd, beta_hcd
+
+    def _tracer_poly_terms(self, params, name, bias, beta, sampling=None):
+        """One tracer's Kaiser polynomial b_eff + bb_eff mu_k^2 as
+        [(coeff, key, mupow)], key 'one' or 'hcd' naming a grid that no
+        sampled parameter shapes (vega_tpu/power_spectrum.py:325-362; the
+        UV keys are not ported, those models raise at init). None when a
+        parameter that shapes the HCD profile is sampled."""
+        b_terms = [(bias, 'one')]
+        bb_terms = [(bias * beta, 'one')]
+        if self.hcd_model is not None and name == 'LYA':
+            if sampling is not None and any(
+                    key in sampling.sampled for key in self.HCD_SHAPE_PARAMS):
+                return None
+            bias_hcd, beta_hcd = self._hcd_bias_beta(params)
+            b_terms.append((bias_hcd, 'hcd'))
+            bb_terms.append((bias_hcd * beta_hcd, 'hcd'))
+        return ([(c, key, 0) for c, key in b_terms]
+                + [(c, key, 2) for c, key in bb_terms])
+
+    def _kaiser_product_terms(self, params, sampling=None):
+        """The Kaiser factor as merged [(coeff, (key1, key2, mupow))]
+        product terms, in the order of vega_tpu/power_spectrum.py:377-421:
+        the coefficient of the basis grid key1 x key2 x mu_k^mupow. Reads
+        no grid. None when not decomposable (`_tracer_poly_terms`)."""
         bias1, beta1, bias2, beta2 = utils.bias_beta(
             params, self.tracer1_name, self.tracer2_name)
+        t1 = self._tracer_poly_terms(params, self.tracer1_name, bias1, beta1,
+                                     sampling)
+        t2 = self._tracer_poly_terms(params, self.tracer2_name, bias2, beta2,
+                                     sampling)
+        if t1 is None or t2 is None:
+            return None
         merged = {}
-        for c1, k1, p1 in self._tracer_poly_terms(bias1, beta1):
-            for c2, k2, p2 in self._tracer_poly_terms(bias2, beta2):
+        for c1, k1, p1 in t1:
+            for c2, k2, p2 in t2:
                 key = (tuple(sorted([repr(k1), repr(k2)])), p1 + p2)
                 coeff = c1 * c2
                 if key in merged:
-                    merged[key] = (merged[key][0] + coeff, p1 + p2)
+                    merged[key] = (merged[key][0] + coeff, merged[key][1])
                 else:
-                    merged[key] = (coeff, p1 + p2)
+                    merged[key] = (coeff, (k1, k2, p1 + p2))
         return list(merged.values())
+
+    def _kaiser_basis_grids(self, keys, params):
+        """The (mu_k, k) basis grid of each (key1, key2, mupow), built as
+        vega_tpu/power_spectrum.py:399-420 builds them: mu_k^mupow times
+        the grid of each key that is not 'one'."""
+        hcd = None
+        if any('hcd' in key[:2] for key in keys):
+            hcd = self._hcd_profile(params)
+        grids = []
+        for k1, k2, mupow in keys:
+            grid = self._mu_pow_grids[mupow] if mupow else None
+            for k in (k1, k2):
+                if k == 'hcd':
+                    grid = hcd if grid is None else grid * hcd
+            grids.append(self._mu_pow_grids[0] if grid is None else grid)
+        return grids
 
     def kaiser_coefficients(self, params):
         """The coefficient part of the factored Kaiser term: floats or
         (B,) tensors, one per basis grid."""
         return [c for c, _ in self._kaiser_product_terms(params)]
 
-    def compute_kaiser_poly(self, params):
-        """Kaiser factor (b1 + b1 beta1 mu_k^2)(b2 + b2 beta2 mu_k^2),
-        (mu_k, 1) or (B, mu_k, 1) (vega_tpu/power_spectrum.py:423-460
-        without HCD and UV terms)."""
-        b1, beta1, b2, beta2 = utils.bias_beta(
+    def compute_tracer_polys(self, params):
+        """Per-tracer Kaiser polynomials T_i(mu_k) = u_i + v_i F_hcd, as
+        [(u, v)] with u = b + b beta mu_k^2 and v = b_hcd + b_hcd beta_hcd
+        mu_k^2 (None without HCD): (mu_k, 1) or (B, mu_k, 1) tensors. The
+        HCD effective biases fold in without the beta_eff division, as in
+        vega_tpu/power_spectrum.py:423-454 (there as b_eff + bb_eff mu_k^2
+        with both grids written out; here regrouped around the one
+        (mu_k, k) grid F_hcd, so a batched row costs one pass over its
+        grid, not six). Both tracers of an auto-correlation share one
+        pair."""
+        bias1, beta1, bias2, beta2 = utils.bias_beta(
             params, self.tracer1_name, self.tracer2_name)
-        bb1, bb2 = b1 * beta1, b2 * beta2
         muk2 = self._muk_t ** 2
-        return ((col(b1, 2) + col(bb1, 2) * muk2)
-                * (col(b2, 2) + col(bb2, 2) * muk2))
+        polys = []
+        for name, bias, beta in ((self.tracer1_name, bias1, beta1),
+                                 (self.tracer2_name, bias2, beta2)):
+            if polys and name == self.tracer1_name:
+                polys.append(polys[0])
+                continue
+            u = col(bias, 2) + col(bias * beta, 2) * muk2
+            v = None
+            if self.hcd_model is not None and name == 'LYA':
+                bias_hcd, beta_hcd = self._hcd_bias_beta(params)
+                v = col(bias_hcd, 2) + col(bias_hcd * beta_hcd, 2) * muk2
+            polys.append((u, v))
+        return polys
+
+    def compute_kaiser_poly(self, params):
+        """Kaiser factor T_1 T_2 from the division-free tracer
+        polynomials: (mu_k, 1) or (B, mu_k, 1), and a full (mu_k, k) or
+        (B, mu_k, k) grid with HCD (vega_tpu/power_spectrum.py:456-460)."""
+        polys = self.compute_tracer_polys(params)
+        f_hcd = None
+        if any(v is not None for _, v in polys):
+            f_hcd = self._hcd_profile(params)
+        terms = [u if v is None else torch.addcmul(u, v, f_hcd)
+                 for u, v in polys[:1 if polys[1] is polys[0] else 2]]
+        return terms[0] * terms[-1]
+
+    def compute_kaiser(self, bias1, beta1, bias2, beta2, fast_metals=False):
+        """Kaiser term (vega_tpu/power_spectrum.py:540-546); biases and
+        betas floats, (B,) tensors or the HCD grids."""
+        muk2 = self._muk_t ** 2
+        pk = (1 + col(beta1, 2) * muk2) * (1 + col(beta2, 2) * muk2)
+        if not fast_metals:
+            pk = pk * col(bias1 * bias2, 2)
+        return pk
+
+    def compute_bias_beta_hcd(self, bias, beta, params):
+        """HCD effective biases as (mu_k, k) grids
+        (vega_tpu/power_spectrum.py:567-580)."""
+        bias_hcd, beta_hcd = self._hcd_bias_beta(params)
+        f_hcd = self._hcd_profile(params)
+        bias_eff = col(bias, 2) + col(bias_hcd, 2) * f_hcd
+        beta_eff = (col(bias * beta, 2)
+                    + col(bias_hcd * beta_hcd, 2) * f_hcd) / bias_eff
+        return bias_eff, beta_eff
+
+    def _hcd_profile(self, params):
+        """The HCD suppression profile F(k_par) on the grid
+        (vega_tpu/power_spectrum.py:582-599)."""
+        if 'Rogers' in self.hcd_model:
+            # Fourier transform of a Lorentzian profile (Rogers et al. 2018)
+            return torch.exp(-col(params['L0_hcd'], 2) * self.k_par_grid)
+        if 'fvoigt' in self.hcd_model:
+            return utils.interp(
+                col(params.get('L0_fvoigt', 1.), 2) * self.k_par_grid,
+                *self._fvoigt, left=1., right=0.)
+        return utils.sinc(self.k_par_grid * col(params.get('L0_sinc', 1.), 2))
+
+    def compute_dnl_mcdonald(self):
+        """McDonald 2003 non-linear term (vega_tpu/power_spectrum.py:
+        618-625)."""
+        if not self.tracer1_name == self.tracer2_name == 'LYA':
+            raise ValueError('dnl_mcdonald is a model of the LYA '
+                             'auto-correlation')
+        k = self._k_t
+        kvel = 1.22 * (1 + k / 0.923) ** 0.451
+        dnl = ((k / 6.4) ** 0.569 - (k / 15.3) ** 2.01
+               - (k * self._muk_t / kvel) ** 1.5)
+        return torch.exp(dnl)
+
+    def compute_dnl_arinyo(self, params):
+        """Arinyo et al. 2015 non-linear term; returns (dnl, bad), bad
+        (B',) where the term is not finite (vega_tpu/power_spectrum.py:
+        627-651)."""
+        two_lya = 'LY' in self.tracer1_name and 'LY' in self.tracer2_name
+        one_lya = 'LY' in self.tracer1_name or 'LY' in self.tracer2_name
+
+        q1 = col(params['dnl_arinyo_q1'], 2)
+        kv = col(params['dnl_arinyo_kv'], 2)
+        av = col(params['dnl_arinyo_av'], 2)
+        bv = col(params['dnl_arinyo_bv'], 2)
+        kp = col(params['dnl_arinyo_kp'], 2)
+        q2 = col(params.get('dnl_arinyo_q2', 0.), 2)
+
+        k = self._k_t
+        growth = q1 * self._delta_sq + q2 * self._delta_sq ** 2
+        pec_velocity = (k / kv) ** av * torch.abs(self._muk_t) ** bv
+        pressure = (k / kp) * (k / kp)
+        dnl = torch.exp(growth * (1 - pec_velocity) - pressure)
+
+        bad = ~torch.isfinite(dnl).reshape(
+            (-1,) + dnl.shape[-2:]).all(dim=-1).all(dim=-1)
+        if two_lya:
+            return dnl, bad
+        if one_lya:
+            return torch.sqrt(dnl), bad
+        return torch.ones_like(dnl), False
 
     def compute_peak_nl(self, params):
         """BAO peak non-linear broadening (vega_tpu/power_spectrum.py:

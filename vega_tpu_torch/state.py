@@ -6,12 +6,19 @@ and then install it in the port (`load_constants`), which makes the
 comparison of outputs independent of init.
 
 Keys: '<correlation name>/<attribute>' for the per-correlation constants
-of `PER_CORRELATION`, and the bare names of `FIDUCIAL`.
+of `PER_CORRELATION`, the bare names of `FIDUCIAL`, and for a correlation
+with a stacked metal plan '<correlation name>/metals/<class index>/<name>'
+for each class's plan arrays (`metals.PLAN_CONSTANTS`: coordinates,
+growth, rel_z, moment_proj) and its representative pair's constants
+(`METAL_REPRESENTATIVE`). The metal matrices are data: both packages read
+them from the metal file.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .metals import PLAN_CONSTANTS
 
 # attribute -> the object of a correlation that carries it
 PER_CORRELATION = {
@@ -24,6 +31,12 @@ PER_CORRELATION = {
     'data_mask': 'data', 'model_mask': 'data',
 }
 FIDUCIAL = ('pk_full', 'pk_smooth')
+# attribute -> the object of a metal class's plan that carries it
+METAL_REPRESENTATIVE = {
+    'fft_ops': 'pktoxi_rep', 'fft_sd_ops': 'pktoxi_rep',
+    'logr_knots': 'pktoxi_rep', 'legendre_proj': 'pktoxi_rep',
+    'k_par_grid': 'pk_rep', 'k_trans_grid': 'pk_rep', 'pk_Gk': 'pk_rep',
+}
 
 
 def _host(x):
@@ -41,14 +54,36 @@ def export_constants(interface):
                   'data': interface.data[corr]}
         for attr, owner in PER_CORRELATION.items():
             out[f'{corr}/{attr}'] = _host(getattr(owners[owner], attr))
+        for i, plan in enumerate(_metal_plans(model)):
+            for name in PLAN_CONSTANTS:
+                out[f'{corr}/metals/{i}/{name}'] = _host(plan[name])
+            for attr, owner in METAL_REPRESENTATIVE.items():
+                out[f'{corr}/metals/{i}/{attr}'] = _host(
+                    getattr(plan[owner], attr))
     return out
+
+
+def _metal_plans(model):
+    """The stacked metal classes of a port Model ([] without metals or
+    without a plan)."""
+    if model.metals is None:
+        return []
+    return model.metals._stacked_plans or []
+
+
+def metal_keys(interface):
+    """The metal keys `load_constants` needs for this interface."""
+    return {f'{corr}/metals/{i}/{name}'
+            for corr, model in interface.models.items()
+            for i in range(len(_metal_plans(model)))
+            for name in PLAN_CONSTANTS + tuple(METAL_REPRESENTATIVE)}
 
 
 def load_constants(interface, arrays):
     """Set the port's host constants (and their device copies) from numpy
     arrays named after the JAX attributes; every key must be present."""
     missing = ({f'{c}/{a}' for c in interface.models for a in PER_CORRELATION}
-               | set(FIDUCIAL)) - set(arrays)
+               | set(FIDUCIAL) | metal_keys(interface)) - set(arrays)
     if missing:
         raise KeyError(f'missing constants: {sorted(missing)}')
     interface.set_fiducial_pk(arrays['pk_full'], arrays['pk_smooth'])
@@ -67,4 +102,17 @@ def load_constants(interface, arrays):
         data.model_mask = a['model_mask'].astype(bool)
         data.masked_data_vec = a['masked_data_vec']
         data._inv_masked_cov = a['inv_masked_cov']
+        plans = _metal_plans(model)
+        for i, plan in enumerate(plans):
+            m = {name: np.asarray(arrays[f'{corr}/metals/{i}/{name}'])
+                 for name in PLAN_CONSTANTS + tuple(METAL_REPRESENTATIVE)}
+            plan['pktoxi_rep'].set_constants(
+                legendre_proj=m['legendre_proj'], fft_ops=m['fft_ops'],
+                fft_sd_ops=m['fft_sd_ops'], logr_knots=m['logr_knots'])
+            plan['pk_rep'].set_constants(m['k_par_grid'], m['k_trans_grid'],
+                                         m['pk_Gk'])
+        if plans:
+            model.metals.set_plan_constants([
+                {name: np.asarray(arrays[f'{corr}/metals/{i}/{name}'])
+                 for name in PLAN_CONSTANTS} for i in range(len(plans))])
     interface.set_chi2_constants()

@@ -8,8 +8,11 @@ model at fiducial parameters, so fits have a known truth.
 Port of vega_tpu/testing.py: the same files, with the second pass (the
 data vectors regenerated from the model) going through this package's
 VegaInterface, so a machine without JAX can build the configuration.
-Metal files and the global covariance are not ported (neither are the
-features that read them).
+`metals=` adds what vega_tpu's DR16 example writes by hand
+(examples/eBOSS_DR16/run_synthetic.py:106-125): one metal file per
+correlation, a [metals] section and `test = True` (identity metal
+matrices). The global covariance is not ported (neither is the feature
+that reads it).
 """
 
 from __future__ import annotations
@@ -32,7 +35,44 @@ DEFAULT_PARAMS = {
 }
 
 
-def _auto_ini(data_file, name='lyaxlya', extra_model=''):
+# The DR16-shaped model on the synthetic dataset: the options and
+# parameters of vega_tpu's DR16 example
+# (examples/eBOSS_DR16/run_synthetic.py:37-60: Rogers HCD, Arinyo
+# small-scale NL, metals with identity metal matrices) with all four Si
+# lines of the published fits; the two further SiII lines and the Arinyo
+# parameters take vega_tpu/templates/parameter_defaults.ini's values.
+DR16_METALS = ('SiII(1190)', 'SiII(1193)', 'SiII(1260)', 'SiIII(1207)')
+DR16_MODEL_OPTIONS = {'model-hcd': 'Rogers2018',
+                      'small scale nl': 'dnl_arinyo'}
+DR16_PARAMETERS = {
+    'bias_hcd': -0.052, 'beta_hcd': 0.65, 'L0_hcd': 10.,
+    'bias_SiII(1190)': -0.0052, 'beta_SiII(1190)': 0.5,
+    'alpha_SiII(1190)': 1.,
+    'bias_SiII(1193)': -0.0024, 'beta_SiII(1193)': 0.5,
+    'alpha_SiII(1193)': 1.,
+    'bias_SiII(1260)': -0.002, 'beta_SiII(1260)': 0.5,
+    'alpha_SiII(1260)': 1.,
+    'bias_SiIII(1207)': -0.004, 'beta_SiIII(1207)': 0.5,
+    'alpha_SiIII(1207)': 1.,
+    'dnl_arinyo_q1': 0.303, 'dnl_arinyo_kv': 0.576, 'dnl_arinyo_av': 0.443,
+    'dnl_arinyo_bv': 1.66, 'dnl_arinyo_kp': 11.062, 'dnl_arinyo_q2': 0.267,
+}
+
+
+def dr16_extra_model(parameters=None):
+    """The `extra_model` text of the DR16-shaped model: its [model]
+    options, then a [parameters] section with the parameters they and the
+    metals read (each correlation's ini carries them; the main ini's
+    [parameters] are `DEFAULT_PARAMS`). With
+    `make_synthetic_dataset(..., extra_model=dr16_extra_model(),
+    metals=DR16_METALS)` this is the configuration synthetic-dr16."""
+    parameters = DR16_PARAMETERS if parameters is None else parameters
+    return ('\n'.join(f'{k} = {v}' for k, v in DR16_MODEL_OPTIONS.items())
+            + '\n\n[parameters]\n'
+            + '\n'.join(f'{k} = {v}' for k, v in parameters.items()) + '\n')
+
+
+def _auto_ini(data_file, name='lyaxlya', extra_model='', extra_data=''):
     return f"""[data]
 name = {name}
 tracer1 = LYA
@@ -40,7 +80,7 @@ tracer2 = LYA
 tracer1-type = continuous
 tracer2-type = continuous
 filename = {data_file}
-
+{extra_data}
 [cuts]
 rp-min = 0.
 rp-max = +200.
@@ -57,7 +97,7 @@ z evol LYA = bias_vs_z_std
 """
 
 
-def _cross_ini(data_file, name='qsoxlya', extra_model=''):
+def _cross_ini(data_file, name='qsoxlya', extra_model='', extra_data=''):
     return f"""[data]
 name = {name}
 tracer1 = QSO
@@ -65,7 +105,7 @@ tracer2 = LYA
 tracer1-type = discrete
 tracer2-type = continuous
 filename = {data_file}
-
+{extra_data}
 [cuts]
 rp-min = -200.
 rp-max = +200.
@@ -115,7 +155,7 @@ filename = {out_file}
 
 
 def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
-                            noise=0.0, nt=50):
+                            noise=0.0, nt=50, with_distortion=False):
     """Write a picca-export-style correlation FITS file with synthetic
     contents (same layout as reference tests/data/*-exp.fits.gz)."""
     if is_cross:
@@ -147,6 +187,13 @@ def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
     }
     columns = {'RP': coords.rp_grid, 'RT': coords.rt_grid, 'Z': z,
                'DA': da, 'CO': cov, 'NB': nb}
+    if with_distortion:
+        # A mild smoothing distortion along rt (banded, row-normalized)
+        dm = np.eye(n) * 0.9
+        off = np.eye(n, k=1) * 0.05 + np.eye(n, k=-1) * 0.05
+        dm = dm + off
+        dm /= dm.sum(axis=1, keepdims=True)
+        columns['DM'] = dm
     write_fits(path, [
         {'name': 'COR', 'header': header, 'columns': columns},
         {'name': 'DMATTRI',
@@ -156,21 +203,120 @@ def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
     return coords
 
 
+def metal_rp_shifts(metals, z_eff, main_absorber='LYA', omega_m=0.315):
+    """Physical line-of-sight coordinate offsets (Mpc/h) for absorbers of
+    each metal line misidentified as `main_absorber`: an absorber at
+    observed wavelength w assumed to sit at z_assumed = w/lambda_main - 1
+    truly sits at z_true = w/lambda_metal - 1, so its comoving position
+    is off by r(z_true) - r(z_assumed). This is what puts the SiIII(1207)
+    contamination bump at rp ~ 21 Mpc/h in the DR16 auto-correlation
+    (vega_tpu/testing.py:160-178)."""
+    from .cosmo import ABSORBER_IGM, Cosmo
+    cosmo = Cosmo(Om=omega_m)
+    lam_main = ABSORBER_IGM[main_absorber]
+    wave = lam_main * (1.0 + z_eff)     # observed wavelength at z_eff
+    shifts = {}
+    for m in metals:
+        z_true = wave / ABSORBER_IGM[m] - 1.0
+        shifts[m] = float(cosmo.get_r_comov(z_true)
+                          - cosmo.get_r_comov(z_eff))
+    return shifts
+
+
+def write_metal_file(path, coords, z_eff, tracer1, tracer2,
+                     metals_in1=(), metals_in2=(), rp_shifts=None):
+    """Write a picca-style metal file with coordinate columns for every
+    metal pair a Data reader may request (RP_/RT_/Z_ per pair name, both
+    orders), and NO distortion columns: with `test = True` in [data]
+    the reader substitutes identity metal matrices
+    (vega_tpu/testing.py:181-228).
+
+    rp_shifts: optional {absorber: Mpc/h offset} (see metal_rp_shifts).
+    When given, each pair's RP column is offset by the difference of its
+    two absorbers' shifts (main tracers shift by 0), mimicking the
+    shifted effective separations real picca metal files carry and
+    making different metal lines distinguishable in a fit."""
+    pair_names = set()
+    for m in metals_in2:
+        pair_names.add(f'{tracer1}_{m}')
+        pair_names.add(f'{m}_{tracer1}')
+    for m in metals_in1:
+        pair_names.add(f'{m}_{tracer2}')
+        pair_names.add(f'{tracer2}_{m}')
+    for m1 in metals_in1:
+        for m2 in metals_in2:
+            pair_names.add(f'{m1}_{m2}')
+            pair_names.add(f'{m2}_{m1}')
+
+    n = coords.rp_grid.size
+    z = np.full(n, z_eff)
+    header = {
+        'RPMIN': coords.rp_min, 'RPMAX': coords.rp_max,
+        'RTMAX': coords.rt_max, 'NP': coords.rp_nbins,
+        'NT': coords.rt_nbins, 'BLINDING': 'none',
+    }
+    shifts = rp_shifts or {}
+    columns = {}
+    for name in sorted(pair_names):
+        # pair names are '<abs1>_<abs2>'; absorber names themselves
+        # contain no underscores (LYA, QSO, SiII(1260), ...)
+        a1, a2 = name.rsplit('_', 1)
+        dshift = shifts.get(a2, 0.0) - shifts.get(a1, 0.0)
+        columns[f'RP_{name}'] = coords.rp_grid + dshift
+        columns[f'RT_{name}'] = coords.rt_grid
+        columns[f'Z_{name}'] = z
+    write_fits(path, [
+        {'name': 'ATTRI', 'header': header,
+         'columns': {'DUMMY': np.zeros(1)}},
+        {'name': 'MDMAT', 'columns': columns},
+    ])
+    return path
+
+
+def metals_section(metal_file, metals, is_cross):
+    """The [metals] section of one correlation's ini, as vega_tpu's
+    BuildConfig writes it (vega_tpu/build_config.py:264-272,317-319):
+    the legacy metal file, the standard bias evolution, the metals in
+    each continuous tracer, and for the cross the [model] section's
+    velocity dispersion."""
+    lines = ['[metals]', f'filename = {metal_file}',
+             'z evol = bias_vs_z_std']
+    if not is_cross:
+        lines.append('in tracer1 = ' + ' '.join(metals))
+    lines.append('in tracer2 = ' + ' '.join(metals))
+    if is_cross:
+        lines.append('velocity dispersion = lorentz')
+    return '\n'.join(lines) + '\n'
+
+
 def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
-                           sample=None, seed=0, noise=0.0, extra_control=''):
+                           sample=None, seed=0, noise=0.0, extra_control='',
+                           with_distortion=False, extra_model='',
+                           metals=None):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
     The files equal vega_tpu.testing.make_synthetic_dataset's with no
-    distortion matrix, no global covariance and no extra [model] lines,
-    given the same `sample` ({name: [sample] entry}; default bias_LYA and
-    beta_LYA sampled), `seed` and `noise` (Gaussian noise in units of
-    each bin's sigma, from np.random.default_rng(seed); default none) and
-    `extra_control` (text placed under [control], which may open further
-    sections such as [monte carlo]). size='tiny' shrinks every axis (k
-    grid, mu_k bins, rp/rt bins) for fast checks. `device` is where the
-    second pass evaluates the model: the card unless the caller asks for
-    'cpu'; asking for CUDA without a GPU raises before any file is
-    written.
+    global covariance, given the same `sample` ({name: [sample] entry};
+    default bias_LYA and beta_LYA sampled), `seed` and `noise` (Gaussian
+    noise in units of each bin's sigma, from np.random.default_rng(seed);
+    default none), `extra_control` (text placed under [control], which
+    may open further sections such as [monte carlo]), `with_distortion`
+    (a banded DM matrix) and `extra_model` (text placed at the end of
+    each correlation's [model] section, which may open a [parameters]
+    section for the parameters its options read). size='tiny' shrinks
+    every axis (k grid, mu_k bins, rp/rt bins) for fast checks.
+
+    `metals` (a list of absorber names such as 'SiII(1260)'; vega_tpu's
+    function has no such option, its DR16 example does this by hand)
+    writes `metal_<data file>` beside each data file with `write_metal_file`
+    and `metal_rp_shifts`, the metals in every LYA tracer, and adds
+    `test = True` to [data] and a [metals] section (`metals_section`)
+    after `extra_model`; the metals' parameters go in `extra_model`'s
+    [parameters].
+
+    `device` is where the second pass evaluates the model: the card
+    unless the caller asks for 'cpu'; asking for CUDA without a GPU
+    raises before any file is written.
     """
     from .vega_interface import VegaInterface, resolve_device
     device = resolve_device(device)
@@ -182,25 +328,34 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     n_k = 128 if tiny else 814
     nt = 10 if tiny else 50
     model_lines = ('num_bins_muk = 50\nell_max = 6\n' if tiny else '')
+    model_lines += extra_model
 
     template_file = workdir / 'fiducial_eh98.fits'
     make_fiducial_template(template_file, n_k=n_k)
 
     z_eff = 2.33
-    auto_file = workdir / 'cf_synthetic.fits'
-    _write_correlation_data(auto_file, False, z_eff, rng, noise=noise,
-                            nt=nt)
-    ini_files = [workdir / 'lyaxlya.ini']
-    ini_files[0].write_text(_auto_ini(auto_file, extra_model=model_lines))
-
-    cross_file = None
-    if cross:
-        cross_file = workdir / 'xcf_synthetic.fits'
-        _write_correlation_data(cross_file, True, z_eff, rng, noise=noise,
-                                nt=nt)
-        cross_ini = workdir / 'qsoxlya.ini'
-        cross_ini.write_text(_cross_ini(cross_file, extra_model=model_lines))
-        ini_files.append(cross_ini)
+    extra_data = 'test = True\n' if metals else ''
+    ini_files = []
+    data_files = {}
+    for is_cross, stem, ini_name, ini_text in (
+            (False, 'cf_synthetic', 'lyaxlya.ini', _auto_ini),
+            (True, 'xcf_synthetic', 'qsoxlya.ini', _cross_ini))[:1 + cross]:
+        data_file = data_files[is_cross] = workdir / f'{stem}.fits'
+        coords = _write_correlation_data(
+            data_file, is_cross, z_eff, rng, noise=noise, nt=nt,
+            with_distortion=with_distortion)
+        lines = model_lines
+        if metals:
+            metal_file = workdir / f'metal_{stem}.fits'
+            write_metal_file(
+                metal_file, coords, z_eff, 'QSO' if is_cross else 'LYA',
+                'LYA', metals_in1=() if is_cross else metals,
+                metals_in2=metals,
+                rp_shifts=metal_rp_shifts(metals, z_eff))
+            lines += '\n' + metals_section(metal_file, metals, is_cross)
+        ini_files.append(workdir / ini_name)
+        ini_files[-1].write_text(ini_text(data_file, extra_model=lines,
+                                          extra_data=extra_data))
 
     main_path = workdir / 'main.ini'
     main_path.write_text(_main_ini(
@@ -213,9 +368,9 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     model_cf = vega.compute_model()
     for name, corr_item in vega.corr_items.items():
         is_cross = corr_item.tracer1['type'] != corr_item.tracer2['type']
-        fname = cross_file if is_cross else auto_file
-        _write_correlation_data(fname, is_cross, z_eff, rng,
+        _write_correlation_data(data_files[is_cross], is_cross, z_eff, rng,
                                 model_xi=np.asarray(model_cf[name]),
-                                noise=noise, nt=nt)
+                                noise=noise, nt=nt,
+                                with_distortion=with_distortion)
 
     return main_path

@@ -59,6 +59,28 @@ def np_sinc(x):
     return out
 
 
+def sinc(x):
+    """Unnormalized sinc sin(x)/x of a tensor with sinc(0) = 1, safe to
+    differentiate at 0 (vega_tpu/utils.py:44-54)."""
+    safe = torch.where(x == 0, 1.0, x)
+    return torch.where(x == 0, 1.0, torch.sin(safe) / safe)
+
+
+def interp(x, xp, fp, left, right):
+    """Piecewise-linear interpolant of (xp, fp) at the tensor x, `left` /
+    `right` outside the table (jnp.interp's formula; differentiable in x
+    with the segment's slope)."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
+                    len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    f = torch.where(dx == 0, fp[i],
+                    fp[i - 1] + (delta / torch.where(dx == 0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], left, f)
+    return torch.where(x > xp[-1], right, f)
+
+
 def _tracer_bias_beta(params, name):
     """Resolve (bias, beta) for one tracer from any two of
     (bias, bias_eta, beta) — reference: utils.py:45-82. Values may be

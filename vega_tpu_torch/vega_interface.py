@@ -15,6 +15,11 @@ vega_tpu does: a call that samples parameters goes through
 - nothing, and then the dense path: model + Hankel transform +
   spline/Legendre + Gaussian chi^2 per row.
 
+A configuration may carry metals (the legacy metal-file mode,
+metals.py), an HCD model and a small-scale non-linear term: their
+sampled biases and betas enter the factored model as coefficients, so
+the grid and nuisance collapses serve them too.
+
 The switches are vega_tpu's, read once at construction:
 VEGA_TPU_FACTORED=0 takes the dense path for every call, and
 VEGA_TPU_GRID_COLLAPSE=0 leaves the grid parameters to the dense path.
@@ -63,12 +68,17 @@ PENALTY_CHI2 = 1e100
 # per correlation, up to three (1000 mu_k x 814 k) f64 grids at once
 # (pk_peak, pk_smooth and one product temporary): 3 x 6.51 MB = 19.5 MB.
 # Correlations run one after the other, so 1024 rows need ~20 GB, and a
-# batch of 8192 runs as 8 chunks well inside an 80 GB card.
+# batch of 8192 runs as 8 chunks well inside an 80 GB card. With an HCD
+# model the Kaiser term is a (mu_k, k) grid per row as well: the
+# DR16-shaped configuration peaked at 28.79 GB at this chunk (chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700.00 W).
 CHUNK_ROWS = 1024
 # Rows at a time when every correlation is served by a collapse: a row
 # then holds the retained-mode values psi (at most 32 x 32 modes per
 # payload block, 8 KB each) and a few (T, T) products, ~20 KB per
-# correlation, so 32768 rows take ~1.3 GB.
+# correlation, so 32768 rows take ~1.3 GB; with metals T is 60 instead of
+# 6 and a row's (T, T) block 29 KB: 4.23 GB at 32768 rows (chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700.00 W).
 COLLAPSED_CHUNK_ROWS = 32768
 # max|coefficient program - factored model's c0| <= COEFF_RTOL max|c0|,
 # checked whenever a collapse is built
@@ -111,14 +121,14 @@ class VegaInterface:
         self.fiducial['z_eff'] = self.main_config['data sets'].getfloat('zeff')
         ini_files = self.main_config['data sets'].get('ini files').split()
         if self.main_config['data sets'].get('global-cov-file', None):
-            raise not_ported('Global covariance', 10)
+            raise not_ported('Global covariance', 5)
 
         control = (self.main_config['control']
                    if 'control' in self.main_config else {})
         if control and control.getboolean('model_pk', False):
-            raise not_ported('model_pk', 10)
+            raise not_ported('model_pk', 5)
         if control and control.getboolean('marginalize-in-fit', False):
-            raise not_ported('marginalize-in-fit', 10)
+            raise not_ported('marginalize-in-fit', 5)
 
         self.corr_items = {}
         for path in ini_files:
@@ -147,7 +157,7 @@ class VegaInterface:
                 self.fiducial['growth_rate'] = self.params['growth_rate']
 
         if not all(item.has_data for item in self.corr_items.values()):
-            raise not_ported('Correlations without a data file', 10)
+            raise not_ported('Correlations without a data file', 5)
         self.data = {name: Data(item)
                      for name, item in self.corr_items.items()}
 
@@ -654,10 +664,10 @@ class VegaInterface:
         control = self.main_config['control']
         if control.get('mc_start_from_fit', None) is not None:
             raise not_ported('mc_start_from_fit (it reads a fit with '
-                             'postprocess/fit_results.py)', 12)
+                             'postprocess/fit_results.py)', 3)
         if control.getboolean('use_full_pk_for_mc', False):
             raise not_ported('use_full_pk_for_mc (the model from a given '
-                             'power spectrum, compute_direct)', 10)
+                             'power spectrum, compute_direct)', 5)
         if self.sample_params['limits']:
             print_func('Running initial fit')
             self.minimize()
