@@ -73,6 +73,32 @@ configuration, with no JAX:
      the JAX errors, derivatives 1e-6 / 1e-8);
    it fails unless the metal stack launched F_0 on the dense and the
    grid path and Ft_d in the dense fit.
+9. the DESI DR1 baseline model (phase desi), configuration
+   synthetic-desi-full: the same dataset with the DR16 model's HCD and
+   NL, the QSO radiation on the cross, the DESI instrumental systematics
+   on the auto, the metals SiII(1190), SiII(1193), SiIII(1207),
+   SiII(1260), CIV(eff) in every LYA tracer with new-metals matrices
+   computed on the host from seeded stacked-delta weights (rebinned by
+   3), DESI's 17 sampled names and Gaussian priors, and the joint
+   covariance, against the JAX goldens of
+   tests/data/torch_port_desi_goldens.json:
+   - dense regime under the joint covariance: chi^2 at the defaults (the
+     priors'), chi2_batch(8192) (1e-8 relative; kernel vs plain route
+     1e-10), evals/s, peak memory, the host build time of the matrices,
+     and the shares of the metal matrices' GEMMs, the metal stack's
+     combine, the power-spectrum grids and the joint quadratic form in
+     one call (CUDA events around them);
+   - grid regime under per-correlation covariances (the same files
+     without the global-cov-file line), 14 names, 32 x 32 nodes:
+     collapse time, T, payload modes, chi2_batch at 8192 / 32768 in
+     bench.py's JSON shape (2e-4 + 1e-9 |chi2| against the JAX grid
+     chi^2), kernels per call and idle share;
+   - derivatives at two points (1e-8), minimize() against the JAX fit
+     (values 1e-2 / errors 1e-3 of the JAX errors), one seeded global
+     mock through initialize_monte_carlo (1e-8 of the JAX mock; its
+     initial fit is the fit before) and a fit on it against the JAX one;
+   it fails unless the metal stack launched F_0 on the dense and the
+   grid path and Ft_d in the dense fit.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -102,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,6 +145,7 @@ FIT_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_fit_goldens.json'
 MC_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mc_goldens.json'
 SAMPLER_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_sampler_goldens.json'
 DR16_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16_goldens.json'
+DESI_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_desi_goldens.json'
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
@@ -142,9 +170,14 @@ KERNEL_GRAD_RTOL = 1e-10     # use_kernel=True vs False, gradients
 KERNEL_HESS_RTOL = 1e-9      # and Hessians
 # best fits: |d value| <= FIT_VALUE_SIGMA x the JAX error, errors within
 # FIT_ERROR_RTOL, |d fval| <= FIT_FVAL_ABS
-FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3}
-FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5}
-FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8}
+FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3, 'joint': 1e-2}
+FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5, 'joint': 1e-3}
+FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8, 'joint': 1e-4}
+# the desi phase's global mock against the JAX one: the same numpy draw
+# around each package's own best fit; its dense calls take 1.6 s each, so
+# two timed rounds
+MOCK_RTOL = 1e-8
+DESI_TIMED_ROUNDS = 2
 # the scan and MC phases: mocks per campaign, the torch generator's seed,
 # and the fit chunks (VEGA_TPU_FIT_CHUNK_PER_DEVICE): vega_tpu's default 8
 # beside the whole campaign in one chunk; a larger dense campaign in one
@@ -173,7 +206,7 @@ SCAN_DEFAULT_CHUNK_CORNER = 10
 NS_MEAN_SIGMA, NS_STD_RTOL = 0.5, 0.3
 SAMPLER_LOGL_RTOL = 1e-9
 EVOLVE_LOGL_RTOL = 1e-12
-NS_HOST_ITERATIONS = 5
+NS_HOST_ITERATIONS = 3
 SMC_SETTINGS = {'n_effective': 512, 'n_mcmc': 5, 'seed': 0}
 HMC_GRID_SETTINGS = {'num_chains': 32, 'num_warmup': 200,
                      'num_samples': 200, 'num_leapfrog': 16, 'seed': 0}
@@ -1368,7 +1401,7 @@ def run_ns_paths(device, fit_ini, out, goldens, fit_goldens):
                               + 1e-12 * np.eye(len(names)))
     replayed_s, eager_s = compare_evolutions(
         device, 'NS device loop', evolve, sampler.live_u[:n],
-        float(np.percentile(live_logl, 25)), 2.0, chol, 5, 3)
+        float(np.percentile(live_logl, 25)), 2.0, chol, 5, 1)
     log(f'NS device loop: {per_iteration / replayed_s:.1f} evals/s '
         f'replayed, {per_iteration / eager_s:.1f} eager')
     profile_call('NS evolution, eager (one iteration)',
@@ -1716,13 +1749,19 @@ def metal_launches(seen, primitive):
     return sum(r.launches for key, r in seen.items() if key[0] == primitive)
 
 
-def device_shares(device, vega, batches):
-    """Device ms of one chi2_batch(batches), and within it of the metal
-    stacks and of the power-spectrum grids (compute_peak_smooth: Kaiser
-    with HCD, NL, G(k), peak broadening), from CUDA events around each
-    call of them (the dense path keeps the device busy, so the time
-    between two events is device work)."""
-    spans = {'metals': [], 'pk': []}
+def device_shares(device, vega, batches, hooks=None):
+    """Device ms of one chi2_batch(batches), and within it of the parts
+    `hooks` names ({key: [(owner, attribute)]}; default the metal stacks
+    and the power-spectrum grids, compute_peak_smooth: Kaiser with HCD,
+    NL, G(k), peak broadening), from CUDA events around each call of them
+    (the dense path keeps the device busy, so the time between two events
+    is device work)."""
+    if hooks is None:
+        hooks = {'metals': [(m.metals, 'compute')
+                            for m in vega.models.values()],
+                 'pk': [(m.Pk_core, 'compute_peak_smooth')
+                        for m in vega.models.values()]}
+    spans = {key: [] for key in hooks}
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
@@ -1736,13 +1775,11 @@ def device_shares(device, vega, batches):
         return wrapper
 
     saved = []
-    for model in vega.models.values():
-        saved.append((model.metals, 'compute', model.metals.compute))
-        saved.append((model.Pk_core, 'compute_peak_smooth',
-                      model.Pk_core.compute_peak_smooth))
-        model.metals.compute = timed(model.metals.compute, 'metals')
-        model.Pk_core.compute_peak_smooth = timed(
-            model.Pk_core.compute_peak_smooth, 'pk')
+    for key, targets in hooks.items():
+        for owner, name in targets:
+            fn = getattr(owner, name)
+            saved.append((owner, name, fn))
+            setattr(owner, name, timed(fn, key))
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
@@ -1977,6 +2014,269 @@ def run_dr16_path(device, work, card):
     return launches, checks
 
 
+# ----------------------------------------------------------------------
+# The DESI DR1 baseline model: new-metals matrices, QSO radiation, DESI
+# instrumental systematics, the joint covariance
+# ----------------------------------------------------------------------
+def desi_rows(params, names, n_rows, rng):
+    """Rows 1% around the configuration's values (0.001 around a zero
+    value), as the goldens draw their points."""
+    return {n: params[n] + 0.01 * (abs(params[n]) or 0.1)
+            * rng.normal(size=n_rows) for n in names}
+
+
+def desi_shares(device, vega, batches):
+    """Device ms of one dense chi2_batch and, on CUDA events, of its
+    metal matrices' GEMMs, the metal stack's combine, the power-spectrum
+    grids and the joint quadratic form."""
+    import vega_tpu_torch.metals as metals_mod
+    import vega_tpu_torch.vega_interface as vi_mod
+    models = list(vega.models.values())
+    total_ms, parts = device_shares(device, vega, batches, hooks={
+        'metal matrices': [(m.metals, 'apply_metal_matrix') for m in models],
+        'metal combine': [(metals_mod, 'spline_legendre_combine')],
+        'pk': [(m.Pk_core, 'compute_peak_smooth') for m in models],
+        'joint form': [(vi_mod, 'quadratic_rows')]})
+    log(f'desi dense chi2_batch({BATCH}) on CUDA events: {total_ms:.1f} ms; '
+        + ', '.join(f'{key} {ms:.1f} ms ({ms / total_ms:.1%})'
+                    for key, ms in parts.items())
+        + f'; the rest (transform, core combine, Kaiser moments) '
+        f'{total_ms - sum(parts.values()):.1f} ms')
+
+
+def run_desi_path(device, work, card):
+    """Phase desi (see the module docstring); returns the kernel launches
+    of its three paths and the kernel checks at their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (DESI_METALS, desi_extra_model,
+                                        make_synthetic_dataset)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(DESI_GOLDENS.read_text())
+    names, grid_names = goldens['names'], goldens['grid_names']
+    t_phase = time.perf_counter()
+    main_ini = make_synthetic_dataset(
+        Path(work) / 'desi', cross=True, size='full', device=device,
+        sample=goldens['sample'], extra_model=desi_extra_model(),
+        metals=list(DESI_METALS), new_metals=True, global_cov=True,
+        extra_control=goldens['extra_control'])
+    log(f'desi: configuration synthetic-desi-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    t0 = time.perf_counter()
+    dense_vega = VegaInterface(main_ini, device=device)
+    log(f'desi dense (joint covariance): interface in '
+        f'{time.perf_counter() - t0:.2f} s, of it the new-metals matrices '
+        'on the host ' + ', '.join(
+            f'{n} {len(item.metal_correlations)} pairs '
+            f'{dense_vega.models[n].metals.matrix_build_s:.3f} s'
+            for n, item in dense_vega.corr_items.items()))
+    rng = np.random.default_rng(0)
+    batches = desi_rows(dense_vega.params, names, BATCH, rng)
+    launches, checks = {}, []
+
+    # --- the dense regime under the joint covariance: counts from zero
+    seen = watch_metals(dense_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        chi2_default = dense_vega.chi2()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches['desi_dense'] = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    checks += check_launches(device, 'desi_dense', layouts)
+    # the defaults sit off the priors' means: chi^2 there is the priors'
+    d_default = abs(chi2_default - goldens['chi2_default'])
+    if not d_default <= GOLDEN_RTOL * abs(goldens['chi2_default']):
+        fail(f'desi chi2 at the defaults {chi2_default!r}, the JAX '
+             f'package {goldens["chi2_default"]!r}')
+    chi2_np = chi2.cpu().numpy()
+    if chi2_np.shape != (BATCH,) or not np.all(np.isfinite(chi2_np)) \
+            or np.any(chi2_np >= 1e100):
+        fail('desi dense chi2_batch is not finite of shape (8192,) '
+             'without a penalty')
+    n_metal = metal_launches(seen, 'F')
+    log(f'desi dense chi2_batch({BATCH}), {len(names)} names: chi2 at the '
+        f'defaults {chi2_default!r} (the priors\'; JAX '
+        f'{goldens["chi2_default"]!r}), first call {first_s:.3f} s, peak '
+        f'device memory {peak_gb:.2f} GB, chi2 in [{chi2_np.min():.6g}, '
+        f'{chi2_np.max():.6g}], kernel launches {launches["desi_dense"]}, '
+        f'{n_metal} of F_0 from the metal stack at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen))
+    if not n_metal:
+        fail('the desi dense path launched no F_0 from metals.py')
+    plain = dense_vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
+    rel = float(np.max(np.abs(plain - chi2_np) / np.abs(plain)))
+    log(f'desi dense kernel path vs plain path: max relative diff {rel:.3e}')
+    if not rel <= PLAIN_RTOL:
+        fail(f'desi kernel path vs plain path differ by {rel:.3e}')
+    got = dense_vega.chi2_batch(goldens['params']).cpu().numpy()
+    want = np.asarray(goldens['chi2_dense'])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f'desi dense vs JAX goldens ({len(want)} points): max relative '
+        f'diff {rel:.3e}')
+    if not rel <= GOLDEN_RTOL:
+        fail(f'desi dense chi2 vs the JAX goldens differ by {rel:.3e} > '
+             f'{GOLDEN_RTOL}')
+    times = []
+    for _ in range(DESI_TIMED_ROUNDS):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    log(f'desi dense chi2_batch({BATCH}): '
+        f'{BATCH / np.median(times):.1f} evals/s (median of '
+        f'{DESI_TIMED_ROUNDS}, s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)})')
+    desi_shares(device, dense_vega, batches)
+    profile_call(f'desi dense chi2_batch({BATCH})',
+                 lambda: dense_vega.chi2_batch(batches).cpu(), device)
+
+    # --- the grid regime, per-correlation covariances: counts from zero
+    grid_main = Path(main_ini).parent / 'main_grid.ini'
+    grid_main.write_text(re.sub(r'global-cov-file = .*\n', '\n',
+                                Path(main_ini).read_text()))
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid_vega = VegaInterface(grid_main, device=device)
+    grid_batches = desi_rows(grid_vega.params, grid_names, BATCH, rng)
+    seen_grid = watch_metals(grid_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        payload = grid_vega.get_collapsed(frozenset(grid_names))
+        torch.cuda.synchronize(device)
+        collapse_s = time.perf_counter() - t0
+        chi2 = grid_vega.chi2_batch(grid_batches).cpu().numpy()
+    launches['desi_grid'] = dict(LAUNCHES)
+    checks += check_launches(device, 'desi_grid', layouts)
+    stats = grid_vega.grid_stats
+    log(f'desi grid collapse ({len(grid_names)} names): '
+        f'{payload["__grid__"]}, {stats["nodes"]} nodes; chi^2 constants '
+        f'{stats["constants_s"]:.3f} s, device sweep {stats["sweep_s"]:.3f} '
+        f's, host payload build {stats["host_s"]:.3f} s, total '
+        f'{collapse_s:.3f} s; kernel launches {launches["desi_grid"]}, '
+        f'{metal_launches(seen_grid, "F")} of F_0 from the metal stack at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen_grid))
+    for name in grid_vega.corr_items:
+        if name not in payload:
+            fail(f'desi: {name} is not served by the grid payload')
+        p, want = payload[name], goldens['payload'][name]
+        log(f'  {name}: T = {p["cref"].shape[0]}, retained modes '
+            f'A {p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+            f'SVD rank A {p["B_A"].shape[1]} / sy {p["B_sy"].shape[1]} '
+            f'(JAX package: T = {want["terms"]}, modes {want["modes_A"]} / '
+            f'{want["modes_sy"]}, rank {want["rank_A"]} / '
+            f'{want["rank_sy"]}), dc_max {float(p["dc_max"]):.6g}')
+        if p['cref'].shape[0] != want['terms']:
+            fail(f'desi: {name} has {p["cref"].shape[0]} terms, the JAX '
+                 f'package {want["terms"]}')
+    if not metal_launches(seen_grid, 'F'):
+        fail('the desi grid sweep launched no F_0 from metals.py')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('desi grid chi2_batch is not finite without a penalty')
+    got = grid_vega.chi2_batch({n: goldens['params'][n]
+                                for n in grid_names}).cpu().numpy()
+    want_grid = np.asarray(goldens['chi2_grid'])
+    d_grid = np.abs(got - want_grid)
+    bound = GRID_ABS_TOL + GRID_REL_TOL * np.abs(want_grid)
+    log(f'desi grid vs JAX grid goldens ({len(got)} points): max |d chi2| '
+        f'{d_grid.max():.3e} (bound {bound.min():.3e} .. {bound.max():.3e}); '
+        f'vs the JAX dense chi2 '
+        f'{np.abs(got - goldens["chi2_grid_dense"]).max():.6g} (the JAX grid '
+        f'path\'s own {goldens["max_abs_grid_minus_dense"]:.6g})')
+    if not np.all(d_grid <= bound):
+        fail(f'desi grid chi2 vs the JAX grid chi2: |d| {d_grid.max():.3e} '
+             'over the bound')
+    rates = {}
+    for n_rows in GRID_BATCHES:
+        rows = desi_rows(grid_vega.params, grid_names, n_rows, rng)
+        grid_vega.chi2_batch(rows).cpu()
+        per_round = []
+        for _ in range(GRID_ROUNDS):
+            for name in rows:
+                rows[name] = rows[name] + 1e-9
+            t0 = time.perf_counter()
+            grid_vega.chi2_batch(rows).cpu()
+            per_round.append(n_rows / (time.perf_counter() - t0))
+        rates[n_rows] = float(np.median(per_round))
+        log(f'desi grid chi2_batch({n_rows}): {rates[n_rows]:.1f} evals/s '
+            f'(median of {GRID_ROUNDS}; per round '
+            f'{", ".join(f"{r:.1f}" for r in per_round)})')
+    log(f'desi grid path peak device memory (collapse and both batches): '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB')
+    log(json.dumps({
+        'metric': 'likelihood evals/sec/chip',
+        'value': round(rates[BATCH], 3),
+        'unit': f'evals/s/chip (synthetic-desi-full, batch={BATCH}, f64, 1 '
+                f'chip(s), {card}, vega_tpu_torch, collapse='
+                f'{collapse_s:.1f}s; batch {GRID_BATCHES[1]}: '
+                f'{rates[GRID_BATCHES[1]]:.1f})'}))
+    profile_call(f'desi grid chi2_batch({BATCH})',
+                 lambda: grid_vega.chi2_batch(grid_batches).cpu(), device)
+    del grid_vega
+
+    # --- the fit under the joint covariance, and a global mock's: counts
+    # from zero
+    seen.clear()
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        dense = derivatives_at(device, dense_vega,
+                               goldens['derivative_points'], names,
+                               'desi fit dense regime')
+        compare_derivatives(
+            'desi fit dense regime vs JAX dense goldens', dense,
+            goldens['dense'],
+            dict.fromkeys(('chi2', 'gradient', 'hessian'), FIT_DENSE_RTOL))
+        timed_fit(device, dense_vega, 'desi dense')
+        check_fit('desi dense', 'joint', dense_vega, names,
+                  goldens['fit_dense'])
+        # the mock's initial fit is the fit above, as in the goldens
+        dense_vega.minimize = lambda: None
+        t0 = time.perf_counter()
+        mock = np.asarray(dense_vega.initialize_monte_carlo())
+        mock_s = time.perf_counter() - t0
+        del dense_vega.minimize
+        want = goldens['mock']
+        d_mock = max(abs(mock.sum() - want['sum']) / abs(want['sum']),
+                     rel_err(mock[:len(want['first'])], want['first']))
+        log(f'desi global mock (seed {goldens["mc_seed"]}, '
+            f'{mock.size} bins, numpy legacy draw) in {mock_s:.3f} s: '
+            f'sum {mock.sum()!r} (JAX {want["sum"]!r}), max relative diff '
+            f'{d_mock:.3e}')
+        if mock.size != want['size'] or not d_mock <= MOCK_RTOL:
+            fail(f'desi global mock differs from the JAX one by {d_mock:.3e}')
+        timed_fit(device, dense_vega, 'desi mock')
+        check_fit('desi mock', 'joint', dense_vega, names,
+                  goldens['fit_mock'])
+    launches['desi_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'desi_fit', layouts)
+    # the backward's launches come from autograd, outside Metals.compute:
+    # they are the fit's launches at the (B, M) of the stack's forward
+    # launches
+    metal_shapes = {(key[2], key[7]) for key in seen}
+    by_primitive = {
+        primitive: sum(r.launches for key, r in layouts.items()
+                       if key[0] == primitive
+                       and (key[2], key[7]) in metal_shapes)
+        for primitive in ('F', 'P', 'Ft')}
+    log(f'desi fit kernel launches: {launches["desi_fit"]}; at the metal '
+        f'stack\'s layouts (B, M) {sorted(metal_shapes)}: {by_primitive}, '
+        f'{metal_launches(seen, "F")} of them F_0 inside Metals.compute')
+    if not by_primitive['F'] or not by_primitive['Ft']:
+        fail('the desi dense fit launched no F_d or no Ft_d from metals.py')
+    log(f'desi phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -2049,7 +2349,18 @@ def main():
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, python {sys.version.split()[0]}')
 
+    t_start = time.perf_counter()
+    marks = []
+
+    def mark(phase):
+        """Log the seconds since the last mark, under the phase that
+        just ended."""
+        marks.append((phase, time.perf_counter()))
+        last = marks[-2][1] if len(marks) > 1 else t_start
+        log(f'phase {phase}: {marks[-1][1] - last:.1f} s')
+
     build_kernels()
+    mark('build')
     with tempfile.TemporaryDirectory() as work:
         from vega_tpu_torch.testing import make_synthetic_dataset
         t0 = time.perf_counter()
@@ -2061,20 +2372,30 @@ def main():
             device, main_ini)
         edge_checks = check_edge_layouts(device, knot_grid,
                                          dense_checks[0]['layout'][1])
+        mark('dense')
         grid_launches, grid_checks = run_grid_path(device, main_ini, card)
+        mark('grid')
         fit_ini, fit_launches, fit_checks = run_fit_path(device, work)
+        mark('fit')
         scan_launches, scan_checks = run_scan_path(device, fit_ini)
+        mark('scan')
         mc_launches, mc_checks = run_mc_path(device, work)
+        mark('mc')
         sampler_launches, sampler_replays, sampler_checks = \
             run_sampler_paths(device, work, fit_ini)
+        mark('samplers')
         dr16_launches, dr16_checks = run_dr16_path(device, work, card)
+        mark('dr16')
+        desi_launches, desi_checks = run_desi_path(device, work, card)
+        mark('desi')
+    log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
-              + mc_checks + sampler_checks + dr16_checks)
+              + mc_checks + sampler_checks + dr16_checks + desi_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
-         **dr16_launches},
+         **dr16_launches, **desi_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -474,7 +474,12 @@ def test_mc_start_from_fit_is_not_ported(setup):
     # post-processing (3), likelihood options (5)
     with pytest.raises(NotImplementedError, match='item 3'):
         port.get_fiducial_for_monte_carlo()
+    port.main_config.remove_option('control', 'mc_start_from_fit')
+    port.main_config['control']['use_full_pk_for_mc'] = 'True'
     with pytest.raises(NotImplementedError, match='item 5'):
+        port.get_fiducial_for_monte_carlo()
+    # the global mock is ported; it needs a global covariance
+    with pytest.raises(ValueError, match='global covariance'):
         port.analysis.create_global_monte_carlo({})
 
 

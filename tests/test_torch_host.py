@@ -210,13 +210,14 @@ def test_metal_readers_match_jax(metal_pair, corr):
 
 def test_metal_readers_refuse_what_is_not_ported(metal_pair, tmp_path):
     """A metal file without matrices needs `test = True`; the new-metals
-    mode raises not_ported."""
+    mode needs its [metal-matrix] section (and the data file's
+    cosmology, which this file lacks: the section is checked first)."""
     _, port = metal_pair
     source = Path(port.main_config['data sets'].get('ini files').split()[0])
     for old, new, error, match in (
             ('test = True\n', '', ValueError, 'metal matrices'),
             ('[model]\n', '[model]\nnew_metals = True\n',
-             NotImplementedError, 'new_metals')):
+             ValueError, 'metal-matrix')):
         (tmp_path / 'lyaxlya.ini').write_text(
             source.read_text().replace(old, new))
         main = (source.parent / 'main.ini').read_text().replace(
@@ -245,7 +246,7 @@ def assert_same_files(jax_dir, port_dir, n_fits=3):
                     scale = np.max(np.abs(hdu_w[col]))
                     assert np.max(np.abs(hdu_g[col] - hdu_w[col])) \
                         <= 1e-12 * scale
-                elif col == 'CO':
+                elif col in ('CO', 'COV'):
                     np.testing.assert_allclose(hdu_g[col], hdu_w[col],
                                                rtol=1e-11, atol=0)
                 else:
@@ -337,7 +338,8 @@ new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.samplers.nested', 'vega_tpu_torch.samplers.smc',
        'vega_tpu_torch.samplers.hmc', 'vega_tpu_torch.samplers.polychord',
        'vega_tpu_torch.samplers.pocomc',
-       'vega_tpu_torch.scripts.run_vega_sampler', 'vega_tpu_torch.metals'}
+       'vega_tpu_torch.scripts.run_vega_sampler', 'vega_tpu_torch.metals',
+       'vega_tpu_torch.native', 'vega_tpu_torch.native.pair_hist'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''

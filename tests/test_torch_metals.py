@@ -614,7 +614,7 @@ def test_plain_combine_matches_pallas_at_a_metal_layout():
 # 5. What still raises
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize('section,line,match', [
-    ('model', 'new_metals = True', 'new_metals'),
+    ('model', 'relativistic correction = True', 'Relativistic correction'),
     ('model', 'UVB-fluctuations = True', 'UV fluctuations'),
     ('model', 'pk-damping-scale = 2.0', 'Pk damping'),
     ('model', 'fullshape smoothing = gauss', 'Full-shape smoothing'),

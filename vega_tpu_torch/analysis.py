@@ -5,8 +5,8 @@ every grid point is one row of the batched exact-derivative Newton of
 parallel/batch.py on the interface's device. The serial loops (the scan
 with `[control] batched_scan = False`, `run_monte_carlo`) follow the
 reference point for point and seed for seed: host mocks come from the
-numpy global RNG, as vega_tpu's do. The port has no global covariance
-(it raises at construction), so the joint-covariance mock is not ported.
+numpy global RNG, as vega_tpu's do, the mock of the joint data vector
+under a global covariance too (`create_global_monte_carlo`).
 """
 
 from __future__ import annotations
@@ -18,15 +18,14 @@ import numpy as np
 
 from . import mocks
 from .minimizer import Minimizer
-from .utils import not_ported
 
 
 class Analysis:
     """(vega_tpu/analysis.py:26-49)"""
 
     def __init__(self, chi2_func, sampler_params, main_config, corr_items,
-                 data, mc_config=None, grad_func=None, hess_func=None,
-                 vega=None):
+                 data, mc_config=None, global_cov=None, grad_func=None,
+                 hess_func=None, vega=None):
         self.config = main_config
         self._vega = vega
         self._chi2_func = chi2_func
@@ -41,6 +40,8 @@ class Analysis:
         self._data = data
         self.mc_config = mc_config
         self.has_monte_carlo = False
+        self._global_cov = global_cov
+        self._cholesky_global_cov = None
 
     # ------------------------------------------------------------------
     # chi^2 scans
@@ -112,11 +113,49 @@ class Analysis:
             for name in self._corr_items
         }
 
+    def _global_mock_pieces(self, fiducial_model):
+        """(joint data mask, fiducial concatenated on the joint grid)
+        (vega_tpu/analysis.py:124-132)."""
+        data_mask = np.concatenate([self._data[name].data_mask
+                                    for name in self._corr_items])
+        fiducial = np.concatenate(
+            [mocks.match_to_data_grid(fiducial_model[name],
+                                      self._data[name])
+             for name in self._corr_items])
+        return data_mask, fiducial
+
     def create_global_monte_carlo(self, fiducial_model, seed=None,
                                   scale=None, forecast=False):
-        """A mock of the joint data vector from the global covariance
-        (vega_tpu/analysis.py:134-154)."""
-        raise not_ported('Global covariance', 5)
+        """A mock of the masked joint data vector from the global
+        covariance (vega_tpu/analysis.py:134-154): fiducial + L @ N(0, 1)
+        from the numpy global RNG (seeded with `seed` when given), L the
+        Cholesky factor of the masked covariance times `scale`, taken
+        once; forecast=True gives the noiseless fiducial."""
+        if self._global_cov is None:
+            raise ValueError('create_global_monte_carlo requires a global '
+                             'covariance matrix.')
+        if seed is not None:
+            np.random.seed(seed)
+        data_mask, fiducial = self._global_mock_pieces(fiducial_model)
+        if forecast:
+            self.current_mc_mock = fiducial[data_mask]
+            return self.current_mc_mock
+        if self._cholesky_global_cov is None:
+            self._cholesky_global_cov = mocks.scaled_cholesky(
+                self._global_cov, 1 if scale is None else scale,
+                mask=data_mask)
+        self.current_mc_mock = mocks.gaussian_draw(
+            fiducial[data_mask], self._cholesky_global_cov)
+        return self.current_mc_mock
+
+    def _record_mock(self, mock):
+        """Keep a mock: per correlation, or under 'global'
+        (vega_tpu/analysis.py:159-164)."""
+        if self._global_cov is None:
+            for name, cf_mock in mock.items():
+                self.mc_mocks.setdefault(name, []).append(cf_mock)
+        else:
+            self.mc_mocks.setdefault('global', []).append(mock)
 
     # ------------------------------------------------------------------
     # Serial Monte-Carlo loop
@@ -159,11 +198,11 @@ class Analysis:
         for i in range(num_mocks):
             print(f'INFO: Running Monte Carlo realization {i}')
             sys.stdout.flush()
-            mock = self.create_monte_carlo_sim(fiducial_model, seed=None,
-                                               scale=scale,
-                                               forecast=forecast)
-            for name, cf_mock in mock.items():
-                self.mc_mocks.setdefault(name, []).append(cf_mock)
+            create = (self.create_monte_carlo_sim if self._global_cov is None
+                      else self.create_global_monte_carlo)
+            mock = create(fiducial_model, seed=None, scale=scale,
+                          forecast=forecast)
+            self._record_mock(mock)
             if run_mc_fits:
                 records.append(self._fit_one_mock(minimizer, i))
 

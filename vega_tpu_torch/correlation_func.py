@@ -2,22 +2,29 @@
 
 Counterpart of vega_tpu/correlation_func.py: the AP coordinate rescaling
 and Hankel transform (`compute_core`, `_rescale_coords`, :175-221), the
-standard bias redshift evolution (:250-276, the mean evolution) and the
-growth factor (:290-307), dense and factored (`compute`, :97-120). Host
+standard bias redshift evolution (:250-276, the mean evolution), the
+growth factor (:290-307), dense and factored (`compute`, :97-120), the
+QSO radiation of the cross (`compute_qso_radiation`, :336-364; factored
+as one term whose coefficient is its strength) and the template of the
+DESI instrumental systematics (:389-415), which model.py adds. Host
 quantities are computed at init with numpy and kept as device tensors;
-the additive terms (QSO radiation, relativistic, asymmetry, UV
-shotnoise, DESI instrumental systematics), single multipoles, the split
-("new") and Croom bias evolutions are not ported yet.
+the relativistic, asymmetry and UV shotnoise terms, single multipoles,
+the split ("new") and Croom bias evolutions are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.interpolate import interp1d
 
 from .cosmo import growth_function
-from .factored import FactoredXi, RecordingParams
-from .utils import col, not_ported, to_tensor
+from .factored import FactoredXi, RecordingParams, Sampling
+from .utils import col, find_file, not_ported, to_tensor
+
+# the instrumental systematics' amplitude when the parameters carry none
+# (vega_tpu/correlation_func.py:414)
+DESI_INST_SYS_AMP = 0.0003189935987295203
 
 
 class CorrelationFunction:
@@ -38,7 +45,6 @@ class CorrelationFunction:
         self._metal_corr = metal_corr
 
         for option, feature in (
-                ('radiation effects', 'QSO radiation'),
                 ('relativistic correction', 'Relativistic correction'),
                 ('standard asymmetry', 'Standard asymmetry'),
                 ('UVB-shotnoise', 'UV shotnoise'),
@@ -53,6 +59,16 @@ class CorrelationFunction:
         for name in (tracer1['name'], tracer2['name']):
             if 'croom' in self._evol_model(name):
                 raise not_ported('Croom bias evolution', 4)
+
+        # QSO radiation (vega_tpu/correlation_func.py:66-71)
+        self.radiation_flag = config.getboolean('radiation effects', False)
+        if self.radiation_flag:
+            names = [tracer1['name'], tracer2['name']]
+            if not ('QSO' in names and 'LYA' in names):
+                raise ValueError('QSO radiation effects only apply to the '
+                                 'cross (QSOxLya)')
+        self._rescale_coords_systematics = config.getboolean(
+            'rescale-coords-systematics', False)
 
         # delta rp only for the cross (reference: correlation_func.py:64-69)
         self._delta_rp_name = None
@@ -90,27 +106,55 @@ class CorrelationFunction:
     def compute(self, pk, pktoxi_obj, params, use_kernel=True,
                 sampling=None):
         """xi model for the input P(k); returns (xi, bad_flag)
-        (vega_tpu/correlation_func.py:97-120). A FactoredXi from the
+        (vega_tpu/correlation_func.py:97-151). A FactoredXi from the
         transform stays factored unless the z-evolution read a sampled
-        name (`sampling`), which densifies it first."""
-        xi, bad = self.compute_core(pk, pktoxi_obj, params, use_kernel,
-                                    sampling)
+        name (`sampling`), which densifies it first. The QSO radiation
+        (smooth component only) is a term of its own whose coefficient
+        is its strength, unless its shape read a sampled name."""
+        xi, rescaled_r, rescaled_mu, bad = self.compute_core(
+            pk, pktoxi_obj, params, use_kernel, sampling)
         rec = RecordingParams(params, sampling)
         evol = self.compute_bias_evol(rec)
         if isinstance(xi, FactoredXi) and rec.traced():
             xi = xi.dense()
         if isinstance(xi, FactoredXi):
-            return xi.mul_vec(evol * self.xi_growth), bad
-        xi = xi * evol
-        xi = xi * self.xi_growth
+            xi = xi.mul_vec(evol * self.xi_growth)
+        else:
+            xi = xi * evol
+            xi = xi * self.xi_growth
+
+        if self.radiation_flag and not params['peak']:
+            if isinstance(xi, FactoredXi):
+                # the shape at unit strength: read by name, the strength
+                # is not one of the names it depends on
+                rad_pars = dict(params)
+                rad_pars['qso_rad_strength'] = 1.0
+                rec_rad = RecordingParams(rad_pars, None if sampling is None
+                                          else Sampling(
+                    sampling.sampled - {'qso_rad_strength'}, sampling.grid))
+                shape = self.compute_qso_radiation(rec_rad, rescaled_r,
+                                                   rescaled_mu)
+                if rec_rad.traced():
+                    xi = (xi.dense()
+                          + col(params['qso_rad_strength'], 1) * shape)
+                else:
+                    xi = xi.add_vec(shape, coeff=params['qso_rad_strength'])
+            else:
+                xi = xi + self.compute_qso_radiation(params, rescaled_r,
+                                                     rescaled_mu)
         return xi, bad
+
+    def radiation_coefficients(self, params):
+        """The coefficient of the term `compute` appends to the smooth
+        component's factored transform: [the radiation strength], or []."""
+        return [params['qso_rad_strength']] if self.radiation_flag else []
 
     def compute_core(self, pk, pktoxi_obj, params, use_kernel=True,
                      sampling=None):
         """Hankel transform at the AP-rescaled coordinates
-        (vega_tpu/correlation_func.py:175-198). The coordinates count as
-        parameter-free when the rescaling read no sampled name other
-        than a grid parameter."""
+        (vega_tpu/correlation_func.py:175-198): (xi, rescaled r,
+        rescaled mu, bad). The coordinates count as parameter-free when
+        the rescaling read no sampled name other than a grid parameter."""
         rec = RecordingParams(params, sampling)
         delta_rp = 0.
         if self._delta_rp_name is not None:
@@ -119,9 +163,10 @@ class CorrelationFunction:
             rec, corr_name=self._corr_name, metal_corr=self._metal_corr)
         rescaled_r, rescaled_mu = self._rescale_coords(
             self._r, self._mu, col(ap, 1), col(at, 1), col(delta_rp, 1))
-        return pktoxi_obj.compute(rescaled_r, rescaled_mu, pk,
-                                  use_kernel=use_kernel,
-                                  coords_param_free=not rec.traced())
+        xi, bad = pktoxi_obj.compute(rescaled_r, rescaled_mu, pk,
+                                     use_kernel=use_kernel,
+                                     coords_param_free=not rec.traced())
+        return xi, rescaled_r, rescaled_mu, bad
 
     @staticmethod
     def _rescale_coords(r, mu, ap, at, delta_rp=0.):
@@ -145,3 +190,53 @@ class CorrelationFunction:
         rel = self._rel_z_evol
         evol = rel ** col(params[f'alpha_{self._tracer1["name"]}'], 1)
         return evol * rel ** col(params[f'alpha_{self._tracer2["name"]}'], 1)
+
+    # ------------------------------------------------------------------
+    # Additive terms
+    # ------------------------------------------------------------------
+    def compute_qso_radiation(self, params, rescaled_r, rescaled_mu):
+        """QSO transverse proximity effect
+        (vega_tpu/correlation_func.py:336-364): (M,) or (B, M)."""
+        delta_rp = col(params.get(self._delta_rp_name, 0.), 1)
+        if self._rescale_coords_systematics:
+            rp = rescaled_r * rescaled_mu + delta_rp
+            rt = rescaled_r * torch.sqrt(1 - rescaled_mu ** 2)
+        else:
+            rp = self._r * self._mu + delta_rp
+            rt = self._r * torch.sqrt(1 - self._mu ** 2)
+
+        r_shift = torch.sqrt(rp ** 2 + rt ** 2)
+        r_safe = torch.where(r_shift != 0, r_shift, 1.0)
+        mu_shift = rp / r_safe
+
+        strength = col(params['qso_rad_strength'], 1)
+        asymmetry = col(params['qso_rad_asymmetry'], 1)
+        lifetime = col(params['qso_rad_lifetime'], 1)
+        decrease = col(params['qso_rad_decrease'], 1)
+
+        xi_rad = strength / (r_safe ** 2) * (
+            1 - asymmetry * (1 - mu_shift ** 2))
+        return xi_rad * torch.exp(
+            -r_shift * ((1 + mu_shift) / lifetime + 1 / decrease))
+
+    def desi_instrumental_systematics_template(self, bin_size_rp):
+        """The fiber-positioner sky-noise correlation at unit amplitude,
+        (M,) host numpy, built once on the host
+        (vega_tpu/correlation_func.py:389-415): the tabulated xi(rt) in
+        the first rp bin, zero elsewhere."""
+        if self._tracer1['type'] != self._tracer2['type']:
+            raise ValueError('DESI instrumental systematics model only '
+                             'applies to auto-correlation functions.')
+        r = self._r.cpu().numpy()
+        mu = self._mu.cpu().numpy()
+        rp = r * mu
+        rt = r * np.sqrt(1 - mu ** 2)
+        w = (rp > 0) & (rp < bin_size_rp)
+        table = np.genfromtxt(
+            find_file('instrumental_systematics/'
+                      'desi-instrument-syst-for-forest-auto-correlation.csv'),
+            delimiter=',', names=True)
+        interp = interp1d(table['RT'], table['XI'], kind='linear')
+        template = np.zeros(rt.shape)
+        template[w] = interp(rt[w])
+        return template

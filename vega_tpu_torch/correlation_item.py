@@ -1,13 +1,16 @@
 """Per-correlation configuration item.
 
 Counterpart of vega_tpu/correlation_item.py for the dense likelihood:
-tracer info, config sections, coordinates and the metal correlation
-list of the legacy metal-file mode. The new-metals mode, broadband and
-small-scale marginalization are not ported yet and raise at construction.
+tracer info, config sections, coordinates, the metal correlation list,
+the stacked-delta weights files of the new-metals mode and the cosmology
+of the data file's header, which the new-metals matrices read. Broadband
+and small-scale marginalization are not ported yet and raise at
+construction.
 """
 
 from __future__ import annotations
 
+from .cosmo import Cosmo
 from .utils import not_ported
 
 
@@ -15,6 +18,8 @@ class CorrelationItem:
     """Tracer info, config sections and coordinates of one correlation
     component (reference: correlation_item.py:8-75)."""
 
+    cosmo = None
+    low_mem_mode = False
     model_coordinates = None
     dist_model_coordinates = None
     data_coordinates = None
@@ -38,10 +43,16 @@ class CorrelationItem:
         if 'filename' not in config['data']:
             self.has_data = False
 
+        # stacked-delta weights of the new-metals matrices
+        # (vega_tpu/correlation_item.py:47-53)
         self.new_metals = config['model'].getboolean('new_metals', False)
         if self.new_metals:
-            raise not_ported('new_metals (stacked-delta metal distortion '
-                             'matrices)', 4)
+            self.tracer1['weights-path'] = config['data'].get(
+                'weights-tracer1')
+            self.tracer2['weights-path'] = config['data'].get(
+                'weights-tracer2', None)
+            if self.tracer2['weights-path'] is None:
+                self.tracer2['weights-path'] = self.tracer1['weights-path']
         self.test_flag = config['data'].getboolean('test', False)
         self.has_metals = False
         if 'broadband' in config:
@@ -66,6 +77,13 @@ class CorrelationItem:
             if corr_hash not in self.metal_correlations:
                 self.metal_correlations.append(corr_hash)
         self.has_metals = True
+
+    def init_cosmo(self, cosmo_params):
+        """The data file's cosmology (vega_tpu/correlation_item.py:111-117)."""
+        self.cosmo_params = cosmo_params
+        self.cosmo = Cosmo(
+            Om=cosmo_params['Omega_m'], Ok=cosmo_params['Omega_k'],
+            Or=cosmo_params['Omega_r'], wl=cosmo_params['wl'])
 
     def init_coordinates(self, model_coordinates, dist_model_coordinates=None,
                          data_coordinates=None):

@@ -3,7 +3,8 @@ masked inverse covariance, log-determinant and distortion matrix.
 
 Counterpart of vega_tpu/data.py without small-scale marginalization
 templates, with the metal grids and matrices of the legacy metal-file
-mode (`_init_metals`; the new-metals mode is not ported and raises).
+mode (`_init_metals`), the metal pairs of the new-metals mode (whose
+matrices metals.py computes) and the cosmology of the file's header.
 Host-side numpy throughout; the likelihood
 copies what it needs to the device. Monte-Carlo mocks
 (`create_monte_carlo`) draw from the numpy global RNG, as vega_tpu's do,
@@ -50,10 +51,12 @@ class Data:
         self._wire_corr_item(corr_item)
 
         # absent matrices become exact identities (the model skips
-        # identity matmuls entirely)
+        # identity matmuls entirely); with low_mem_mode under a global
+        # covariance no per-correlation covariance is held
+        # (vega_tpu/data.py:74-77)
         if self._distortion_mat is None:
             self._distortion_mat = np.eye(self.full_data_size)
-        if self._cov_mat is None:
+        if self._cov_mat is None and not corr_item.low_mem_mode:
             self._cov_mat = np.eye(self.full_data_size)
         self.masked_data_vec = self.data_vec[self.data_mask]
 
@@ -64,16 +67,19 @@ class Data:
         self.scaled_log_cov_det = None
 
     def _wire_corr_item(self, corr_item):
-        """Hand the metal grids and matrices read here to the
-        CorrelationItem (vega_tpu/data.py:94-108 without broadband and
-        the FITS header's cosmology, which only unported features
-        read)."""
+        """Hand the metal grids and matrices read here and the FITS
+        header's cosmology to the CorrelationItem (vega_tpu/data.py:94-108
+        without broadband)."""
         if 'metals' in corr_item.config:
+            metal_config = corr_item.config['metals']
             if corr_item.new_metals:
-                raise not_ported('new_metals (stacked-delta metal '
-                                 'distortion matrices)', 4)
-            catalog, pairs = self._init_metals(corr_item.config['metals'])
+                in1, in2, catalog = self._init_metal_tracers(metal_config)
+                pairs = self._init_metal_correlations(metal_config, in1, in2)
+            else:
+                catalog, pairs = self._init_metals(metal_config)
             corr_item.init_metals(catalog, pairs)
+        if self.cosmo_params is not None:
+            corr_item.init_cosmo(self.cosmo_params)
 
     @property
     def cov_mat(self):
@@ -201,6 +207,12 @@ class Data:
         if cov_rescale is not None and self._cov_mat is not None:
             self._cov_mat = self._cov_mat * cov_rescale
 
+        self.cosmo_params = None
+        if 'OMEGAM' in header:
+            self.cosmo_params = dict(
+                Omega_m=header['OMEGAM'], Omega_k=header.get('OMEGAK', 0.),
+                Omega_r=header.get('OMEGAR', 0.), wl=header.get('WL', -1.))
+
         self.data_coordinates = self._coords(
             header, rp_grid=columns['RP'], rt_grid=columns['RT'],
             z_grid=columns['Z'])
@@ -261,6 +273,11 @@ class Data:
                 for metal2 in in2[i if is_auto else 0:]:
                     pairs.append((metal1, metal2))
         return [p for p in pairs if self._use_correlation(*p)]
+
+    def _init_metal_correlations(self, metal_config, in1, in2):
+        """The pair list alone: in the new-metals mode the matrices are
+        computed, not read (vega_tpu/data.py:363-366)."""
+        return self._metal_pairs(in1, in2)
 
     def _init_metals(self, metal_config):
         """Legacy mode: metal coordinates, and distortion matrices where

@@ -24,19 +24,34 @@ Metals use ap = at = 1 unless `metal-scaling` is set, so in the grid
 sweep their rows do not move with (ap, at); a class of the
 cross-correlation moves with `drp_<discrete tracer>`.
 
-The new-metals mode (distortion matrices from stacked-delta weights) is
-not ported; it raises at construction of the CorrelationItem.
+The metal distortion matrices come from the legacy metal file, or, in
+the new-metals mode (`new_metals = True`, vega_tpu/metals.py:636-914),
+are computed once on the host from the stacked-delta weights files:
+pair histograms of the assumed against the true line-of-sight
+separation (native/pair_hist.cpp, built with g++; the numpy route only
+when a caller asks for it), an rt distortion from the distance-ratio
+histogram, and each pair's effective coordinates. Each pair's matrix is
+then a device f64 tensor applied after the combine: the full
+(rp x rt) matrix as one GEMM (xi @ D^T), or with `rp_only_metal_mats`
+the (rp, rp) matrix along the line of sight (D @ xi.reshape(rp, rt)),
+a configuration the stacking plan refuses, as vega_tpu's does.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from . import correlation_func as corr_func
 from . import pktoxi, power_spectrum, utils
+from .coordinates import Coordinates
+from .cosmo import ABSORBER_IGM
 from .factored import (FactoredXi, RecordingParams, _broadcast_cat,
                        stack_coefficients)
+from .io.fits import read_fits
+from .native import pair_hist
 from .ops.spline_combine import spline_legendre_combine
 from .utils import col, to_tensor
 
@@ -54,9 +69,13 @@ class Metals:
         self._data = data
         self._scale_params = scale_params
         self.size = corr_item.model_coordinates.rp_grid.size
+        self._coordinates = corr_item.model_coordinates
+        self.cosmo = corr_item.cosmo
         config = corr_item.config
-        if config['model'].getboolean('rp_only_metal_mats', False):
-            raise utils.not_ported('rp_only_metal_mats (new-metals mode)', 4)
+        self.rp_only_metal_mats = config['model'].getboolean(
+            'rp_only_metal_mats', False)
+        self.zmin = config['data'].getfloat('zmin', 0.0)
+        self.zmax = config['data'].getfloat('zmax', 10.0)
 
         self.separate_metal_auto_biases = config['model'].getboolean(
             'separate-metal-auto-biases', False)
@@ -73,6 +92,20 @@ class Metals:
                              corr_item.tracer2['name']]
         self.is_auto_correlation = (self.main_tracers[0]
                                     == self.main_tracers[1])
+        self.main_tracer_types = [corr_item.tracer1['type'],
+                                  corr_item.tracer2['type']]
+        self.new_metals = corr_item.new_metals
+        if self.new_metals:
+            if 'metal-matrix' not in config:
+                raise ValueError(f'{corr_item.name}: new_metals needs a '
+                                 '[metal-matrix] section')
+            if self.cosmo is None:
+                raise ValueError(
+                    f'{corr_item.name}: the new-metals matrices need the '
+                    "cosmology of the data file's header (OMEGAM)")
+            self.metal_matrix_config = config['metal-matrix']
+            self.rp_nbins = self._coordinates.rp_nbins
+            self.rt_nbins = self._coordinates.rt_nbins
 
         config['metals']['bin_size_rp'] = \
             str(corr_item.data_coordinates.rp_binsize)
@@ -82,11 +115,25 @@ class Metals:
         self.PktoXi = {}
         self.Xi_metal = {}
         self._metal_mats = {}
+        # host seconds of the new-metals matrices (pair histograms and
+        # assembly, every pair)
+        self.matrix_build_s = 0.
         shared_pktoxi = None
         for corr_hash in corr_item.metal_correlations:
             tracer1 = corr_item.tracer_catalog[corr_hash[0]]
             tracer2 = corr_item.tracer_catalog[corr_hash[1]]
-            if corr_hash in data.metal_coordinates:
+            if self.new_metals:
+                # the pair's matrix and its effective coordinates
+                # (vega_tpu/metals.py:90-103)
+                t0 = time.perf_counter()
+                build = (self.compute_metal_rp_dmat if self.rp_only_metal_mats
+                         else self.compute_metal_dmat)
+                dmat, rp, rt, z = build(*corr_hash)
+                self.matrix_build_s += time.perf_counter() - t0
+                self._metal_mats[corr_hash] = to_tensor(dmat, self.device)
+                metal_coordinates = Coordinates.init_from_grids(
+                    self._coordinates, rp, rt, z)
+            elif corr_hash in data.metal_coordinates:
                 metal_coordinates = data.metal_coordinates[corr_hash]
             else:
                 metal_coordinates = data.metal_coordinates[corr_hash[::-1]]
@@ -102,6 +149,12 @@ class Metals:
             self.Xi_metal[corr_hash] = corr_func.CorrelationFunction(
                 config['metals'], fiducial, metal_coordinates, scale_params,
                 tracer1, tracer2, metal_corr=True, device=self.device)
+
+        if self.new_metals:
+            print(f'INFO: {corr_item.name}: {len(self._metal_mats)} '
+                  f'new-metals matrices of {self.size} x {self.size} bins'
+                  f'{" (rp only)" if self.rp_only_metal_mats else ""} built '
+                  f'on the host in {self.matrix_build_s:.3f} s')
 
         # None: the unrolled per-pair loop (configs the plan refuses)
         self._stacked_plans = self._plan_stacking(corr_item)
@@ -123,7 +176,9 @@ class Metals:
                        'rescale-coords-systematics', 'pk-damping-scale']
         if any(key in metals_config for key in unsupported):
             return None
-        if self._scale_params.metal_scaling:
+        # rp-only matrices act on the (rp, rt) grid, not on a pair's rows
+        # (vega_tpu/metals.py:164-165)
+        if self._scale_params.metal_scaling or self.rp_only_metal_mats:
             return None
 
         has_arinyo = ('small scale nl' in metals_config
@@ -534,9 +589,17 @@ class Metals:
 
     def apply_metal_matrix(self, xi, corr_hash):
         """xi (..., n) -> (..., n) through the pair's metal distortion
-        matrix (vega_tpu/metals.py:605-629, legacy branch); identity
-        matrices (test mode, or a file that holds the identity) are
-        skipped."""
+        matrix (vega_tpu/metals.py:605-629): the new-metals matrix, full
+        (xi @ D^T) or rp-only (D along the rp axis of the (rp, rt) grid),
+        else the legacy file's, where identity matrices (test mode, or a
+        file that holds the identity) are skipped."""
+        if self.new_metals:
+            dmat = self._metal_mats[corr_hash]
+            if self.rp_only_metal_mats:
+                grid = xi.reshape(xi.shape[:-1] + (self.rp_nbins,
+                                                   self.rt_nbins))
+                return torch.matmul(dmat, grid).reshape(xi.shape)
+            return xi @ dmat.T
         if corr_hash not in self._metal_mats:
             mats = self._data.metal_mats
             dmat = mats[corr_hash if corr_hash in mats else corr_hash[::-1]]
@@ -547,3 +610,278 @@ class Metals:
             self._metal_mats[corr_hash] = dmat
         dmat = self._metal_mats[corr_hash]
         return xi if dmat is None else xi @ dmat.T
+
+    # ------------------------------------------------------------------
+    # New-metals distortion matrices: host work at construction
+    # (vega_tpu/metals.py:636-914). `route` 'native' takes the C++ pair
+    # histograms (native/pair_hist.cpp), 'numpy' materializes every pair
+    # as vega_tpu's numpy route does.
+    # ------------------------------------------------------------------
+    @staticmethod
+    def rebin(vector, rebin_factor):
+        size = vector.size
+        return vector[:(size // rebin_factor) * rebin_factor].reshape(
+            (size // rebin_factor), rebin_factor).mean(-1)
+
+    def get_forest_weights(self, main_tracer):
+        """(vega_tpu/metals.py:641-652)"""
+        assert main_tracer['type'] == 'continuous'
+        hdul = read_fits(utils.find_file(main_tracer['weights-path']))
+        wave = 10 ** hdul[1]['LOGLAM']
+        weights = hdul[1]['WEIGHT']
+        rebin_factor = self.metal_matrix_config.getint('rebin_factor', None)
+        if rebin_factor is not None:
+            wave = self.rebin(wave, rebin_factor)
+            weights = self.rebin(weights, rebin_factor)
+        return wave, weights
+
+    def get_qso_weights(self, tracer):
+        """(vega_tpu/metals.py:654-671)"""
+        assert tracer['type'] == 'discrete'
+        hdul = read_fits(utils.find_file(tracer['weights-path']))
+        z_qso_cat = hdul[1]['Z']
+        z_ref = self.metal_matrix_config.getfloat('z_ref_objects', 2.25)
+        z_evol = self.metal_matrix_config.getfloat('z_evol_objects', 1.44)
+        qso_z_bins = self.metal_matrix_config.getint('z_bins_objects', 1000)
+        weights_cat = ((1. + z_qso_cat) / (1. + z_ref)) ** (z_evol - 1.)
+
+        histo_w, zbins = np.histogram(z_qso_cat, bins=qso_z_bins,
+                                      weights=weights_cat)
+        histo_wz, _ = np.histogram(z_qso_cat, bins=zbins,
+                                   weights=weights_cat * z_qso_cat)
+        selection = histo_w > 0
+        z_qso = histo_wz[selection] / histo_w[selection]
+        return z_qso, histo_w[selection]
+
+    def get_rp_pairs(self, z1, z2):
+        """(vega_tpu/metals.py:673-684)"""
+        if np.any(z1 < 0) or np.any(z2 < 0):
+            raise ValueError(
+                'Attempting to compute distance to a negative redshift')
+        r1 = self.cosmo.get_r_comov(z1)
+        r2 = self.cosmo.get_r_comov(z2)
+        rp_pairs = (r1[:, None] - r2[None, :]).ravel()
+        if 'discrete' not in self.main_tracer_types:
+            rp_pairs = np.abs(rp_pairs)
+        mean_distance = ((r1[:, None] + r2[None, :]) / 2).ravel()
+        return rp_pairs, mean_distance
+
+    def get_forest_weight_scaling(self, z, true_abs, assumed_abs):
+        """(vega_tpu/metals.py:686-691)"""
+        true_alpha = self.metal_matrix_config.getfloat(f'alpha_{true_abs}')
+        assumed_alpha = self.metal_matrix_config.getfloat(
+            f'alpha_{assumed_abs}', 2.9)
+        return (1 + z) ** (true_alpha + assumed_alpha - 2)
+
+    def _tracer_weights(self, tracer, main_idx, true_abs):
+        """(vega_tpu/metals.py:693-703)"""
+        if self.main_tracer_types[main_idx] == 'continuous':
+            wave, weights = self.get_forest_weights(tracer)
+            true_z = wave / ABSORBER_IGM[true_abs] - 1.
+            assumed_z = wave / ABSORBER_IGM[self.main_tracers[main_idx]] - 1.
+            scaling = self.get_forest_weight_scaling(
+                true_z, true_abs, self.main_tracers[main_idx])
+        else:
+            true_z, weights = self.get_qso_weights(tracer)
+            assumed_z = true_z
+            scaling = 1.
+        return true_z, assumed_z, weights, scaling
+
+    def _pair_histogram_native(self, true_abs_1, true_abs_2, rp_edges,
+                               n_ratio_bins):
+        """Streamed O(n1 n2) pair histograms through the C++ kernel
+        (vega_tpu/metals.py:705-752); a failed build raises."""
+        true_z1, assumed_z1, weights1, scaling_1 = self._tracer_weights(
+            self._corr_item.tracer1, 0, true_abs_1)
+        true_z2, assumed_z2, weights2, scaling_2 = self._tracer_weights(
+            self._corr_item.tracer2, 1, true_abs_2)
+        if np.any(true_z1 < 0) or np.any(true_z2 < 0):
+            raise ValueError(
+                'Attempting to compute distance to a negative redshift')
+
+        true_r1 = self.cosmo.get_r_comov(true_z1)
+        true_r2 = self.cosmo.get_r_comov(true_z2)
+        assumed_r1 = self.cosmo.get_r_comov(assumed_z1)
+        assumed_r2 = self.cosmo.get_r_comov(assumed_z2)
+        abs_rp = int('discrete' not in self.main_tracer_types)
+
+        ratio_edges = None
+        if n_ratio_bins:
+            lo, hi = pair_hist.pair_ratio_range(true_r1, assumed_r1,
+                                                true_r2, assumed_r2)
+            if lo == hi:  # np.histogram degenerate-range convention
+                lo, hi = lo - 0.5, hi + 0.5
+            ratio_edges = np.linspace(lo, hi, n_ratio_bins + 1)
+
+        out = pair_hist.pair_histograms(
+            true_r1, assumed_r1, true_z1 * np.ones_like(true_r1),
+            assumed_z1 * np.ones_like(assumed_r1),
+            weights1 * scaling_1 * np.ones_like(true_r1),
+            true_r2, assumed_r2, true_z2 * np.ones_like(true_r2),
+            assumed_z2 * np.ones_like(assumed_r2),
+            weights2 * scaling_2 * np.ones_like(true_r2),
+            abs_rp, self.zmin, self.zmax, rp_edges, ratio_edges)
+        h2, sum_true, sum_assumed, sum_assumed_rp, sum_z, ratio_hist = out
+        ratios = ((ratio_edges[1:] + ratio_edges[:-1]) / 2
+                  if ratio_edges is not None else None)
+        return (h2, sum_true, sum_assumed, sum_assumed_rp, sum_z,
+                ratio_hist, ratios)
+
+    def _numpy_pairs(self, true_abs_1, true_abs_2):
+        """Every pair materialized, as vega_tpu's numpy route:
+        (true rp, true mean distance, assumed rp, assumed mean distance,
+        weights, mean true z) per pair."""
+        true_z1, assumed_z1, weights1, scaling_1 = self._tracer_weights(
+            self._corr_item.tracer1, 0, true_abs_1)
+        true_z2, assumed_z2, weights2, scaling_2 = self._tracer_weights(
+            self._corr_item.tracer2, 1, true_abs_2)
+        true_rp_pairs, true_mean_dist = self.get_rp_pairs(true_z1, true_z2)
+        assumed_rp_pairs, assumed_mean_dist = self.get_rp_pairs(
+            assumed_z1, assumed_z2)
+        weights = ((weights1 * scaling_1)[:, None]
+                   * (weights2 * scaling_2)[None, :]).ravel()
+        zpair = (assumed_z1[:, None] + assumed_z2[None, :]) / 2.
+        weights = weights * ((zpair >= self.zmin)
+                             & (zpair <= self.zmax)).ravel()
+        true_zpair = ((true_z1[:, None] + true_z2[None, :]) / 2.).ravel()
+        return (true_rp_pairs, true_mean_dist, assumed_rp_pairs,
+                assumed_mean_dist, weights, true_zpair)
+
+    @staticmethod
+    def _rp_sums(assumed_rp_pairs, weights, true_zpair, rp_edges):
+        """Weight, weight x rp and weight x z per assumed-rp bin."""
+        sum_w, _ = np.histogram(assumed_rp_pairs, bins=rp_edges,
+                                weights=weights)
+        sum_w_rp, _ = np.histogram(assumed_rp_pairs, bins=rp_edges,
+                                   weights=weights * assumed_rp_pairs)
+        sum_w_z, _ = np.histogram(assumed_rp_pairs, bins=rp_edges,
+                                  weights=weights * true_zpair)
+        return sum_w, sum_w_rp, sum_w_z
+
+    def compute_metal_dmat(self, true_abs_1, true_abs_2, route='native'):
+        """Full (rp x rt) metal distortion matrix and the pair's
+        effective (rp, rt, z) coordinates from the stacked-delta weights
+        (vega_tpu/metals.py:754-818)."""
+        rp_edges = np.linspace(self._coordinates.rp_min,
+                               self._coordinates.rp_max, self.rp_nbins + 1)
+        rt_edges = np.linspace(0, self._coordinates.rt_max,
+                               self.rt_nbins + 1)
+
+        if route == 'native':
+            (rp_1d_dmat, _, sum_w, sum_w_rp, sum_w_z, ratio_weights,
+             ratios) = self._pair_histogram_native(
+                true_abs_1, true_abs_2, rp_edges, 4 * rt_edges.size)
+            col_sum = np.sum(rp_1d_dmat, axis=0)
+            rp_1d_dmat = rp_1d_dmat / (col_sum + (col_sum == 0))
+            return self._assemble_metal_dmat(
+                rp_1d_dmat, sum_w, sum_w_rp, sum_w_z, ratio_weights,
+                ratios, rt_edges)
+        if route != 'numpy':
+            raise ValueError(f"route is 'native' or 'numpy', not {route!r}")
+
+        (true_rp_pairs, true_mean_dist, assumed_rp_pairs, assumed_mean_dist,
+         weights, true_zpair) = self._numpy_pairs(true_abs_1, true_abs_2)
+        rp_1d_dmat, _, _ = np.histogram2d(
+            assumed_rp_pairs, true_rp_pairs, bins=(rp_edges, rp_edges),
+            weights=weights)
+        col_sum = np.sum(rp_1d_dmat, axis=0)
+        rp_1d_dmat /= (col_sum + (col_sum == 0))
+
+        # distance-ratio histogram with solid-angle weighting, restricted
+        # to small true rp (vega_tpu/metals.py:800-806)
+        ratio_weights, ratio_bins = np.histogram(
+            assumed_mean_dist / true_mean_dist, bins=4 * rt_edges.size,
+            weights=weights / true_mean_dist ** 2
+            * (np.abs(true_rp_pairs) < 20.))
+        ratios = (ratio_bins[1:] + ratio_bins[:-1]) / 2
+        return self._assemble_metal_dmat(
+            rp_1d_dmat,
+            *self._rp_sums(assumed_rp_pairs, weights, true_zpair, rp_edges),
+            ratio_weights, ratios, rt_edges)
+
+    def _assemble_metal_dmat(self, rp_1d_dmat, sum_w, sum_w_rp, sum_w_z,
+                             ratio_weights, ratios, rt_edges):
+        """rt distortion from the ratio histogram, the (rp x rt) matrix
+        and the effective coordinates (vega_tpu/metals.py:820-855)."""
+        rt_centers = (rt_edges[:-1] + rt_edges[1:]) / 2
+        rt_half = self._coordinates.rt_binsize / 2
+        oversample = 7
+        delta_rt = np.linspace(-rt_half, rt_half * (1 - 2 / oversample),
+                               oversample)[None, :]
+        rt_1d_dmat = np.zeros((self.rt_nbins, self.rt_nbins))
+        for i, rt in enumerate(rt_centers):
+            rt_1d_dmat[:, i], _ = np.histogram(
+                (ratios[:, None] * (rt + delta_rt)[None, :]).ravel(),
+                bins=rt_edges,
+                weights=(ratio_weights[:, None]
+                         * (rt + delta_rt)[None, :]).ravel())
+        col_sum = np.sum(rt_1d_dmat, axis=0)
+        rt_1d_dmat /= (col_sum + (col_sum == 0))
+
+        n_total = self.rp_nbins * self.rt_nbins
+        dmat = np.einsum('ij,kl->ikjl', rp_1d_dmat, rt_1d_dmat).reshape(
+            n_total, n_total)
+
+        rp_eff_1d = sum_w_rp / (sum_w + (sum_w == 0))
+        z_eff_1d = sum_w_z / (sum_w + (sum_w == 0))
+
+        rt_max = self._coordinates.rt_max
+        r1 = np.arange(self.rt_nbins) * rt_max / self.rt_nbins
+        r2 = (1 + np.arange(self.rt_nbins)) * rt_max / self.rt_nbins
+        rt_eff_1d = (2 * (r2 ** 3 - r1 ** 3)) / (3 * (r2 ** 2 - r1 ** 2))
+
+        full_index = np.arange(n_total)
+        rt_index = full_index % self.rt_nbins
+        rp_index = full_index // self.rt_nbins
+        return (dmat, rp_eff_1d[rp_index], rt_eff_1d[rt_index],
+                z_eff_1d[rp_index])
+
+    def compute_metal_rp_dmat(self, true_abs_1, true_abs_2, route='native'):
+        """rp-only metal distortion matrix (rp_nbins, rp_nbins) and the
+        effective coordinates (vega_tpu/metals.py:857-893)."""
+        rp_edges = np.linspace(self._coordinates.rp_min,
+                               self._coordinates.rp_max, self.rp_nbins + 1)
+
+        if route == 'native':
+            dmat, sum_true, sum_w, sum_w_rp, sum_w_z, _, _ = \
+                self._pair_histogram_native(true_abs_1, true_abs_2,
+                                            rp_edges, 0)
+            dmat = dmat * ((sum_true > 0)
+                           / (sum_true + (sum_true == 0)))[None, :]
+            return self._assemble_metal_rp_dmat(dmat, sum_w, sum_w_rp,
+                                                sum_w_z)
+        if route != 'numpy':
+            raise ValueError(f"route is 'native' or 'numpy', not {route!r}")
+
+        true_rp_pairs, _, assumed_rp_pairs, _, weights, true_zpair = \
+            self._numpy_pairs(true_abs_1, true_abs_2)
+        dmat, _, _ = np.histogram2d(
+            assumed_rp_pairs, true_rp_pairs, bins=(rp_edges, rp_edges),
+            weights=weights)
+        sum_true, _ = np.histogram(true_rp_pairs, bins=rp_edges,
+                                   weights=weights)
+        dmat *= ((sum_true > 0) / (sum_true + (sum_true == 0)))[None, :]
+        return self._assemble_metal_rp_dmat(
+            dmat, *self._rp_sums(assumed_rp_pairs, weights, true_zpair,
+                                 rp_edges))
+
+    def _assemble_metal_rp_dmat(self, dmat, sum_w, sum_w_rp, sum_w_z):
+        """Effective coordinates of the rp-only matrix
+        (vega_tpu/metals.py:895-914)."""
+        rp_eff = sum_w_rp / (sum_w + (sum_w == 0))
+        z_eff = sum_w_z / (sum_w + (sum_w == 0))
+
+        n_total = self.rp_nbins * self.rt_nbins
+        full_rp_eff = np.zeros(n_total)
+        full_rt_eff = np.zeros(n_total)
+        full_z_eff = np.zeros(n_total)
+        rp_indices = np.arange(self.rp_nbins)
+        rt_bins = np.arange(self._coordinates.rt_binsize / 2,
+                            self._coordinates.rt_max,
+                            self._coordinates.rt_binsize)
+        for j in range(self.rt_nbins):
+            indices = j + self.rt_nbins * rp_indices
+            full_rp_eff[indices] = rp_eff
+            full_rt_eff[indices] = rt_bins[j]
+            full_z_eff[indices] = z_eff
+        return dmat, full_rp_eff, full_rt_eff, full_z_eff

@@ -2,16 +2,18 @@
 distortion matrix.
 
 Counterpart of vega_tpu/model.py (`compute`, :211-245) with the metal
-correlations of the legacy metal-file mode (metals.py), without broadband
-and instrumental systematics. The distortion matrix, where the data
-carry one that is not the identity, is a dense f64 matmul
-(vega_tpu/model.py:93-97,152-157).
+correlations (metals.py) and the DESI instrumental systematics
+(:84-86,136-148: amplitude x a static template on the smooth component),
+without broadband. The distortion matrix, where the data carry one that
+is not the identity, is a dense f64 matmul (vega_tpu/model.py:93-97,
+152-157).
 
 With a `Sampling` the model takes the factored path where it can and
 returns a FactoredXi whose terms are the peak's then the smooth's, in
-the order of vega_tpu's, the metals' after the component's Kaiser terms;
-`coefficients` is its coefficient part, run per evaluation on (B,)
-tensors.
+the order of vega_tpu's: per component the Kaiser terms, the QSO
+radiation's (smooth), the metals', the instrumental systematics'
+(smooth); `coefficients` is its coefficient part, run per evaluation on
+(B,) tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from . import correlation_func as corr_func
 from . import metals, pktoxi, power_spectrum
 from .factored import FactoredXi, densify, stack_coefficients
-from .utils import col, not_ported, to_tensor
+from .utils import col, to_tensor
 
 
 class Model:
@@ -34,10 +36,6 @@ class Model:
         self._corr_item = corr_item
         if corr_item.model_coordinates is None:
             raise ValueError('CorrelationItem has no model coordinates')
-        if corr_item.config['model'].getboolean(
-                'desi-instrumental-systematics', False):
-            raise not_ported('DESI instrumental systematics', 4)
-
         corr_item.config['model']['bin_size_rp'] = \
             str(corr_item.data_coordinates.rp_binsize)
         corr_item.config['model']['bin_size_rt'] = \
@@ -52,6 +50,15 @@ class Model:
             corr_item.config['model'], fiducial, corr_item.model_coordinates,
             scale_params, corr_item.tracer1, corr_item.tracer2,
             device=self.device)
+
+        # DESI instrumental systematics: amplitude x a template built
+        # once on the host (vega_tpu/model.py:84-86)
+        self._inst_sys_template = None
+        if corr_item.config['model'].getboolean(
+                'desi-instrumental-systematics', False):
+            self._inst_sys_template = to_tensor(
+                self.Xi_core.desi_instrumental_systematics_template(
+                    corr_item.data_coordinates.rp_binsize), self.device)
 
         # Metals are added once to the smooth component, computed on the
         # full linear spectrum (no-metal-decomp, the default), or to each
@@ -88,12 +95,28 @@ class Model:
                                                   sampling)
                 xi_model = self._add_xi(xi_model, xi_m)
                 bad = bad | bad_m
+        if self._inst_sys_template is not None and not pars['peak']:
+            # vega_tpu/model.py:136-148: the amplitude is the term's
+            # coefficient; without the parameter the default amplitude
+            # sits in the template
+            coeff, vec = self._inst_sys_term(pars)
+            if isinstance(xi_model, FactoredXi):
+                xi_model = xi_model.add_vec(vec, coeff=coeff)
+            else:
+                xi_model = xi_model + col(coeff, 1) * vec
         if self._dist_mat is not None:
             if isinstance(xi_model, FactoredXi):
                 xi_model = xi_model.matmul(self._dist_mat)
             else:
                 xi_model = xi_model @ self._dist_mat.T
         return xi_model, bad
+
+    def _inst_sys_term(self, pars):
+        """(coefficient, template) of the instrumental systematics."""
+        amp = pars.get('desi_inst_sys_amp', None)
+        if amp is None:
+            return 1.0, corr_func.DESI_INST_SYS_AMP * self._inst_sys_template
+        return amp, self._inst_sys_template
 
     @staticmethod
     def _add_xi(a, b):
@@ -163,13 +186,17 @@ class Model:
         """The coefficient part of the factored model: (n_rows, T), the
         peak's terms times bao_amp, then the smooth's, as `compute`
         orders them: each component's HCD-merged Kaiser coefficients,
-        then the metals' weight x (1, b1 + b2, b1 b2) per pair (after the
-        smooth's alone with no-metal-decomp, after both without). Reads
-        only scalars and (B,) tensors."""
+        the QSO radiation's strength (smooth), the metals' weight x (1,
+        b1 + b2, b1 b2) per pair (the smooth's alone with
+        no-metal-decomp, both without), the instrumental systematics'
+        amplitude (smooth). Reads only scalars and (B,) tensors."""
         kaiser = self.Pk_core.kaiser_coefficients(pars)
         metal = [] if self.metals is None else self.metals.coefficients(pars)
         peak = kaiser if self.metals is None or self.no_metal_decomp \
             else kaiser + metal
-        coeffs = [pars['bao_amp'] * c for c in peak] + kaiser + metal
+        smooth = kaiser + self.Xi_core.radiation_coefficients(pars) + metal
+        if self._inst_sys_template is not None:
+            smooth.append(self._inst_sys_term(pars)[0])
+        coeffs = [pars['bao_amp'] * c for c in peak] + smooth
         return stack_coefficients(coeffs, self.Pk_core._muk_t).expand(
             n_rows, len(coeffs))

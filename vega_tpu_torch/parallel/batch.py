@@ -11,8 +11,13 @@ of a damped-Newton minimization on exact derivatives
 `VegaInterface.chi2_batch_derivatives` in place of jax.grad / jax.hessian
 under jax.vmap). `BatchedLikelihood.traceable_log_lik` (:198-237) gives
 the samplers' device loops a log-likelihood of device tensors with
-nothing left to resolve on the host. Sharding over several cards is not
-ported yet.
+nothing left to resolve on the host. Under a global covariance every
+row is the joint quadratic form over the concatenated masked model, one
+(B, n) x (n, n) f64 GEMM and a row-wise dot (VegaInterface._chi2_rows),
+for the chi^2, its derivatives and the traceable log-likelihood alike;
+MonteCarloEngine draws per-correlation mocks and refuses a global
+covariance (vega_tpu's engine has none either). Sharding over several
+cards is not ported yet.
 """
 
 from __future__ import annotations
@@ -330,6 +335,11 @@ class MonteCarloEngine:
     packages are compared by fitting identical mocks."""
 
     def __init__(self, vega):
+        if vega._use_global_cov:
+            raise ValueError(
+                'MonteCarloEngine draws per-correlation mocks: under a '
+                'global covariance use initialize_monte_carlo or '
+                'Analysis.create_global_monte_carlo')
         self.vega = vega
 
     def generate_mocks(self, fiducial_model, num_mocks, seed=0, scale=None):

@@ -11,8 +11,11 @@ VegaInterface, so a machine without JAX can build the configuration.
 `metals=` adds what vega_tpu's DR16 example writes by hand
 (examples/eBOSS_DR16/run_synthetic.py:106-125): one metal file per
 correlation, a [metals] section and `test = True` (identity metal
-matrices). The global covariance is not ported (neither is the feature
-that reads it).
+matrices); with `new_metals=True` instead the stacked-delta weights files
+and a [metal-matrix] section, from which the model computes its metal
+matrices (the DESI DR1 set-up, examples/DESI_data_setup/make_configs.py).
+`global_cov=True` writes the block-diagonal joint covariance as
+vega_tpu's does.
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ DEFAULT_PARAMS = {
     'sigmaNL_per': 3.24, 'sigmaNL_par': 6.37,
     'growth_rate': 0.97,
 }
+
+# Omega_m of the fiducial template (models/eisenstein_hu.py), written to
+# a data file's header (OMEGAM) when the new-metals matrices need the
+# distances of its cosmology
+OMEGA_M = 0.315
 
 
 # The DR16-shaped model on the synthetic dataset: the options and
@@ -70,6 +78,104 @@ def dr16_extra_model(parameters=None):
     return ('\n'.join(f'{k} = {v}' for k, v in DR16_MODEL_OPTIONS.items())
             + '\n\n[parameters]\n'
             + '\n'.join(f'{k} = {v}' for k, v in parameters.items()) + '\n')
+
+
+# The DESI DR1 baseline model on the synthetic dataset
+# (examples/DESI_data_setup/make_configs.py:37-63,116-117): the DR16
+# model's Rogers HCD and Arinyo NL, the DESI instrumental systematics on
+# the auto, the QSO radiation on the cross, and the metals below, whose
+# matrices the model computes from stacked-delta weights (new_metals,
+# rebin by 3); parameters of make_configs.py:116-117 and
+# vega_tpu/templates/parameter_defaults.ini.
+DESI_METALS = ('SiII(1190)', 'SiII(1193)', 'SiIII(1207)', 'SiII(1260)',
+               'CIV(eff)')
+DESI_PARAMETERS = {
+    'bias_hcd': -0.05, 'beta_hcd': 0.7, 'L0_hcd': 10.,
+    'bias_SiII(1190)': -0.0052, 'beta_SiII(1190)': 0.5,
+    'alpha_SiII(1190)': 1.,
+    'bias_SiII(1193)': -0.0024, 'beta_SiII(1193)': 0.5,
+    'alpha_SiII(1193)': 1.,
+    'bias_SiIII(1207)': -0.0074, 'beta_SiIII(1207)': 0.5,
+    'alpha_SiIII(1207)': 1.,
+    'bias_SiII(1260)': -0.0046, 'beta_SiII(1260)': 0.5,
+    'alpha_SiII(1260)': 1.,
+    'bias_CIV(eff)': -0.01, 'beta_CIV(eff)': 0.5, 'alpha_CIV(eff)': 0.,
+    'dnl_arinyo_q1': 0.303, 'dnl_arinyo_kv': 0.576, 'dnl_arinyo_av': 0.443,
+    'dnl_arinyo_bv': 1.66, 'dnl_arinyo_kp': 11.062, 'dnl_arinyo_q2': 0.267,
+    'qso_rad_strength': 0.74, 'qso_rad_asymmetry': 0.,
+    'qso_rad_lifetime': 9e99, 'qso_rad_decrease': 300.,
+    'desi_inst_sys_amp': 0.00032,
+}
+# DESI's sampled names and Gaussian priors (make_configs.py:51-63)
+DESI_SAMPLED = ('ap', 'at', 'bias_LYA', 'beta_LYA', 'bias_QSO',
+                'sigma_velo_disp_lorentz_QSO', 'drp_QSO', 'qso_rad_strength',
+                'bias_hcd', 'beta_hcd', 'L0_hcd',
+                'bias_SiII(1190)', 'bias_SiII(1193)', 'bias_SiIII(1207)',
+                'bias_SiII(1260)', 'bias_CIV(eff)', 'desi_inst_sys_amp')
+DESI_PRIORS = {
+    'drp_QSO': 'gaussian 0.0 0.1',
+    'beta_hcd': 'gaussian 0.50 0.09',
+    'L0_hcd': 'gaussian 5.0 2.0',
+    'bias_CIV(eff)': 'gaussian -0.019 0.005',
+    'sigma_velo_disp_lorentz_QSO': 'gaussian 5.21 0.85',
+}
+# [metal-matrix]: vega_tpu/build_config.py:293-309's defaults, rebinned
+# by 3 as DESI's rebin-metals = 3
+METAL_MATRIX = {
+    'rebin_factor': '3', 'alpha_LYA': '2.9', 'alpha_SiII(1260)': '1.',
+    'alpha_SiIII(1207)': '1.', 'alpha_SiII(1193)': '1.',
+    'alpha_SiII(1190)': '1.', 'alpha_CIV(eff)': '0.',
+    'z_ref_objects': '2.25', 'z_evol_objects': '1.44',
+    'z_bins_objects': '1000',
+}
+
+
+def desi_extra_model(parameters=None):
+    """The `extra_model` of the DESI-shaped model, per correlation:
+    {'auto': text, 'cross': text}, each the DR16 model's [model] options
+    with the DESI term of that correlation, then a [parameters] section.
+    With `make_synthetic_dataset(..., extra_model=desi_extra_model(),
+    metals=DESI_METALS, new_metals=True, global_cov=True)` this is the
+    configuration synthetic-desi."""
+    parameters = DESI_PARAMETERS if parameters is None else parameters
+    block = ('\n\n[parameters]\n'
+             + '\n'.join(f'{k} = {v}' for k, v in parameters.items()) + '\n')
+    options = '\n'.join(f'{k} = {v}' for k, v in DR16_MODEL_OPTIONS.items())
+    return {'auto': options + '\ndesi-instrumental-systematics = True'
+            + block,
+            'cross': options + '\nradiation effects = True' + block}
+
+
+def priors_section(priors):
+    """A [priors] section (for `extra_control`, which may open sections)."""
+    return '\n[priors]\n' + '\n'.join(f'{k} = {v}'
+                                        for k, v in priors.items()) + '\n'
+
+
+def new_metals_weights(seed=0):
+    """The stacked-delta weights of the new-metals matrices, from
+    np.random.default_rng([seed, 1]) (a stream apart from the data's):
+    {'stack': {LOGLAM, WEIGHT}, 'catalog': {Z}}, a forest stack on the
+    eBOSS / picca grid (log10 lambda from 3600 to 5772 A in steps of
+    1e-4, 2051 pixels, 683 after rebinning by 3) and a QSO catalogue of
+    400,000 redshifts over [1.8, 4.0] (1000 z bins)."""
+    rng = np.random.default_rng([seed, 1])
+    loglam = np.arange(np.log10(3600.), np.log10(5772.), 1e-4)
+    return {'stack': {'LOGLAM': loglam,
+                      'WEIGHT': rng.uniform(0.5, 2.0, loglam.size)},
+            'catalog': {'Z': rng.uniform(1.8, 4.0, 400_000)}}
+
+
+def new_metals_lines(stack_file, catalog_file, is_cross):
+    """([data] lines, [model] lines, the [metal-matrix] section) of one
+    correlation in the new-metals mode, as vega_tpu's BuildConfig writes
+    them (vega_tpu/build_config.py:282-309)."""
+    data = (f'weights-tracer1 = {catalog_file if is_cross else stack_file}\n'
+            f'weights-tracer2 = {stack_file}\nzmin = 0.0\nzmax = 10.0\n')
+    model = 'new_metals = True\nrp_only_metal_mats = False\n'
+    section = '[metal-matrix]\n' + '\n'.join(
+        f'{k} = {v}' for k, v in METAL_MATRIX.items()) + '\n'
+    return data, model, section
 
 
 def _auto_ini(data_file, name='lyaxlya', extra_model='', extra_data=''):
@@ -125,14 +231,16 @@ velocity dispersion = lorentz
 
 
 def _main_ini(ini_files, template_file, out_file, sample=None, zeff=2.33,
-              extra_control=''):
+              global_cov_file=None, extra_control=''):
     sample = sample or {'bias_LYA': 'True', 'beta_LYA': 'True'}
     sample_block = '\n'.join(f'{k} = {v}' for k, v in sample.items())
     params_block = '\n'.join(f'{k} = {v}' for k, v in DEFAULT_PARAMS.items())
+    global_cov_line = (f'global-cov-file = {global_cov_file}'
+                       if global_cov_file else '')
     return f"""[data sets]
 zeff = {zeff}
 ini files = {' '.join(str(f) for f in ini_files)}
-
+{global_cov_line}
 
 [cosmo-fit type]
 cosmo fit func = ap_at
@@ -155,9 +263,11 @@ filename = {out_file}
 
 
 def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
-                            noise=0.0, nt=50, with_distortion=False):
+                            noise=0.0, nt=50, with_distortion=False,
+                            omega_m=None):
     """Write a picca-export-style correlation FITS file with synthetic
-    contents (same layout as reference tests/data/*-exp.fits.gz)."""
+    contents (same layout as reference tests/data/*-exp.fits.gz); with
+    `omega_m` the header also carries the cosmology (OMEGAM)."""
     if is_cross:
         coords = Coordinates(-200., 200., 200., 2 * nt, nt)
     else:
@@ -185,6 +295,8 @@ def _write_correlation_data(path, is_cross, z_eff, rng, model_xi=None,
         'RTMAX': coords.rt_max, 'NP': coords.rp_nbins,
         'NT': coords.rt_nbins, 'BLINDING': 'none',
     }
+    if omega_m is not None:
+        header['OMEGAM'] = omega_m
     columns = {'RP': coords.rp_grid, 'RT': coords.rt_grid, 'Z': z,
                'DA': da, 'CO': cov, 'NB': nb}
     if with_distortion:
@@ -292,32 +404,40 @@ def metals_section(metal_file, metals, is_cross):
 def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                            sample=None, seed=0, noise=0.0, extra_control='',
                            with_distortion=False, extra_model='',
-                           metals=None):
+                           metals=None, new_metals=False, global_cov=False):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
-    The files equal vega_tpu.testing.make_synthetic_dataset's with no
-    global covariance, given the same `sample` ({name: [sample] entry};
-    default bias_LYA and beta_LYA sampled), `seed` and `noise` (Gaussian
-    noise in units of each bin's sigma, from np.random.default_rng(seed);
-    default none), `extra_control` (text placed under [control], which
-    may open further sections such as [monte carlo]), `with_distortion`
-    (a banded DM matrix) and `extra_model` (text placed at the end of
-    each correlation's [model] section, which may open a [parameters]
-    section for the parameters its options read). size='tiny' shrinks
-    every axis (k grid, mu_k bins, rp/rt bins) for fast checks.
+    The files equal vega_tpu.testing.make_synthetic_dataset's, given the
+    same `sample` ({name: [sample] entry}; default bias_LYA and beta_LYA
+    sampled), `seed` and `noise` (Gaussian noise in units of each bin's
+    sigma, from np.random.default_rng(seed); default none),
+    `extra_control` (text placed under [control], which may open further
+    sections such as [monte carlo] or [priors]), `with_distortion` (a
+    banded DM matrix), `extra_model` (text placed at the end of each
+    correlation's [model] section, which may open a [parameters] section
+    for the parameters its options read; a dict {'auto': text, 'cross':
+    text} gives each correlation its own) and `global_cov` (a
+    block-diagonal joint covariance of the per-correlation ones in
+    `global_cov.fits`, named by [data sets] global-cov-file). size='tiny'
+    shrinks every axis (k grid, mu_k bins, rp/rt bins) for fast checks.
 
     `metals` (a list of absorber names such as 'SiII(1260)'; vega_tpu's
-    function has no such option, its DR16 example does this by hand)
-    writes `metal_<data file>` beside each data file with `write_metal_file`
-    and `metal_rp_shifts`, the metals in every LYA tracer, and adds
-    `test = True` to [data] and a [metals] section (`metals_section`)
-    after `extra_model`; the metals' parameters go in `extra_model`'s
-    [parameters].
+    function has no such option, its examples do this by hand) puts the
+    metals in every LYA tracer with a [metals] section
+    (`metals_section`) after `extra_model`; the metals' parameters go in
+    `extra_model`'s [parameters]. Their matrices come from
+    `metal_<data file>` beside each data file (`write_metal_file`,
+    `metal_rp_shifts`; `test = True` in [data]: identity metal
+    matrices), or with `new_metals=True` from the stacked-delta weights
+    files `delta_stack.fits` and `qso_catalog.fits`
+    (`new_metals_weights(seed)`), the lines of `new_metals_lines` and
+    OMEGAM in the data files' headers.
 
     `device` is where the second pass evaluates the model: the card
     unless the caller asks for 'cpu'; asking for CUDA without a GPU
     raises before any file is written.
     """
+    from .io.fits import read_fits
     from .vega_interface import VegaInterface, resolve_device
     device = resolve_device(device)
     workdir = Path(workdir)
@@ -328,13 +448,23 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     n_k = 128 if tiny else 814
     nt = 10 if tiny else 50
     model_lines = ('num_bins_muk = 50\nell_max = 6\n' if tiny else '')
-    model_lines += extra_model
+    if not isinstance(extra_model, dict):
+        extra_model = {'auto': extra_model, 'cross': extra_model}
 
     template_file = workdir / 'fiducial_eh98.fits'
     make_fiducial_template(template_file, n_k=n_k)
 
     z_eff = 2.33
-    extra_data = 'test = True\n' if metals else ''
+    omega_m = None
+    stack_file = workdir / 'delta_stack.fits'
+    catalog_file = workdir / 'qso_catalog.fits'
+    if metals and new_metals:
+        omega_m = OMEGA_M
+        weights = new_metals_weights(seed)
+        write_fits(stack_file, [{'name': 'STACK',
+                                 'columns': weights['stack']}])
+        write_fits(catalog_file, [{'name': 'CAT',
+                                   'columns': weights['catalog']}])
     ini_files = []
     data_files = {}
     for is_cross, stem, ini_name, ini_text in (
@@ -343,9 +473,16 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
         data_file = data_files[is_cross] = workdir / f'{stem}.fits'
         coords = _write_correlation_data(
             data_file, is_cross, z_eff, rng, noise=noise, nt=nt,
-            with_distortion=with_distortion)
-        lines = model_lines
-        if metals:
+            with_distortion=with_distortion, omega_m=omega_m)
+        lines = model_lines + extra_model['cross' if is_cross else 'auto']
+        extra_data = ''
+        if metals and new_metals:
+            extra_data, new_model, matrix_section = new_metals_lines(
+                stack_file, catalog_file, is_cross)
+            lines = (new_model + lines + '\n'
+                     + metals_section('None', metals, is_cross)
+                     + '\n' + matrix_section)
+        elif metals:
             metal_file = workdir / f'metal_{stem}.fits'
             write_metal_file(
                 metal_file, coords, z_eff, 'QSO' if is_cross else 'LYA',
@@ -353,6 +490,7 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                 metals_in2=metals,
                 rp_shifts=metal_rp_shifts(metals, z_eff))
             lines += '\n' + metals_section(metal_file, metals, is_cross)
+            extra_data = 'test = True\n'
         ini_files.append(workdir / ini_name)
         ini_files[-1].write_text(ini_text(data_file, extra_model=lines,
                                           extra_data=extra_data))
@@ -371,6 +509,28 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
         _write_correlation_data(data_files[is_cross], is_cross, z_eff, rng,
                                 model_xi=np.asarray(model_cf[name]),
                                 noise=noise, nt=nt,
-                                with_distortion=with_distortion)
+                                with_distortion=with_distortion,
+                                omega_m=omega_m)
+
+    if global_cov:
+        # block-diagonal joint covariance of the per-correlation ones
+        # (vega_tpu/testing.py:299-316)
+        blocks = []
+        for name, corr_item in vega.corr_items.items():
+            is_cross = corr_item.tracer1['type'] != corr_item.tracer2['type']
+            blocks.append(read_fits(data_files[is_cross])[1]['CO'])
+        n_total = sum(b.shape[0] for b in blocks)
+        cov = np.zeros((n_total, n_total))
+        off = 0
+        for b in blocks:
+            cov[off:off + len(b), off:off + len(b)] = b
+            off += len(b)
+        global_cov_file = workdir / 'global_cov.fits'
+        write_fits(global_cov_file, [{'name': 'COV',
+                                      'columns': {'COV': cov}}])
+        main_path.write_text(_main_ini(
+            ini_files, template_file, workdir / 'output', sample=sample,
+            zeff=z_eff, global_cov_file=global_cov_file,
+            extra_control=extra_control))
 
     return main_path

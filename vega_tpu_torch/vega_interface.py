@@ -15,10 +15,18 @@ vega_tpu does: a call that samples parameters goes through
 - nothing, and then the dense path: model + Hankel transform +
   spline/Legendre + Gaussian chi^2 per row.
 
-A configuration may carry metals (the legacy metal-file mode,
-metals.py), an HCD model and a small-scale non-linear term: their
-sampled biases and betas enter the factored model as coefficients, so
-the grid and nuisance collapses serve them too.
+A configuration may carry metals (from metal files or, in the
+new-metals mode, matrices computed from the stacked-delta weights;
+metals.py), an HCD model, a small-scale non-linear term, the QSO
+radiation and the DESI instrumental systematics: their sampled biases,
+betas and amplitudes enter the factored model as coefficients, so the
+grid and nuisance collapses serve them too.
+
+A joint (global) covariance over the concatenated correlations
+([data sets] global-cov-file, `read_global_cov`) replaces the
+per-correlation ones: the chi^2 is then d' C^-1 d over the concatenated
+masked model, and every call is served densely, as vega_tpu serves it
+(no collapse, no grid payload).
 
 The switches are vega_tpu's, read once at construction:
 VEGA_TPU_FACTORED=0 takes the dense path for every call, and
@@ -32,10 +40,11 @@ Legendre combine, ops/spline_combine.py); `chi2_batch_derivatives`
 gives the same for B independent rows, which the batched Newton of
 parallel/batch.py (profile scans, Monte-Carlo mock fits) runs on. The
 chi^2 is taken against the current data vectors: the data, or after
-`initialize_monte_carlo` the Monte-Carlo mock. The `run_sampler` and
-`sampler` flags of [control] name the sampler scripts/run_vega_sampler.py
-runs (samplers/). Output, plots, global covariance, marginalization and
-blinding beyond "none" are not ported yet.
+`initialize_monte_carlo` the Monte-Carlo mock (of the joint data vector
+under a global covariance). The `run_sampler` and `sampler` flags of
+[control] name the sampler scripts/run_vega_sampler.py runs (samplers/).
+Output, plots, marginalization and blinding beyond "none" are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -85,6 +94,12 @@ COLLAPSED_CHUNK_ROWS = 32768
 COEFF_RTOL = 1e-12
 
 
+def quadratic_rows(diff, inv_cov):
+    """Row-wise diff . (C^-1 diff) of (B, n) rows: one (B, n) x (n, n)
+    GEMM and a row-wise dot, as the JAX package orders it."""
+    return torch.sum(diff * (diff @ inv_cov.T), dim=-1)
+
+
 def parse_ini(path):
     """Case-preserving INI parser (reference: vega_interface.py:51-53)."""
     config = configparser.ConfigParser()
@@ -120,11 +135,16 @@ class VegaInterface:
         self.fiducial = self._read_fiducial(self.main_config['fiducial'])
         self.fiducial['z_eff'] = self.main_config['data sets'].getfloat('zeff')
         ini_files = self.main_config['data sets'].get('ini files').split()
-        if self.main_config['data sets'].get('global-cov-file', None):
-            raise not_ported('Global covariance', 5)
+        global_cov_file = self.main_config['data sets'].get(
+            'global-cov-file', None)
 
         control = (self.main_config['control']
                    if 'control' in self.main_config else {})
+        # with a global covariance the per-correlation ones need not be
+        # held (vega_interface.py:74-76)
+        self.low_mem_mode = (bool(control)
+                             and control.getboolean('low_mem_mode', False)
+                             and global_cov_file is not None)
         if control and control.getboolean('model_pk', False):
             raise not_ported('model_pk', 5)
         if control and control.getboolean('marginalize-in-fit', False):
@@ -135,6 +155,7 @@ class VegaInterface:
             config = parse_ini(path)
             name = config['data'].get('name')
             self.corr_items[name] = CorrelationItem(config)
+            self.corr_items[name].low_mem_mode = self.low_mem_mode
 
         self.params = self._read_parameters(self.corr_items,
                                             self.main_config['parameters'])
@@ -188,6 +209,15 @@ class VegaInterface:
                     raise ValueError('Prior specified for a parameter that '
                                      f'is not sampled: {param}')
 
+        # Global covariance (vega_interface.py:179-184)
+        self._use_global_cov = global_cov_file is not None
+        self.global_cov = None
+        self._joint_data = (None, None)
+        if self._use_global_cov:
+            self.read_global_cov(global_cov_file,
+                                 control.getfloat('cov_scale', None)
+                                 if control else None)
+
         self.set_fiducial_pk(self.fiducial['pk_full'],
                              self.fiducial['pk_smooth'])
         # chi^2-side device constants, built at the first chi^2 (the
@@ -221,7 +251,7 @@ class VegaInterface:
                 valgrad_func=self.chi2_value_and_gradient)
         self.analysis = Analysis(self.chi2, self.sample_params,
                                  self.main_config, self.corr_items,
-                                 self.data, self.mc_config,
+                                 self.data, self.mc_config, self.global_cov,
                                  grad_func=self.chi2_gradient,
                                  hess_func=self.chi2_hessian, vega=self)
         # the port has no marginalization templates (they raise at
@@ -255,9 +285,18 @@ class VegaInterface:
         self._pk_smooth = to_tensor(pk_smooth, self.device)
 
     def set_chi2_constants(self):
-        """Copy the chi^2-side host arrays of `self.data` (masked inverse
-        covariance, model mask) to the device. The data vectors change
+        """Copy the chi^2-side host arrays (masked inverse covariance,
+        model mask) to the device: per correlation, or under a global
+        covariance once for the concatenated correlations (key
+        '_global', vega_interface.py:271-277). The data vectors change
         with Monte-Carlo mocks: `_device_data_vecs` copies those."""
+        if self._use_global_cov:
+            self._chi2_data = {'_global': {
+                'inv_cov': to_tensor(self.masked_global_invcov, self.device),
+                'model_index': torch.as_tensor(
+                    np.flatnonzero(self.full_model_mask), dtype=torch.int64,
+                    device=self.device)}}
+            return
         self._chi2_data = {}
         for name, d in self.data.items():
             self._chi2_data[name] = {
@@ -269,12 +308,28 @@ class VegaInterface:
 
     def _current_data_vecs(self):
         """The masked data vector each chi^2 compares with, host numpy:
-        the data, or the Monte-Carlo mock (vega_interface.py:977-988)."""
+        the data, or the Monte-Carlo mock (vega_interface.py:977-988);
+        under a global covariance one joint vector, key '_global'."""
+        if self._use_global_cov:
+            if self.monte_carlo:
+                return {'_global': self.analysis.current_mc_mock}
+            return {'_global': self._joint_data_vec()}
         if self.monte_carlo:
             return {name: self.data[name].masked_mc_mock
                     for name in self.corr_items}
         return {name: self.data[name].masked_data_vec
                 for name in self.corr_items}
+
+    def _joint_data_vec(self):
+        """The masked data vectors concatenated, made again only when one
+        of them is replaced (so its id versions the data, `_data_key`)."""
+        parts = tuple(self.data[name].masked_data_vec
+                      for name in self.corr_items)
+        held, joint = self._joint_data
+        if held is None or any(a is not b for a, b in zip(held, parts)):
+            joint = np.concatenate(parts)
+            self._joint_data = (parts, joint)
+        return joint
 
     def _data_key(self):
         """(key, vectors): the current data vectors' version (Monte-Carlo
@@ -286,11 +341,12 @@ class VegaInterface:
     def _device_data_vecs(self):
         """Device copies of `_current_data_vecs`, made again when the
         vectors change (vega_interface.py:990-999)."""
-        key, vecs = self._data_key()
+        key, _ = self._data_key()
         if self._data_vec_cache[0] != key:
+            vecs = self._current_data_vecs()
             self._data_vec_cache = (key, {
-                name: to_tensor(v, self.device)
-                for name, v in zip(self.corr_items, vecs)}, vecs)
+                name: to_tensor(v, self.device) for name, v in vecs.items()},
+                tuple(vecs.values()))
         return self._data_vec_cache[1]
 
     def _current_cov_scales(self):
@@ -368,48 +424,63 @@ class VegaInterface:
             coeff_params.update(zip(spec.names, spec.ref))
         chi2 = torch.zeros(n_b, dtype=DTYPE, device=self.device)
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
-        for name in self.corr_items:
-            arrays = self._chi2_data[name]
-            if name in collapsed:
-                tensors = collapsed[name]
-                coeffs = self.models[name].coefficients(coeff_params, n_b)
-                if coeffs.shape[-1] != tensors['cref'].shape[0]:
-                    raise AssertionError(
-                        'collapsed tensors do not match the factored term '
-                        f'structure of {name}')
-                if spec is not None:
-                    corr_chi2 = gridcollapse.grid_corr_chi2(tensors, tvecs,
-                                                            coeffs)
-                else:
-                    # centered quadratic form (vega_interface.py:491-511):
-                    # r'Ci r - 2 dc.(W r) + dc.(A dc) with r = d - m0, the
-                    # data terms (y = W r, s = r'Ci r) taken on the host
-                    # when the collapse has them
-                    dc = coeffs - tensors['cref']
-                    quad = torch.sum(dc * (dc @ tensors['A'].T), dim=-1)
-                    if 'y' in tensors:
-                        corr_chi2 = (tensors['s'] - 2.0 * (dc @ tensors['y'])
-                                     + quad)
-                    else:
-                        r = data_vecs[name] - tensors['m0']
-                        corr_chi2 = (
-                            torch.sum(r * (r @ arrays['inv_cov'].T), dim=-1)
-                            - 2.0 * torch.sum(dc * (r @ tensors['W'].T),
-                                              dim=-1)
-                            + quad)
-            else:
+        if self._use_global_cov:
+            # the joint quadratic form over the concatenated masked model
+            # (vega_interface.py:449-455)
+            models = []
+            for name in self.corr_items:
                 cf, cf_bad = self.models[name].compute(
                     local_params, self._pk_full, self._pk_smooth,
                     use_kernel=use_kernel, sampling=sampling)
-                model = densify(cf).expand(n_b, -1)
-                diff = data_vecs[name] - model[:, arrays['model_index']]
-                # row-wise diff . (C^-1 diff), as the JAX package orders it
-                corr_chi2 = torch.sum(diff * (diff @ arrays['inv_cov'].T),
-                                      dim=-1)
+                models.append(densify(cf).expand(n_b, -1))
                 bad = bad | cf_bad
-            # a scale of 1 multiplies nothing (exact either way)
-            scale = cov_scales[name]
-            chi2 = chi2 + (corr_chi2 if scale == 1.0 else scale * corr_chi2)
+            joint = self._chi2_data['_global']
+            diff = (data_vecs['_global']
+                    - torch.cat(models, dim=-1)[:, joint['model_index']])
+            chi2 = quadratic_rows(diff, joint['inv_cov'])
+        else:
+            for name in self.corr_items:
+                arrays = self._chi2_data[name]
+                if name in collapsed:
+                    tensors = collapsed[name]
+                    coeffs = self.models[name].coefficients(coeff_params,
+                                                            n_b)
+                    if coeffs.shape[-1] != tensors['cref'].shape[0]:
+                        raise AssertionError(
+                            'collapsed tensors do not match the factored '
+                            f'term structure of {name}')
+                    if spec is not None:
+                        corr_chi2 = gridcollapse.grid_corr_chi2(
+                            tensors, tvecs, coeffs)
+                    else:
+                        # centered quadratic form (vega_interface.py:
+                        # 491-511): r'Ci r - 2 dc.(W r) + dc.(A dc) with
+                        # r = d - m0, the data terms (y = W r, s = r'Ci r)
+                        # taken on the host when the collapse has them
+                        dc = coeffs - tensors['cref']
+                        quad = torch.sum(dc * (dc @ tensors['A'].T), dim=-1)
+                        if 'y' in tensors:
+                            corr_chi2 = (tensors['s']
+                                         - 2.0 * (dc @ tensors['y']) + quad)
+                        else:
+                            r = data_vecs[name] - tensors['m0']
+                            corr_chi2 = (
+                                quadratic_rows(r, arrays['inv_cov'])
+                                - 2.0 * torch.sum(dc * (r @ tensors['W'].T),
+                                                  dim=-1)
+                                + quad)
+                else:
+                    cf, cf_bad = self.models[name].compute(
+                        local_params, self._pk_full, self._pk_smooth,
+                        use_kernel=use_kernel, sampling=sampling)
+                    model = densify(cf).expand(n_b, -1)
+                    diff = data_vecs[name] - model[:, arrays['model_index']]
+                    corr_chi2 = quadratic_rows(diff, arrays['inv_cov'])
+                    bad = bad | cf_bad
+                # a scale of 1 multiplies nothing (exact either way)
+                scale = cov_scales[name]
+                chi2 = chi2 + (corr_chi2 if scale == 1.0
+                               else scale * corr_chi2)
         chi2 = chi2 + self._prior_chi2(local_params)
         if spec is not None:
             # smooth wall outside the node domain (GRID_WALL_CHI2)
@@ -479,15 +550,19 @@ class VegaInterface:
         return float(self.log_lik_batch(params or {})[0])
 
     def _log_norm(self):
-        """(vega_interface.py:1294-1306, per-correlation covariances)"""
+        """(vega_interface.py:1294-1306)"""
         log_norm = 0.
         for name in self.corr_items:
             log_norm -= 0.5 * self.data[name].data_size * np.log(2 * np.pi)
+            if self._use_global_cov:
+                continue
             if (self.monte_carlo
                     and self.data[name].scaled_log_cov_det is not None):
                 log_norm -= 0.5 * self.data[name].scaled_log_cov_det
             else:
                 log_norm -= 0.5 * self.data[name].log_cov_det
+        if self._use_global_cov:
+            log_norm -= 0.5 * self.masked_global_log_cov_det
         return log_norm
 
     # ------------------------------------------------------------------
@@ -618,7 +693,10 @@ class VegaInterface:
             corr_data = self.data[name]
             data_size = corr_data.data_size
             self.total_data_size += data_size
-            if self.monte_carlo:
+            if self.monte_carlo and self._use_global_cov:
+                # no per-correlation mock (vega_interface.py:1464-1466)
+                chisq = 0
+            elif self.monte_carlo:
                 diff = corr_data.masked_mc_mock \
                     - self.bestfit_model[name][corr_data.model_mask]
                 chisq = diff.T.dot(corr_data.scaled_inv_masked_cov.dot(diff))
@@ -693,9 +771,18 @@ class VegaInterface:
             grad_func=self.chi2_gradient, hess_func=self.chi2_hessian,
             valgrad_func=self.chi2_value_and_gradient)
         control = self.main_config['control']
-        mocks = self.analysis.create_monte_carlo_sim(
-            fiducial_model, seed=control.getint('mc_seed', 0), scale=scale,
-            forecast=control.getboolean('forecast', False))
+        seed = control.getint('mc_seed', 0)
+        forecast = control.getboolean('forecast', False)
+        if self._use_global_cov:
+            # one mock of the joint data vector (vega_interface.py:
+            # 1417-1421)
+            if scale is None and 'global_cov_rescale' in control:
+                scale = control.getfloat('global_cov_rescale')
+            mocks = self.analysis.create_global_monte_carlo(
+                fiducial_model, seed=seed, scale=scale, forecast=forecast)
+        else:
+            mocks = self.analysis.create_monte_carlo_sim(
+                fiducial_model, seed=seed, scale=scale, forecast=forecast)
         self.monte_carlo = True
         return mocks
 
@@ -720,9 +807,11 @@ class VegaInterface:
         parameter is sampled, else the nuisance-only collapse of every
         correlation whose model stays factored, else {} (dense path).
         with_data_terms=False skips the data-side (y, s) terms and gives
-        {} for a grid payload, which bakes the data vector in."""
+        {} for a grid payload, which bakes the data vector in. Under a
+        global covariance always {}: every call is served densely, as
+        vega_tpu serves it (vega_interface.py:578)."""
         key = frozenset(sample_names)
-        if not key or not self._factored:
+        if not key or not self._factored or self._use_global_cov:
             return {}
         grid_names = self._grid_candidate_names(key)
         if grid_names:
@@ -741,7 +830,10 @@ class VegaInterface:
         """Basis-collapse pass (vega_interface.py:288-325): per factored
         correlation W = V_m Ci, A = W V_m', the unmasked basis V, the
         coefficients c0 at the current values and m0 = c0 @ V_m; one
-        model run on the device, returned as host numpy."""
+        model run on the device, returned as host numpy. {} under a
+        global covariance (vega_interface.py:305)."""
+        if self._use_global_cov:
+            return {}
         if self._chi2_data is None:
             self.set_chi2_constants()
         sampling = Sampling(key)
@@ -993,6 +1085,39 @@ class VegaInterface:
         self.grid_stats = stats
         self._grid_cache[cache_key] = (vecs, payload)
         return payload
+
+    # ------------------------------------------------------------------
+    # Global covariance (vega_interface.py:1828-1872)
+    # ------------------------------------------------------------------
+    def read_global_cov(self, global_cov_file, scale=None):
+        """Read the joint covariance of the concatenated correlations
+        (FITS column COV), times `scale` ([control] cov_scale), and keep
+        its masked inverse and log-determinant on the host. With
+        low_mem_mode the full matrix is dropped once they are taken."""
+        print(f'INFO: Reading global covariance from {global_cov_file}')
+        hdul = read_fits(utils.find_file(global_cov_file))
+        self.global_cov = hdul[1]['COV'].astype(float)
+        if scale is not None:
+            print('Rescaling covariance by a factor of: ', scale)
+            self.global_cov *= scale
+        self._use_global_cov = True
+
+        self.full_data_mask = np.concatenate(
+            [self.data[name].data_mask for name in self.corr_items])
+        self.full_model_mask = np.concatenate(
+            [self.data[name].model_mask for name in self.corr_items])
+
+        if self.low_mem_mode:
+            masked_cov = self.global_cov[np.ix_(self.full_data_mask,
+                                                self.full_data_mask)]
+            self.global_cov = None
+            self.masked_global_log_cov_det = np.linalg.slogdet(masked_cov)[1]
+            self.masked_global_invcov = np.linalg.inv(masked_cov)
+        else:
+            self.masked_global_invcov = utils.compute_masked_invcov(
+                self.global_cov, self.full_data_mask)
+            self.masked_global_log_cov_det = utils.compute_log_cov_det(
+                self.global_cov, self.full_data_mask)
 
     # ------------------------------------------------------------------
     # Config readers (reference: vega_interface.py:666-851)
