@@ -99,6 +99,37 @@ configuration, with no JAX:
      initial fit is the fit before) and a fit on it against the JAX one;
    it fails unless the metal stack launched F_0 on the dense and the
    grid path and Ft_d in the dense fit.
+10. eBOSS DR16's 13-name combined fit (phase table6), configuration
+   synthetic-dr16-table6-full: the DR16-shaped dataset with
+   testing.TABLE6_SAMPLE sampled (ap, at, drp_QSO,
+   sigma_velo_disp_lorentz_QSO on the grid, nine linear names), against
+   tests/data/torch_port_table6_goldens.json and
+   benchmarks/table6_accuracy.json, with the payload's disk cache in a
+   directory of its own under the run's temporary directory (every
+   earlier phase runs with VEGA_TPU_GRID_CACHE=0 and the cache directory
+   there too):
+   - cold build: the 4-dimension combination payload swept into the empty
+     cache (spec 32 x 32 x 12 x 12, the reference's 25 components and
+     7,737 swept nodes, sweep and host build timed), per correlation T,
+     kept modes, ranks, dc_max and probe_err (vega_tpu's 5 x budget
+     warning line reported), every correlation grid-served on the card;
+   - warm build: a second interface loads the payload from the cache with
+     no kernel launch and serves a bit-equal chi2_batch;
+   - the port's dense chi^2 and gradient against the JAX dense goldens
+     (1e-8), the grid chi^2 against them (the gate 5e-3 + 1e-9 |chi2|,
+     vega_tpu's node-convergence floor, reported; a miss is localised:
+     the nuisances at their reference, (ap, at) alone at 32 and 64 nodes,
+     (ap, at, sigma_velo) by combination and as the full tensor), rates
+     at 8192 / 32768 in bench.py's JSON shape, a profile of one call;
+   - minimize() on the payload from the start of TABLE6_SAMPLE, its
+     results written with vega.output.write_results and read back with
+     FitResults bit for bit (values, errors, covariance, FVAL, MODEL
+     columns);
+   - run_vega_mc.main then run_vega_mc_fits.main on the MOCKS it wrote
+     (the fit configuration with [monte carlo] over bias_LYA, beta_LYA,
+     64 mocks): the two Bestfit tables within 1e-10 relative;
+   it fails unless the sweep launched F_0 (the metal stack's too) at
+   its layouts, each held against its plain version.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -146,6 +177,16 @@ MC_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mc_goldens.json'
 SAMPLER_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_sampler_goldens.json'
 DR16_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16_goldens.json'
 DESI_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_desi_goldens.json'
+TABLE6_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_table6_goldens.json'
+TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
+# the payload's node-convergence floor against the dense chi^2 (vega_tpu
+# measured 1.6e-3 at most on the reference data, docs/performance.md:
+# 178-181) and vega_tpu's warning line for the held-out probe bound
+# (5 x the mode budget, vega_tpu/gridcollapse.py:1090)
+TABLE6_DENSE_ABS, TABLE6_DENSE_REL = 5e-3, 1e-9
+PROBE_BUDGETS = 5.0
+TABLE6_MC_MOCKS = 64
+MC_TABLE_RTOL = 1e-10
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
@@ -2277,6 +2318,349 @@ def run_desi_path(device, work, card):
     return launches, checks
 
 
+# ----------------------------------------------------------------------
+# eBOSS DR16's 13-name fit: the 4-dimension combination sweep, the payload
+# cache, the results file and the Monte-Carlo scripts
+# ----------------------------------------------------------------------
+def table6_localise(device, vega, dense_vega, main_ini, points, names):
+    """Where the 4-dimension payload's miss of the dense chi^2 comes from,
+    each against the dense chi^2 at the same points: (a) drp_QSO and
+    sigma_velo_disp_lorentz_QSO at the payload's reference values, the
+    4-dimension payload; (b) (ap, at) alone on the grid (the QSO
+    nuisances at their stored values) at 32 and at 64 nodes; (c) (ap, at,
+    sigma_velo_disp_lorentz_QSO) (drp_QSO at its stored value) through
+    the combination schedule and as the full 32 x 32 x 12 tensor; (d)
+    sigma_velo_disp_lorentz_QSO alone on the grid (ap, at, drp_QSO at
+    their stored values) at 12, 24 and 48 nodes. Logs each max |d chi2|
+    and returns them."""
+    from vega_tpu_torch.vega_interface import VegaInterface, parse_ini
+    spec = vega.get_collapsed(frozenset(names))['__grid__']
+    at_ref = dict(points)
+    for name, ref in zip(spec.names, spec.ref):
+        if name not in ('ap', 'at'):
+            at_ref[name] = [ref] * len(points['ap'])
+    out = {'4d_nuisances_at_ref': float(np.max(np.abs(
+        vega.chi2_batch(at_ref).cpu().numpy()
+        - dense_vega.chi2_batch(at_ref).cpu().numpy())))}
+    config = parse_ini(main_ini)
+    config['control']['grid-combination'] = 'never'
+    full_ini = Path(main_ini).parent / 'main_full_tensor.ini'
+    with open(full_ini, 'w') as fh:
+        config.write(fh)
+    cases = [('2d_32_nodes', main_ini, '32', ('drp_QSO',
+                                              'sigma_velo_disp_lorentz_QSO')),
+             ('2d_64_nodes', main_ini, '64', ('drp_QSO',
+                                              'sigma_velo_disp_lorentz_QSO')),
+             ('3d_combination', main_ini, None, ('drp_QSO',)),
+             ('3d_full_tensor', full_ini, None, ('drp_QSO',))] + [
+        (f'1d_sigma_velo_{nodes}_nodes', main_ini, str(nodes),
+         ('ap', 'at', 'drp_QSO')) for nodes in (12, 24, 48)]
+    for label, ini, nodes, fixed in cases:
+        sub = {n: points[n] for n in names if n not in fixed}
+        with switch('VEGA_TPU_GRID_CACHE', '0'), \
+                switch('VEGA_TPU_FACTORED', None), \
+                switch('VEGA_TPU_GRID_COLLAPSE', None), \
+                switch('VEGA_TPU_GRID_NODES', nodes):
+            grid = VegaInterface(ini, device=device)
+            got = grid.chi2_batch(sub).cpu().numpy()
+        out[label] = float(np.max(np.abs(
+            got - dense_vega.chi2_batch(sub).cpu().numpy())))
+        stats = grid.grid_stats
+        log(f'table6 localise {label}: {stats["nodes"]} nodes, sweep '
+            f'{stats["sweep_s"]:.2f} s, host {stats["host_s"]:.2f} s, max '
+            f'|grid - dense| {out[label]:.6g}')
+        del grid
+    log('table6 localise: max |grid - dense| ' + ', '.join(
+        f'{k} {v:.6g}' for k, v in out.items()))
+    return out
+
+
+def table6_results_file(vega, work):
+    """Write the fit's results as run_vega does and read them back with
+    the port's FitResults: values, errors, covariance and FVAL equal to
+    the minimizer's, each MODEL HDU's _MODEL column equal to
+    bestfit_model, bit for bit."""
+    from vega_tpu_torch.postprocess.fit_results import FitResults
+    vega.output.outfile = str(Path(work) / 'table6_fit')
+    vega.output.write_results(vega.bestfit_model, vega.params,
+                              vega.minimizer, vega.bestfit_corr_stats)
+    results = FitResults(vega.output.outfile + '.fits', no_chain=True)
+    best = vega.minimizer
+    names = [str(n) for n in results.names]
+    if names != list(best.values):
+        fail(f'table6 results file names {names} != {list(best.values)}')
+    same = (results.chisq == best.fmin.fval
+            and all(results.params[n] == best.values[n] for n in names)
+            and all(results.sigmas[n] == best.errors[n] for n in names)
+            and np.array_equal(results.cov, np.array(best.covariance)))
+    models = all(np.array_equal(
+        results.correlations[name.lower()].model, vega.bestfit_model[name])
+        for name in vega.corr_items)
+    log(f'table6 results file {vega.output.outfile}.fits read back with '
+        f'FitResults: values, errors, covariance, FVAL bit-equal {same}; '
+        f'MODEL columns bit-equal {models}')
+    if not (same and models):
+        fail('table6 results read back differ from the fit')
+
+
+def table6_mc_scripts(work, fit_ini):
+    """run_vega_mc.main([ini]) then run_vega_mc_fits.main([ini']) on the
+    MOCKS it wrote: the fit configuration with [monte carlo] (bias_LYA,
+    beta_LYA, served by the nuisance collapse) and num_mc_mocks =
+    TABLE6_MC_MOCKS; the two Bestfit tables within MC_TABLE_RTOL."""
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.scripts import run_vega_mc, run_vega_mc_fits
+    from vega_tpu_torch.vega_interface import parse_ini
+    work = Path(work) / 'table6_mc'
+    work.mkdir()
+    config = parse_ini(fit_ini)
+    config['control'].update({'run_montecarlo': 'True',
+                              'num_mc_mocks': str(TABLE6_MC_MOCKS),
+                              'mc_seed': '0'})
+    config['output']['filename'] = str(work / 'output')
+    config['monte carlo'] = {n: config['sample'][n]
+                             for n in ('bias_LYA', 'beta_LYA')}
+    config['mc parameters'] = {'bias_LYA': '-0.117', 'beta_LYA': '1.67'}
+    ini = work / 'main_mc.ini'
+    with open(ini, 'w') as fh:
+        config.write(fh)
+    t0 = time.perf_counter()
+    run_vega_mc.main([str(ini)])
+    mc_s = time.perf_counter() - t0
+    mocks_file = work / 'monte_carlo' / 'monte_carlo.fits'
+    config['control']['mc_mocks'] = str(mocks_file)
+    config['output']['mc_output'] = str(work / 'refit')
+    refit_ini = work / 'main_refit.ini'
+    with open(refit_ini, 'w') as fh:
+        config.write(fh)
+    t0 = time.perf_counter()
+    run_vega_mc_fits.main([str(refit_ini)])
+    refit_s = time.perf_counter() - t0
+
+    def table(path):
+        return {h.name: h for h in read_fits(path)
+                if getattr(h, 'name', '')}['Bestfit']
+    first, second = table(mocks_file), table(work / 'refit' /
+                                             'monte_carlo.fits')
+    values = np.asarray(first['values'])
+    if values.shape != (2, TABLE6_MC_MOCKS) or not np.all(
+            np.isfinite(values)):
+        fail(f'run_vega_mc Bestfit values of shape {values.shape}')
+    worst = max(float(np.max(np.abs(np.asarray(second[col])
+                                    - np.asarray(first[col]))
+                             / np.abs(np.asarray(first[col]))))
+                for col in ('values', 'errors'))
+    log(f'table6 Monte-Carlo scripts: run_vega_mc {mc_s:.2f} s '
+        f'({TABLE6_MC_MOCKS} mocks, initial fit included), '
+        f'run_vega_mc_fits {refit_s:.2f} s on its MOCKS; Bestfit values '
+        f'and errors agree to {worst:.3e} relative')
+    if not worst <= MC_TABLE_RTOL:
+        fail(f'the two Bestfit tables differ by {worst:.3e} > '
+             f'{MC_TABLE_RTOL:g}')
+
+
+def run_table6_path(device, work, card, fit_ini):
+    """Phase table6 (see the module docstring); returns the kernel
+    launches of its sweep and the kernel checks at their layouts."""
+    from vega_tpu_torch.gridcollapse import plan_components
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (DR16_METALS, TABLE6_SAMPLE,
+                                        dr16_extra_model,
+                                        make_synthetic_dataset)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(TABLE6_GOLDENS.read_text())
+    reference = json.loads(TABLE6_REFERENCE.read_text())
+    names = goldens['names']
+    points = goldens['params']
+    t_phase = time.perf_counter()
+    main_ini = make_synthetic_dataset(
+        Path(work) / 'table6', cross=True, size='full', device=device,
+        sample=TABLE6_SAMPLE, extra_model=dr16_extra_model(),
+        metals=list(DR16_METALS))
+    log(f'table6: configuration synthetic-dr16-table6-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    cache_dir = Path(work) / 'grid_cache_table6'
+    launches, checks = {}, []
+    with switch('VEGA_TPU_GRID_CACHE', None), \
+            switch('VEGA_TPU_GRID_CACHE_DIR', str(cache_dir)), \
+            switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        # --- the cold build: counts from zero
+        vega = VegaInterface(main_ini, device=device)
+        seen = watch_metals(vega)
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            payload = vega.get_collapsed(frozenset(names))
+            torch.cuda.synchronize(device)
+            cold_s = time.perf_counter() - t0
+        launches['table6_sweep'] = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        stats = vega.grid_stats
+        spec = payload['__grid__']
+        components = plan_components(spec)
+        swept = sum(int(np.prod(d)) for d, _ in components)
+        log(f'table6 cold build: {spec}; {len(components)} components, '
+            f'{swept} swept nodes (+ {stats["nodes"] - swept} held-out '
+            f'probes; full tensor {spec.n_nodes}); chi^2 constants '
+            f'{stats["constants_s"]:.3f} s, device sweep '
+            f'{stats["sweep_s"]:.3f} s, host payload build '
+            f'{stats["host_s"]:.3f} s, total {cold_s:.3f} s, peak device '
+            f'memory {peak_gb:.2f} GB; kernel launches '
+            f'{launches["table6_sweep"]}, {metal_launches(seen, "F")} of '
+            'F_0 from the metal stack at ' + '; '.join(
+                layout_label(k[0], k[1], k[2:]) for k in seen))
+        checks += check_launches(device, 'table6_sweep', layouts)
+        if stats['source'] != 'sweep' or not Path(
+                stats['cache_path']).exists():
+            fail(f'table6 cold build: source {stats["source"]}, no cache '
+                 'entry written')
+        if spec.degrees != (32, 32, 12, 12) or spec.names != (
+                'ap', 'at', 'drp_QSO', 'sigma_velo_disp_lorentz_QSO'):
+            fail(f'table6: the grid is {spec}')
+        want_components = [(tuple(d), c) for d, c in
+                           reference['components']]
+        if components != want_components or swept != \
+                reference['swept_nodes']:
+            fail(f'table6: {len(components)} components / {swept} nodes, '
+                 f'the reference {len(want_components)} / '
+                 f'{reference["swept_nodes"]}')
+        if not launches['table6_sweep'].get(('F', 0)) \
+                or not metal_launches(seen, 'F'):
+            fail('the table6 sweep launched no F_0 (or none from metals.py)')
+        on_card = {t.device.type for corr in vega._device_collapsed(
+            payload).values() if isinstance(corr, dict)
+            for t in corr.values()}
+        if vega.device.type != 'cuda' or on_card != {'cuda'}:
+            fail(f'table6: the interface is on {vega.device}, the served '
+                 f'payload on {on_card}')
+        budget = PROBE_BUDGETS * float(os.environ.get(
+            'VEGA_TPU_GRID_MODE_BUDGET', 2e-4))
+        probe_misses = {}
+        for name in vega.corr_items:
+            if name not in payload:
+                fail(f'table6: {name} is not served by the grid payload')
+            p = payload[name]
+            probe = float(p['probe_err'])
+            if probe > budget:
+                probe_misses[name] = probe
+            log(f'  {name}: T = {p["cref"].shape[0]}, retained modes A '
+                f'{p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+                f'SVD rank A {p["B_A"].shape[1]} / sy '
+                f'{p["B_sy"].shape[1]}, dc_max {float(p["dc_max"]):.6g}, '
+                f'probe_err {probe:.6g} (vega_tpu warns above {budget:g})')
+        if probe_misses:
+            log(f'table6 STANDING DEPARTURE (node convergence on the '
+                f'synthetic data, ROADMAP.md section 3): probe_err above '
+                f'{budget:g} for {probe_misses}')
+
+        # --- the warm build: loads from the cache, launches nothing
+        warm = VegaInterface(main_ini, device=device)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        warm.get_collapsed(frozenset(names))
+        warm_s = time.perf_counter() - t0
+        warm_launches = sum(LAUNCHES.values())
+        got_cold = vega.chi2_batch(points)
+        got_warm = warm.chi2_batch(points)
+        log(f'table6 warm build: source {warm.grid_stats["source"]}, chi^2 '
+            f'constants {warm.grid_stats["constants_s"]:.3f} s, fingerprint '
+            f'{warm.grid_stats["fingerprint_s"]:.3f} s, load '
+            f'{warm.grid_stats.get("load_s", float("nan")):.3f} s, '
+            f'get_collapsed {warm_s:.3f} s, {warm_launches} kernel '
+            f'launches; chi2_batch at the {len(points["ap"])} points '
+            f'bit-equal to the cold interface\'s '
+            f'{torch.equal(got_cold, got_warm)}')
+        if warm.grid_stats['source'] != 'disk' or warm_launches:
+            fail('table6 warm build did not load the payload without a '
+                 'kernel launch')
+        if not torch.equal(got_cold, got_warm):
+            fail('table6 warm chi2_batch differs from the cold one')
+        del warm
+
+    # --- the served chi^2 against vega_tpu's dense chi^2
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    dense_want = np.asarray(goldens['chi2_dense'])
+    got = dense_vega.chi2_batch(points).cpu().numpy()
+    rel = float(np.max(np.abs(got - dense_want) / np.abs(dense_want)))
+    grads = []
+    for i, want in enumerate(goldens['gradients']):
+        value, grad = dense_vega.chi2_value_and_gradient(
+            {n: points[n][i] for n in names})
+        g = np.array([grad[n] for n in names])
+        grads.append(max(abs(value / want['chi2'] - 1), float(
+            np.max(np.abs(g - want['gradient']))
+            / np.max(np.abs(want['gradient'])))))
+    log(f'table6 dense vs JAX goldens: chi2 max relative diff {rel:.3e}; '
+        f'value and gradient at {len(grads)} points {max(grads):.3e}')
+    if not rel <= GOLDEN_RTOL or not max(grads) <= GOLDEN_RTOL:
+        fail(f'table6 dense chi2 / gradient vs the JAX goldens differ by '
+             f'{rel:.3e} / {max(grads):.3e} > {GOLDEN_RTOL}')
+    grid = got_cold.cpu().numpy()
+    d_grid = np.abs(grid - dense_want)
+    bound = TABLE6_DENSE_ABS + TABLE6_DENSE_REL * np.abs(dense_want)
+    within = bool(np.all(d_grid <= bound))
+    log(f'table6 grid vs JAX dense goldens ({len(grid)} points, chi2 '
+        f'{dense_want.min():.6g} .. {dense_want.max():.6g}): |d chi2| '
+        + ', '.join(f'{d:.6g}' for d in d_grid)
+        + f' (relative {np.max(d_grid / np.abs(dense_want)):.3e}); gate '
+        f'{TABLE6_DENSE_ABS:g} + {TABLE6_DENSE_REL:g} |chi2|: '
+        + ('within' if within else 'MISSED'))
+    if not within:
+        log('table6 STANDING DEPARTURE (node convergence on the synthetic '
+            'data, ROADMAP.md section 3): the grid payload misses the '
+            'dense chi^2 by more than the gate; localising')
+        table6_localise(device, vega, dense_vega, main_ini, points, names)
+
+    rng = np.random.default_rng(0)
+    rates, batches = {}, {}
+    for n_rows in GRID_BATCHES:
+        rows = batches[n_rows] = {
+            n: vega.params[n] + 0.01 * max(abs(vega.params[n]), 0.1)
+            * rng.normal(size=n_rows) for n in names}
+        chi2 = vega.chi2_batch(rows).cpu().numpy()
+        if not np.all(np.isfinite(chi2)) or np.any(chi2 >= 1e100):
+            fail(f'table6 grid chi2_batch({n_rows}) is not finite')
+        per_round = []
+        for _ in range(GRID_ROUNDS):
+            for name in rows:
+                rows[name] = rows[name] + 1e-9
+            t0 = time.perf_counter()
+            vega.chi2_batch(rows).cpu()
+            per_round.append(n_rows / (time.perf_counter() - t0))
+        rates[n_rows] = float(np.median(per_round))
+        log(f'table6 grid chi2_batch({n_rows}), 13 names: '
+            f'{rates[n_rows]:.1f} evals/s (median of {GRID_ROUNDS}; per '
+            f'round {", ".join(f"{r:.1f}" for r in per_round)})')
+    log(json.dumps({
+        'metric': 'likelihood evals/sec/chip',
+        'value': round(rates[BATCH], 3),
+        'unit': f'evals/s/chip (synthetic-dr16-table6-full, 13 names, '
+                f'batch={BATCH}, f64, 1 chip(s), {card}, vega_tpu_torch, '
+                f'cold build={cold_s:.1f}s, warm load={warm_s:.2f}s; batch '
+                f'{GRID_BATCHES[1]}: {rates[GRID_BATCHES[1]]:.1f})'}))
+    profile_call(f'table6 grid chi2_batch({BATCH})',
+                 lambda: vega.chi2_batch(batches[BATCH]).cpu(), device)
+
+    # --- the fit on the payload and its results file
+    seconds, counts = timed_fit(device, vega, 'table6 grid')
+    best = vega.bestfit
+    if not (best.fmin.is_valid and not best.fmin.hesse_failed):
+        fail('table6 grid fit is not valid')
+    log(f'table6 grid fit: {seconds:.3f} s, fval {best.fmin.fval!r} (the '
+        f'dense chi^2 there {dense_vega.chi2(best.values)!r}), values '
+        f'{best.values}')
+    del dense_vega
+    table6_results_file(vega, work)
+    table6_mc_scripts(work, fit_ini)
+    log(f'table6 phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -2362,6 +2746,10 @@ def main():
     build_kernels()
     mark('build')
     with tempfile.TemporaryDirectory() as work:
+        # the grid payload's disk cache: off for the phases before table6
+        # (each sweeps its payload, as before), and never outside `work`
+        os.environ['VEGA_TPU_GRID_CACHE'] = '0'
+        os.environ['VEGA_TPU_GRID_CACHE_DIR'] = str(Path(work) / 'grid_cache')
         from vega_tpu_torch.testing import make_synthetic_dataset
         t0 = time.perf_counter()
         main_ini = make_synthetic_dataset(work, cross=True, size='full',
@@ -2388,14 +2776,18 @@ def main():
         mark('dr16')
         desi_launches, desi_checks = run_desi_path(device, work, card)
         mark('desi')
+        table6_launches, table6_checks = run_table6_path(device, work, card,
+                                                         fit_ini)
+        mark('table6')
     log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
-              + mc_checks + sampler_checks + dr16_checks + desi_checks)
+              + mc_checks + sampler_checks + dr16_checks + desi_checks
+              + table6_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
-         **dr16_launches, **desi_launches},
+         **dr16_launches, **desi_launches, **table6_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

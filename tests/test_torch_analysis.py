@@ -468,13 +468,25 @@ def test_forecast_mock_is_the_fiducial(setup, monkeypatch):
 
 
 def test_mc_start_from_fit_is_not_ported(setup):
+    """mc_start_from_fit is ported: the fiducial is the model at a saved
+    fit's values under [mc parameters] (its parity with vega_tpu is in
+    tests/test_torch_output.py); use_full_pk_for_mc still raises."""
     port = VegaInterface(setup['main'], device='cpu')
-    port.main_config['control']['mc_start_from_fit'] = 'fit.fits'
-    # the items of ROADMAP.md's "Modules still to port": output and
-    # post-processing (3), likelihood options (5)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        port.get_fiducial_for_monte_carlo()
+    port.use_grid_payload(NAMES, gc.load_payload(setup['tmp']
+                                                 / 'payload.npz'))
+    port.minimize()
+    port.output.outfile = str(setup['tmp'] / 'start_fit')
+    port.output.write_results(port.bestfit_model, port.params,
+                              port.minimizer, port.bestfit_corr_stats)
+    port.main_config['control']['mc_start_from_fit'] = \
+        port.output.outfile + '.fits'
+    fiducial = port.get_fiducial_for_monte_carlo()
+    want = port.compute_model(port.minimizer.values | MC_PARAMS)
+    for name in port.corr_items:
+        assert np.array_equal(fiducial[name], want[name])
     port.main_config.remove_option('control', 'mc_start_from_fit')
+    # the item of ROADMAP.md's "Modules still to port": likelihood
+    # options (5)
     port.main_config['control']['use_full_pk_for_mc'] = 'True'
     with pytest.raises(NotImplementedError, match='item 5'):
         port.get_fiducial_for_monte_carlo()

@@ -339,7 +339,11 @@ new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.samplers.hmc', 'vega_tpu_torch.samplers.polychord',
        'vega_tpu_torch.samplers.pocomc',
        'vega_tpu_torch.scripts.run_vega_sampler', 'vega_tpu_torch.metals',
-       'vega_tpu_torch.native', 'vega_tpu_torch.native.pair_hist'}
+       'vega_tpu_torch.native', 'vega_tpu_torch.native.pair_hist',
+       'vega_tpu_torch.output', 'vega_tpu_torch.postprocess',
+       'vega_tpu_torch.postprocess.fit_results',
+       'vega_tpu_torch.scripts.run_vega_mc',
+       'vega_tpu_torch.scripts.run_vega_mc_fits'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''

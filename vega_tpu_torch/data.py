@@ -58,6 +58,10 @@ class Data:
             self._distortion_mat = np.eye(self.full_data_size)
         if self._cov_mat is None and not corr_item.low_mem_mode:
             self._cov_mat = np.eye(self.full_data_size)
+        # per-bin variance for the results file's _VAR column
+        self.variance = (np.ones(self.full_data_size)
+                         if corr_item.low_mem_mode
+                         else self._cov_mat.diagonal().copy())
         self.masked_data_vec = self.data_vec[self.data_mask]
 
         # Monte-Carlo state (vega_tpu/data.py:88-91)
@@ -207,6 +211,7 @@ class Data:
         if cov_rescale is not None and self._cov_mat is not None:
             self._cov_mat = self._cov_mat * cov_rescale
 
+        self.nb = columns['NB'] if 'NB' in columns else None
         self.cosmo_params = None
         if 'OMEGAM' in header:
             self.cosmo_params = dict(

@@ -17,6 +17,16 @@ tests/test_torch_grid.py). Each evaluation (`grid_corr_chi2`) is then a
 gather of the retained Chebyshev modes and two small f64 GEMMs per row
 block, batched over rows. There is no double-single f32 path: the card
 has f64 GEMMs.
+
+Three or more grid dimensions (ap, at with drp_QSO and
+sigma_velo_disp_lorentz_QSO: eBOSS DR16's combined fit) sweep the
+anisotropic combination schedule of `plan_components` instead of the
+full tensor (tests/test_torch_grid_combination.py). A finished payload
+is kept on disk under its content fingerprint (`payload_fingerprint`,
+`payload_cache_dir`; vega_tpu's npz layout, so either package reads the
+other's file), and a sweep given `checkpoint_dir` writes each finished
+group of node chunks as a part file, which a retry reloads instead of
+sweeping again (tests/test_torch_grid_cache.py).
 """
 
 from __future__ import annotations
@@ -180,8 +190,115 @@ def device_payload(payload, device):
 
 
 # --------------------------------------------------------------------------
-# Payload files (the format of vega_tpu/gridcollapse.py:376-402)
+# Payload disk cache (vega_tpu/gridcollapse.py:270-402)
 # --------------------------------------------------------------------------
+# Bump when the payload format or the sweep semantics change.
+PAYLOAD_CACHE_VERSION = 1
+
+
+def payload_fingerprint(vega, sample_names, spec, mode_budget, svd_tol,
+                        components=None, extra=None):
+    """Content hash of everything the grid payload depends on
+    (vega_tpu/gridcollapse.py:274-364): the resolved configuration, the
+    fiducial arrays, the current data vectors and masked inverse
+    covariances, the distortion and metal matrices and the metal
+    coordinates, the new-metals weights files' content, every parameter
+    value, the dtype, the node spec, the truncation and compression
+    knobs, the probe and draw counts, the components and `extra`
+    (mutated sampling limits). The device is not hashed: a payload swept
+    on the CPU serves the card. A matching fingerprint implies a
+    bit-identical payload, so a later process of the same fit loads it
+    instead of sweeping."""
+    import hashlib
+    import io
+
+    from .utils import find_file
+
+    h = hashlib.blake2b(digest_size=20)
+    h.update(str(PAYLOAD_CACHE_VERSION).encode())
+
+    def eat(label, arr):
+        h.update(label.encode())
+        arr = np.ascontiguousarray(arr)
+        h.update(repr((arr.shape, str(arr.dtype))).encode())
+        h.update(arr.tobytes())
+
+    buf = io.StringIO()
+    vega.main_config.write(buf)
+    for name, item in sorted(vega.corr_items.items()):
+        buf.write(f'[[{name}]]\n')
+        item.config.write(buf)
+    h.update(buf.getvalue().encode())
+
+    for key in sorted(vega.fiducial):
+        val = vega.fiducial[key]
+        if isinstance(val, np.ndarray):
+            eat(f'fid:{key}', val)
+        else:
+            h.update(f'fid:{key}={val!r}'.encode())
+
+    for name, vec in sorted(vega._current_data_vecs().items()):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(vec).tobytes())
+        h.update(np.ascontiguousarray(
+            vega.data[name].inv_masked_cov).tobytes())
+        corr_data = vega.data[name]
+        if corr_data.has_distortion:
+            eat(f'{name}:dmat', corr_data.distortion_mat)
+        for pair, mat in sorted(getattr(corr_data, 'metal_mats',
+                                        {}).items()):
+            if mat is not None:
+                eat(f'{name}:met:{pair}', mat)
+        for pair, coords in sorted(getattr(corr_data, 'metal_coordinates',
+                                           {}).items()):
+            eat(f'{name}:metrp:{pair}', coords.rp_grid)
+            eat(f'{name}:metrt:{pair}', coords.rt_grid)
+            eat(f'{name}:metz:{pair}', coords.z_grid)
+    # the new-metals matrices are computed from the weights files the
+    # config names by path: their content, not the path
+    for name, item in sorted(vega.corr_items.items()):
+        for label, tracer in (('1', item.tracer1), ('2', item.tracer2)):
+            if tracer.get('weights-path') is not None:
+                h.update(f'{name}:weights{label}'.encode())
+                with open(find_file(tracer['weights-path']), 'rb') as fh:
+                    h.update(fh.read())
+
+    for name in sorted(vega.params):
+        h.update(f'{name}={vega.params[name]!r}'.encode())
+    h.update(f'dtype={DTYPE}'.encode())
+    h.update(repr((spec.names, spec.lo, spec.hi, spec.degrees,
+                   spec.ref)).encode())
+    h.update(repr((float(mode_budget), float(svd_tol),
+                   os.environ.get('VEGA_TPU_GRID_PROBES', '512'),
+                   os.environ.get('VEGA_TPU_GRID_DC_DRAWS', '256'))).encode())
+    if components is None:
+        components = plan_components(spec)
+    h.update(repr((tuple(components),
+                   os.environ.get('VEGA_TPU_GRID_VALIDATE', ''))).encode())
+    if extra is not None:
+        h.update(repr(extra).encode())
+    return h.hexdigest()
+
+
+def payload_cache_dir():
+    """The payload cache's directory (VEGA_TPU_GRID_CACHE_DIR, default
+    ~/.cache/vega_tpu_torch_grid); None when VEGA_TPU_GRID_CACHE=0."""
+    if os.environ.get('VEGA_TPU_GRID_CACHE', '1') != '1':
+        return None
+    return os.environ.get(
+        'VEGA_TPU_GRID_CACHE_DIR',
+        os.path.expanduser('~/.cache/vega_tpu_torch_grid'))
+
+
+def _write_npz(path, arrays):
+    """np.savez to a tmp file, then os.replace: a reader never sees a
+    half-written file."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    with open(tmp, 'wb') as fh:
+        np.savez(fh, **arrays)          # file object: no suffix magic
+    os.replace(tmp, path)
+
+
 def save_payload(path, payload):
     spec = payload['__grid__']
     arrays = {'__spec__': np.array(
@@ -191,10 +308,7 @@ def save_payload(path, payload):
             continue
         for part, arr in corr.items():
             arrays[f'{name}::{part}'] = arr
-    tmp = f'{path}.{os.getpid()}.tmp'
-    with open(tmp, 'wb') as fh:
-        np.savez(fh, **arrays)          # file object: no suffix magic
-    os.replace(tmp, path)
+    _write_npz(path, arrays)
 
 
 def load_payload(path):
@@ -460,43 +574,104 @@ def measure_dc_max(vega, sample_names, spec, c0s):
     return out, note
 
 
-def _sweep(vega, sample_names, spec, nodes, sweep_chunk):
+def _read_part(path):
+    """(payload {corr: {piece: array}}, c0s {corr: (chunks, T)}, bad) of
+    one sweep part file."""
+    with np.load(path) as z:
+        payload = {}
+        for key in z.files:
+            if key.startswith('p::'):
+                _, corr, piece = key.split('::')
+                payload.setdefault(corr, {})[piece] = z[key]
+        return (payload, {k[3:]: z[k] for k in z.files if k.startswith('c::')},
+                z['bad'])
+
+
+def _sweep(vega, sample_names, spec, nodes, sweep_chunk, checkpoint_dir=None):
     """A(g), e(g) per node and c0 per correlation, on the device, in
     chunks of `sweep_chunk` nodes (vega_tpu/gridcollapse.py:812-961).
     Returns ({corr: {'A': (N, T, T), 'e': (N, T)}} host arrays,
-    {corr: c0 (T,)}, bad (N,) bool)."""
+    {corr: c0 (T,)}, bad (N,) bool).
+
+    The chunks run in groups of VEGA_TPU_GRID_SWEEP_GROUP (16), with the
+    progress printed to stderr after each. With `checkpoint_dir` each
+    finished group is written there as vega_tpu's part file
+    (`part_{first chunk:06d}_{chunks}x{sweep_chunk}.npz`), and a part
+    already there is read instead of swept, so an interrupted sweep
+    resumes where it stopped."""
     base = {name: float(vega.params.get(name, 0.0))
             for name in sample_names}
+    group = int(os.environ.get('VEGA_TPU_GRID_SWEEP_GROUP', 16))
+    n_chunks = -(-nodes.shape[0] // sweep_chunk)
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
     pk_caches = {}
-    parts, c0s, bad = {}, {}, []
-    for start in range(0, nodes.shape[0], sweep_chunk):
-        chunk = nodes[start:start + sweep_chunk]
-        params = dict(base)
-        for i, name in enumerate(spec.names):
-            params[name] = chunk[:, i]
-        payload, c0_chunk, bad_chunk = vega._grid_collapse_node(
-            params, frozenset(sample_names), spec.names, pk_caches)
-        for name, tensors in payload.items():
-            for piece, arr in tensors.items():
-                parts.setdefault(name, {}).setdefault(piece, []).append(
-                    arr.cpu().numpy())
-        for name, c0 in c0_chunk.items():
-            c0 = c0.cpu().numpy()
-            if name in c0s and not np.allclose(c0s[name], c0):
-                raise AssertionError(
-                    f'coefficient vector varies across sweep chunks for '
-                    f'{name}')
-            c0s[name] = c0
-        bad.append(bad_chunk.cpu().numpy())
+    parts, part_c0s, bad = {}, [], []
+    t0 = time.perf_counter()
+    swept = 0
+    for g0 in range(0, n_chunks, group):
+        g1 = min(g0 + group, n_chunks)
+        part_path = None if checkpoint_dir is None else os.path.join(
+            checkpoint_dir, f'part_{g0:06d}_{g1 - g0}x{sweep_chunk}.npz')
+        if part_path is not None and os.path.exists(part_path):
+            payload, c0s, bad_part = _read_part(part_path)
+        else:
+            pieces, c0_rows, bad_rows = {}, {}, []
+            for ci in range(g0, g1):
+                chunk = nodes[ci * sweep_chunk:(ci + 1) * sweep_chunk]
+                params = dict(base)
+                for i, name in enumerate(spec.names):
+                    params[name] = chunk[:, i]
+                payload, c0_chunk, bad_chunk = vega._grid_collapse_node(
+                    params, frozenset(sample_names), spec.names, pk_caches)
+                for name, tensors in payload.items():
+                    for piece, arr in tensors.items():
+                        pieces.setdefault(name, {}).setdefault(
+                            piece, []).append(arr.cpu().numpy())
+                for name, c0 in c0_chunk.items():
+                    c0_rows.setdefault(name, []).append(c0.cpu().numpy())
+                bad_rows.append(bad_chunk.cpu().numpy())
+            payload = {name: {piece: np.concatenate(arrs)
+                              for piece, arrs in by_piece.items()}
+                       for name, by_piece in pieces.items()}
+            c0s = {name: np.stack(rows) for name, rows in c0_rows.items()}
+            bad_part = np.concatenate(bad_rows)
+            if part_path is not None:
+                arrays = {'bad': bad_part}
+                for name, by_piece in payload.items():
+                    for piece, arr in by_piece.items():
+                        arrays[f'p::{name}::{piece}'] = arr
+                for name, arr in c0s.items():
+                    arrays[f'c::{name}'] = arr
+                _write_npz(part_path, arrays)
+            swept += g1 - g0
+            elapsed = time.perf_counter() - t0
+            print(f'INFO: grid sweep {g1}/{n_chunks} chunks '
+                  f'({elapsed / swept:.2f} s/chunk, '
+                  f'~{elapsed / swept * (n_chunks - g1):.0f} s left)',
+                  file=sys.stderr)
+        for name, by_piece in payload.items():
+            for piece, arr in by_piece.items():
+                parts.setdefault(name, {}).setdefault(piece, []).append(arr)
+        part_c0s.append(c0s)
+        bad.append(bad_part)
     nodes_out = {name: {piece: np.concatenate(arrs)
                         for piece, arrs in pieces.items()}
                  for name, pieces in parts.items()}
+    c0s = {}
+    for name in part_c0s[0]:
+        rows = np.concatenate([c[name] for c in part_c0s])
+        if not np.allclose(rows[0], rows):
+            raise AssertionError(
+                f'coefficient vector varies across sweep chunks for {name}')
+        c0s[name] = rows[0]
     return nodes_out, c0s, np.concatenate(bad)
 
 
 def build_grid_payload(vega, sample_names, grid_names, spec,
                        sweep_chunk=None, svd_tol=None, mode_budget=None,
-                       components=None, n_validate=None, stats=None):
+                       components=None, n_validate=None, stats=None,
+                       checkpoint_dir=None):
     """Run the node sweep on the device and build the per-correlation
     payloads on the host (vega_tpu/gridcollapse.py:717-1110).
 
@@ -505,7 +680,8 @@ def build_grid_payload(vega, sample_names, grid_names, spec,
     numpy). Correlations whose model does not stay factored are absent;
     the chi^2 evaluates those densely. `stats`, when a dict, receives
     the sweep and host times (s, the sweep synchronised) and the node
-    count."""
+    count. `checkpoint_dir`: where the sweep keeps its part files
+    (`_sweep`); the caller removes it once the payload is saved."""
     t_start = time.perf_counter()
     if sweep_chunk is None:
         sweep_chunk = int(os.environ.get('VEGA_TPU_GRID_SWEEP_CHUNK', 32))
@@ -536,7 +712,7 @@ def build_grid_payload(vega, sample_names, grid_names, spec,
     n_nodes = nodes.shape[0]
 
     payload_nodes, c0s, bad = _sweep(vega, sample_names, spec, nodes,
-                                     sweep_chunk)
+                                     sweep_chunk, checkpoint_dir)
     t_swept = time.perf_counter()
     if bad.any():
         first = nodes[np.argmax(bad)]

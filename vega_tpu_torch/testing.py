@@ -80,6 +80,32 @@ def dr16_extra_model(parameters=None):
             + '\n'.join(f'{k} = {v}' for k, v in parameters.items()) + '\n')
 
 
+# eBOSS DR16's combined-fit sampled set ("Table 6", the reference's
+# examples/eBOSS_DR16/main_combined.ini; benchmarks/table6_accuracy.json:
+# 3-17) on the DR16-shaped model, each bias_eta_X replaced by the
+# synthetic configuration's bias_X: [sample] entries (lower, upper,
+# start, error) with vega_tpu/parameters/default_values.txt's limits and
+# errors and starts near the truth. drp_QSO in [-3, 3] and
+# sigma_velo_disp_lorentz_QSO in [0, 15] are grid dimensions beside (ap,
+# at): the payload is ap, at x 32, drp_QSO, sigma_velo x 12, swept as the
+# combination schedule's 7,737 nodes. With `make_synthetic_dataset(...,
+# metals=DR16_METALS, extra_model=dr16_extra_model(),
+# sample=TABLE6_SAMPLE)` this is the configuration
+# synthetic-dr16-table6.
+TABLE6_SAMPLE = {
+    'ap': '0.5 1.5 1.02 0.02', 'at': '0.5 1.5 0.98 0.03',
+    'beta_LYA': '0.0 3.0 1.6 0.1', 'beta_QSO': '0.0 1.0 0.25 0.1',
+    'beta_hcd': '0.0 5.0 0.7 0.1', 'bias_LYA': '-1.0 0.0 -0.12 0.01',
+    'bias_SiII(1190)': '-0.5 0.0 -0.005 0.001',
+    'bias_SiII(1193)': '-0.5 0.0 -0.0025 0.001',
+    'bias_SiII(1260)': '-0.5 0.0 -0.0025 0.001',
+    'bias_SiIII(1207)': '-0.5 0.0 -0.0035 0.001',
+    'bias_hcd': '-0.5 0.0 -0.05 0.01',
+    'drp_QSO': '-3.0 3.0 0.1 0.1',
+    'sigma_velo_disp_lorentz_QSO': '0.0 15.0 6.5 0.1',
+}
+
+
 # The DESI DR1 baseline model on the synthetic dataset
 # (examples/DESI_data_setup/make_configs.py:37-63,116-117): the DR16
 # model's Rogers HCD and Arinyo NL, the DESI instrumental systematics on

@@ -43,8 +43,15 @@ chi^2 is taken against the current data vectors: the data, or after
 `initialize_monte_carlo` the Monte-Carlo mock (of the joint data vector
 under a global covariance). The `run_sampler` and `sampler` flags of
 [control] name the sampler scripts/run_vega_sampler.py runs (samplers/).
-Output, plots, marginalization and blinding beyond "none" are not ported
-yet.
+
+A grid payload is kept on disk under its content fingerprint
+(gridcollapse.payload_fingerprint, in VEGA_TPU_GRID_CACHE_DIR, default
+~/.cache/vega_tpu_torch_grid; VEGA_TPU_GRID_CACHE=0 turns it off), so a
+later process of the same fit loads it instead of sweeping; an
+interrupted sweep resumes from its part files. A fit's results are
+written by `output` (output.Output: FITS or HDF5, read back with
+postprocess.FitResults). Plots, the components' HDUs (save-components),
+marginalization and blinding beyond "none" are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import configparser
 import copy
 import os
 import os.path
+import shutil
 import time
 
 import numpy as np
@@ -67,6 +75,7 @@ from .factored import FactoredXi, Sampling, densify
 from .io.fits import read_fits
 from .minimizer import Minimizer
 from .model import Model
+from .output import Output
 from .parameters.param_utils import get_default_values
 from .scale_parameters import ScaleParameters
 from .utils import DTYPE, not_ported, to_tensor
@@ -160,6 +169,10 @@ class VegaInterface:
         self.params = self._read_parameters(self.corr_items,
                                             self.main_config['parameters'])
         self.sample_params = self._read_sample(self.main_config['sample'])
+        # the config's sampling limits: limits changed after construction
+        # change the grid payload (measure_dc_max) and are folded into its
+        # fingerprint (vega_interface.py:104-112)
+        self._config_limits = self._limits_dict()
 
         # Growth rate handling (reference: vega_interface.py:90-107)
         use_template_growth = True
@@ -257,6 +270,8 @@ class VegaInterface:
         # the port has no marginalization templates (they raise at
         # construction): no correlation carries derived sampler columns
         self.corr_num_marg_modes = None
+        self.output = Output(self.main_config['output'], self.data,
+                             self.corr_items, self.analysis)
 
         # Sampler flags (vega_interface.py:206-220); the names are
         # vega_tpu's, so one ini serves both packages
@@ -486,6 +501,12 @@ class VegaInterface:
             # smooth wall outside the node domain (GRID_WALL_CHI2)
             chi2 = chi2 + gridcollapse.GRID_WALL_CHI2 * excess
         return torch.where(bad, PENALTY_CHI2, chi2)
+
+    def compute_prior_chi2(self, params=None):
+        """chi^2 of the Gaussian priors at one point: the stored values
+        overridden by `params` (vega_interface.py:1350-1352)."""
+        local, _ = self._batch_params(params)
+        return float(self._prior_chi2(local))
 
     def _prior_chi2(self, local_params):
         """(vega_interface.py:545-554)"""
@@ -735,18 +756,23 @@ class VegaInterface:
     # ------------------------------------------------------------------
     def get_fiducial_for_monte_carlo(self, print_func=print):
         """The model the mocks are drawn around: at [mc parameters] over
-        the best fit of [sample] (a fit runs first when anything is
-        sampled), or read from the files [control] mc_fiducial_<name>
-        names when use_measured_fiducial is set."""
+        the best fit of a saved fit ([control] mc_start_from_fit, read
+        with postprocess.FitResults) or else of [sample] (a fit runs first
+        when anything is sampled), or read from the files [control]
+        mc_fiducial_<name> names when use_measured_fiducial is set
+        (vega_interface.py:1375-1403)."""
         mc_params = self.mc_config['params']
         control = self.main_config['control']
-        if control.get('mc_start_from_fit', None) is not None:
-            raise not_ported('mc_start_from_fit (it reads a fit with '
-                             'postprocess/fit_results.py)', 3)
+        mc_start_from_fit = control.get('mc_start_from_fit', None)
         if control.getboolean('use_full_pk_for_mc', False):
             raise not_ported('use_full_pk_for_mc (the model from a given '
                              'power spectrum, compute_direct)', 5)
-        if self.sample_params['limits']:
+        if mc_start_from_fit is not None:
+            from .postprocess.fit_results import FitResults
+            print_func(f'Reading input fit {mc_start_from_fit}')
+            existing_fit = FitResults(utils.find_file(mc_start_from_fit))
+            mc_params = existing_fit.params | mc_params
+        elif self.sample_params['limits']:
             print_func('Running initial fit')
             self.minimize()
             mc_params = self.bestfit.values | mc_params
@@ -908,10 +934,12 @@ class VegaInterface:
         vectors it bakes in (vega_interface.py:785-790)."""
         return key, self._limits_key(), self._data_key()[0]
 
+    def _limits_dict(self):
+        return {k: tuple(v) if isinstance(v, (tuple, list)) else v
+                for k, v in self.sample_params['limits'].items()}
+
     def _limits_key(self):
-        return tuple(sorted(
-            (k, tuple(v) if isinstance(v, (tuple, list)) else v)
-            for k, v in self.sample_params['limits'].items()))
+        return tuple(sorted(self._limits_dict().items()))
 
     def _device_collapsed(self, collapsed):
         """Device copy of a host collapse or grid payload, with the
@@ -1040,10 +1068,15 @@ class VegaInterface:
         return lo, hi, int(degree), ref
 
     def _get_grid_collapsed(self, key, grid_names):
-        """Grid-collapse payload for one sampled-parameter set, cached in
-        memory (`_grid_cache_key`: a new data vector, e.g. a Monte-Carlo
-        mock, builds a new payload; vega_interface.py:778-875). No disk
-        cache yet."""
+        """Grid-collapse payload for one sampled-parameter set
+        (vega_interface.py:778-875), cached in memory (`_grid_cache_key`:
+        a new data vector, e.g. a Monte-Carlo mock, builds a new payload)
+        and, outside Monte-Carlo mode, on disk under its content
+        fingerprint (gridcollapse.payload_cache_dir): a hit loads the
+        payload and sweeps nothing, an unreadable entry is swept again
+        with a warning, and a sweep checkpoints its node chunks into
+        `<entry>.sweep`, removed once the payload is saved.
+        `grid_stats['source']` says which: 'disk' or 'sweep'."""
         cache_key = self._grid_cache_key(key)
         if cache_key in self._grid_cache:
             return self._grid_cache[cache_key][1]
@@ -1068,17 +1101,57 @@ class VegaInterface:
         mode_budget = self._control_get('grid-mode-budget')
         if mode_budget is None:
             mode_budget = os.environ.get('VEGA_TPU_GRID_MODE_BUDGET', 2e-4)
+        mode_budget = float(mode_budget)
+        svd_tol = float(os.environ.get('VEGA_TPU_GRID_SVD_TOL', 1e-12))
         t0 = time.perf_counter()
         if self._chi2_data is None:     # host inverse covariances
             self.set_chi2_constants()
         stats = {'constants_s': time.perf_counter() - t0}
+
+        disk_path = None
+        cache_dir = None if self.monte_carlo else \
+            gridcollapse.payload_cache_dir()
+        if cache_dir is not None:
+            t0 = time.perf_counter()
+            limits = self._limits_dict()
+            extra = (None if limits == self._config_limits
+                     else repr(sorted(limits.items())))
+            fingerprint = gridcollapse.payload_fingerprint(
+                self, sorted(key), spec, mode_budget, svd_tol,
+                components=components, extra=extra)
+            os.makedirs(cache_dir, exist_ok=True)
+            disk_path = os.path.join(cache_dir, f'grid_{fingerprint}.npz')
+            stats.update(cache_path=disk_path,
+                         fingerprint_s=time.perf_counter() - t0)
+            if os.path.exists(disk_path):
+                t0 = time.perf_counter()
+                try:
+                    payload = gridcollapse.load_payload(disk_path)
+                except Exception as exc:    # an unreadable entry
+                    print(f'WARNING: ignoring unreadable grid-payload '
+                          f'cache entry {disk_path} ({exc})')
+                else:
+                    stats.update(source='disk',
+                                 load_s=time.perf_counter() - t0)
+                    return self._keep_grid_payload(cache_key, vecs, payload,
+                                                   spec, stats)
         payload = gridcollapse.build_grid_payload(
-            self, sorted(key), grid_names, spec,
-            svd_tol=float(os.environ.get('VEGA_TPU_GRID_SVD_TOL', 1e-12)),
-            mode_budget=float(mode_budget), components=components,
-            stats=stats)
+            self, sorted(key), grid_names, spec, svd_tol=svd_tol,
+            mode_budget=mode_budget, components=components, stats=stats,
+            checkpoint_dir=None if disk_path is None else disk_path + '.sweep')
+        stats['source'] = 'sweep'
         if len(payload) <= 1:       # only '__grid__': nothing factored
             payload = {}
+        elif disk_path is not None:
+            gridcollapse.save_payload(disk_path, payload)
+        if disk_path is not None:
+            shutil.rmtree(disk_path + '.sweep', ignore_errors=True)
+        return self._keep_grid_payload(cache_key, vecs, payload, spec, stats)
+
+    def _keep_grid_payload(self, cache_key, vecs, payload, spec, stats):
+        """Check a swept or loaded payload's coefficient vectors against
+        the coefficient program, record `stats` and cache the payload in
+        memory."""
         self._check_coefficient_program(
             {name: p['cref'] for name, p in payload.items()
              if name != '__grid__'}, zip(spec.names, spec.ref))
