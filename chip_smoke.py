@@ -130,6 +130,38 @@ configuration, with no JAX:
      64 mocks): the two Bestfit tables within 1e-10 relative;
    it fails unless the sweep launched F_0 (the metal stack's too) at
    its layouts, each held against its plain version.
+11. eBOSS DR16 as published (phase dr16pub), configuration
+   synthetic-dr16-published-full: the combined fit that
+   examples/eBOSS_DR16/make_configs.py builds (testing.
+   make_dr16_published_dataset): four correlations (lyaxlya, lyaxlyb
+   2500 bins, lyaxqso, lybxqso 5000 bins), old_fftlog (the legacy
+   Hamilton-2000 operators on their own knot grid), old_growth_func,
+   binsize 4, the sky-residual broadband in both autos, five metals with
+   CIV(eff), the 18 sampled names and their priors, against
+   tests/data/torch_port_dr16pub_goldens.json:
+   - dense regime: chi^2 at the truth (its priors' chi^2), chi2_batch on
+     8192 rows of the 18 names (1e-8 relative against the JAX dense
+     chi^2; kernel vs plain route 1e-10), value and gradient at two
+     points (1e-8), evals/s, peak memory and the device shares of the
+     power-spectrum grids, the legacy transform's GEMMs, the combine, the
+     metal stacks and the broadband (CUDA events);
+   - vega_tpu's route for the names: the 4-dimension payload over (ap,
+     at, drp_QSO, sigma_velo_disp_lorentz_QSO) swept cold into an empty
+     cache; the crosses served from it, the autos (their sky terms read
+     sampled names) densely: sweep and host time, T, kept modes,
+     dc_max, probe_err; chi2_batch at 8192 / 32768, kernels and idle
+     share of one call; the grid against the JAX dense chi^2 at the
+     golden points, reported (the sigma_velo node convergence of
+     ROADMAP.md section 3); a warm interface loads the payload with no
+     launch and serves a bit-equal chi2_batch;
+   - minimize() in that route (calls, wall time; the dense chi^2 at its
+     best fit against the JAX dense fit's, reported), then a dense
+     minimize() against the JAX dense fit (values 1e-2 / errors 1e-3 of
+     the JAX errors);
+   it fails unless the metal stacks launched F_0 on the dense path and
+   in the sweep, each launch layout (the legacy knot grid's among them)
+   held against its plain version. The legacy knot grid also joins the
+   edge layouts.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -179,6 +211,7 @@ DR16_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16_goldens.json'
 DESI_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_desi_goldens.json'
 TABLE6_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_table6_goldens.json'
 TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
+DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 # the payload's node-convergence floor against the dense chi^2 (vega_tpu
 # measured 1.6e-3 at most on the reference data, docs/performance.md:
 # 178-181) and vega_tpu's warning line for the held-out probe bound
@@ -211,9 +244,12 @@ KERNEL_GRAD_RTOL = 1e-10     # use_kernel=True vs False, gradients
 KERNEL_HESS_RTOL = 1e-9      # and Hessians
 # best fits: |d value| <= FIT_VALUE_SIGMA x the JAX error, errors within
 # FIT_ERROR_RTOL, |d fval| <= FIT_FVAL_ABS
-FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3, 'joint': 1e-2}
-FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5, 'joint': 1e-3}
-FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8, 'joint': 1e-4}
+FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3, 'joint': 1e-2,
+                   'published': 1e-2}
+FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5, 'joint': 1e-3,
+                  'published': 1e-3}
+FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8, 'joint': 1e-4,
+                'published': 1e-4}
 # the desi phase's global mock against the JAX one: the same numpy draw
 # around each package's own best fit; its dense calls take 1.6 s each, so
 # two timed rounds
@@ -493,13 +529,27 @@ def edge_cases(rng, device, grid, n_ell):
     return cases
 
 
-def check_edge_layouts(device, grid, n_ell):
+def legacy_knot_grid(device, main_ini):
+    """The old_fftlog knot grid of the configuration's k grid (the
+    legacy Hamilton-2000 operators' log r - dr/2)."""
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.ops.spline_combine import KnotGrid
+    from vega_tpu_torch.pktoxi import hamilton_operators
+    from vega_tpu_torch.vega_interface import parse_ini
+    template = parse_ini(main_ini)['fiducial']['filename']
+    k = read_fits(template)[1]['K'].astype(np.float64)
+    return KnotGrid.build(hamilton_operators(k, (0,), 2, True)[1], device)
+
+
+def check_edge_layouts(device, grid, n_ell, grid_label='mcfit'):
     """Every kernel (F_d, P_d, Ft_d, d = 0..3) against its plain version
-    at each of `edge_cases`; the transpose also bit for bit against a
-    second launch. Returns one record per kernel and case."""
+    at each of `edge_cases` on `grid` (named `grid_label`); the transpose
+    also bit for bit against a second launch. Returns one record per
+    kernel and case."""
     rng = np.random.default_rng(1)
     records = []
     for label, layout, inputs in edge_cases(rng, device, grid, n_ell):
+        label = f'{label} ({grid_label} knots)'
         worst = 0.0
         for primitive in ('F', 'P', 'Ft'):
             for order in range(4):
@@ -2661,6 +2711,277 @@ def run_table6_path(device, work, card, fit_ini):
     return launches, checks
 
 
+# ----------------------------------------------------------------------
+# eBOSS DR16 as published: four correlations, old_fftlog, old_growth_func,
+# binsize, the sky-residual broadband, 18 sampled names
+# ----------------------------------------------------------------------
+def dr16pub_shares(device, vega, batches):
+    """Device ms of one dense chi2_batch(batches) and of its parts: the
+    power-spectrum grids, the core transforms (the legacy GEMMs and the
+    core's combine), every combine (core and metal stacks), the metal
+    stacks (their own transforms and combines included) and the
+    broadband (CUDA events around each call)."""
+    from vega_tpu_torch import metals as metals_mod
+    from vega_tpu_torch import pktoxi as pktoxi_mod
+    models = list(vega.models.values())
+    hooks = {
+        'pk': [(m.Pk_core, 'compute_peak_smooth') for m in models],
+        'transform': [(m.PktoXi, 'compute') for m in models],
+        'core_combine': [(pktoxi_mod, 'spline_legendre_combine')],
+        'metal_combine': [(metals_mod, 'spline_legendre_combine')],
+        'metals': [(m.metals, 'compute') for m in models],
+        'broadband': [(m.broadband, 'compute') for m in models
+                      if m.broadband is not None]}
+    total, parts = device_shares(device, vega, batches, hooks)
+    gemms = parts['transform'] - parts['core_combine']
+    combine = parts['core_combine'] + parts['metal_combine']
+    named = {'power-spectrum grids': parts['pk'],
+             'legacy transform GEMMs (core)': gemms,
+             'combine (core and metals)': combine,
+             'metal stacks (their GEMMs and combines included)':
+                 parts['metals'],
+             'broadband': parts['broadband']}
+    rest = total - parts['pk'] - parts['transform'] - parts['metals'] \
+        - parts['broadband']
+    log(f'dr16pub dense chi2_batch({BATCH}) on CUDA events: {total:.1f} ms; '
+        + ', '.join(f'{k} {v:.1f} ms ({v / total:.1%})'
+                    for k, v in named.items())
+        + f'; the rest (chi^2, z evolution, masks) {rest:.1f} ms')
+    return total, named
+
+
+def run_dr16pub_path(device, work, card):
+    """Phase dr16pub (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import make_dr16_published_dataset
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(DR16PUB_GOLDENS.read_text())
+    names = goldens['names']
+    t_phase = time.perf_counter()
+    main_ini = make_dr16_published_dataset(Path(work) / 'dr16pub',
+                                           size='full', device=device)
+    log(f'dr16pub: configuration synthetic-dr16-published-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    if sorted(dense_vega.sample_params['limits']) != sorted(names):
+        fail(f'dr16pub samples {sorted(dense_vega.sample_params["limits"])}')
+    log(f'dr16pub dense: interface in {time.perf_counter() - t0:.2f} s; '
+        'metal pairs ' + ', '.join(
+            f'{n} {len(item.metal_correlations)} in '
+            f'{len(dense_vega.models[n].metals._stacked_plans)} classes'
+            for n, item in dense_vega.corr_items.items())
+        + '; knots ' + ', '.join(
+            f'{n} [{m.PktoXi.logr_knots[0]:.6f}, '
+            f'{m.PktoXi.logr_knots[-1]:.6f}] (old_fftlog '
+            f'{m.PktoXi.old_fftlog})' for n, m in dense_vega.models.items()))
+    truth = {n: dense_vega.params[n] for n in names}
+    rng = np.random.default_rng(0)
+    batches = {n: truth[n] + 0.01 * (abs(truth[n]) or 0.1)
+               * rng.normal(size=BATCH) for n in names}
+    launches, checks = {}, []
+
+    # --- the dense regime: counts from zero
+    seen = watch_metals(dense_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        chi2_truth = dense_vega.chi2(truth)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches['dr16pub_dense'] = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    checks += check_launches(device, 'dr16pub_dense', layouts)
+    prior = dense_vega.compute_prior_chi2(truth)
+    if not abs(chi2_truth - prior) < DEFAULT_CHI2_MAX:
+        fail(f'dr16pub chi2 at the truth {chi2_truth!r}, its priors\' '
+             f'{prior!r}')
+    chi2_np = chi2.cpu().numpy()
+    if chi2_np.shape != (BATCH,) or not np.all(np.isfinite(chi2_np)) \
+            or np.any(chi2_np >= 1e100):
+        fail('dr16pub dense chi2_batch is not finite of shape (8192,) '
+             'without a penalty')
+    n_metal = metal_launches(seen, 'F')
+    log(f'dr16pub dense chi2_batch({BATCH}), {len(names)} names: chi2 at '
+        f'the truth {chi2_truth!r} (the priors\' {prior!r}), first call '
+        f'{first_s:.3f} s, peak device memory {peak_gb:.2f} GB, chi2 in '
+        f'[{chi2_np.min():.6g}, {chi2_np.max():.6g}], kernel launches '
+        f'{launches["dr16pub_dense"]}, {n_metal} of F_0 from the metal '
+        'stacks at ' + '; '.join(layout_label(k[0], k[1], k[2:])
+                                 for k in seen))
+    if not n_metal:
+        fail('the dr16pub dense path launched no F_0 from metals.py')
+    plain = dense_vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
+    rel = float(np.max(np.abs(plain - chi2_np) / np.abs(plain)))
+    log(f'dr16pub dense kernel path vs plain path: max relative diff '
+        f'{rel:.3e}')
+    if not rel <= PLAIN_RTOL:
+        fail(f'dr16pub kernel path vs plain path differ by {rel:.3e}')
+    dense_want = np.asarray(goldens['chi2_dense'])
+    got = dense_vega.chi2_batch(goldens['points']).cpu().numpy()
+    rel = float(np.max(np.abs(got - dense_want) / np.abs(dense_want)))
+    deriv = goldens['derivatives']
+    grads = []
+    for point, value_w, grad_w in zip(deriv['points'], deriv['chi2'],
+                                      deriv['gradient']):
+        value, grad = dense_vega.chi2_value_and_gradient(point)
+        g = np.array([grad[n] for n in names])
+        grads.append(max(abs(value / value_w - 1), float(
+            np.max(np.abs(g - grad_w)) / np.max(np.abs(grad_w)))))
+    log(f'dr16pub dense vs JAX goldens: chi2 at {len(dense_want)} points '
+        f'max relative diff {rel:.3e}; value and gradient at {len(grads)} '
+        f'points {max(grads):.3e}')
+    if not rel <= GOLDEN_RTOL or not max(grads) <= GOLDEN_RTOL:
+        fail(f'dr16pub dense chi2 / gradient vs the JAX goldens differ by '
+             f'{rel:.3e} / {max(grads):.3e} > {GOLDEN_RTOL}')
+    times = []
+    for _ in range(TIMED_ROUNDS):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    dense_rate = BATCH / float(np.median(times))
+    log(f'dr16pub dense chi2_batch({BATCH}): {dense_rate:.1f} evals/s '
+        f'(median of {TIMED_ROUNDS}, s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)})')
+    dr16pub_shares(device, dense_vega, batches)
+
+    # --- vega_tpu's route for the 18 names: counts from zero
+    cache_dir = Path(work) / 'grid_cache_dr16pub'
+    with switch('VEGA_TPU_GRID_CACHE', None), \
+            switch('VEGA_TPU_GRID_CACHE_DIR', str(cache_dir)), \
+            switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        vega = VegaInterface(main_ini, device=device)
+        seen_grid = watch_metals(vega)
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            payload = vega.get_collapsed(frozenset(names))
+            torch.cuda.synchronize(device)
+            cold_s = time.perf_counter() - t0
+        launches['dr16pub_sweep'] = dict(LAUNCHES)
+        checks += check_launches(device, 'dr16pub_sweep', layouts)
+        stats = vega.grid_stats
+        spec = payload['__grid__']
+        log(f'dr16pub cold build: {spec}, {stats["nodes"]} swept nodes '
+            f'and probes; chi^2 constants {stats["constants_s"]:.3f} s, '
+            f'device sweep {stats["sweep_s"]:.3f} s, host payload build '
+            f'{stats["host_s"]:.3f} s, total {cold_s:.3f} s, peak device '
+            f'memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} '
+            f'GB; kernel launches {launches["dr16pub_sweep"]}, '
+            f'{metal_launches(seen_grid, "F")} of F_0 from the metal '
+            'stacks at ' + '; '.join(layout_label(k[0], k[1], k[2:])
+                                     for k in seen_grid))
+        served = set(payload) - {'__grid__'}
+        if served != {'lyaxqso', 'lybxqso'} or spec.names != (
+                'ap', 'at', 'drp_QSO', 'sigma_velo_disp_lorentz_QSO'):
+            fail(f'dr16pub: the payload serves {sorted(served)} over {spec}, '
+                 'vega_tpu\'s route the crosses over (ap, at, drp_QSO, '
+                 'sigma_velo_disp_lorentz_QSO)')
+        if stats['source'] != 'sweep' or not metal_launches(seen_grid, 'F'):
+            fail('dr16pub: no cold sweep, or no F_0 from the metal stacks '
+                 'in it')
+        for name in sorted(served):
+            p = payload[name]
+            log(f'  {name}: T = {p["cref"].shape[0]}, kept modes A '
+                f'{p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+                f'SVD rank A {p["B_A"].shape[1]} / sy {p["B_sy"].shape[1]}, '
+                f'dc_max {float(p["dc_max"]):.6g}, probe_err '
+                f'{float(p["probe_err"]):.6g}')
+        log('  lyaxlya, lyaxlyb: evaluated densely at the true values (the '
+            'sky terms read sampled names), as vega_tpu evaluates them')
+
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            chi2 = vega.chi2_batch(batches).cpu().numpy()
+        launches['dr16pub_grid'] = dict(LAUNCHES)
+        checks += check_launches(device, 'dr16pub_grid', layouts)
+        if not np.all(np.isfinite(chi2)) or np.any(chi2 >= 1e100):
+            fail('dr16pub grid-route chi2_batch is not finite')
+        rates = {}
+        for n_rows in GRID_BATCHES:
+            rows = {n: truth[n] + 0.01 * (abs(truth[n]) or 0.1)
+                    * rng.normal(size=n_rows) for n in names}
+            vega.chi2_batch(rows).cpu()
+            per_round = []
+            for _ in range(TIMED_ROUNDS):
+                for name in rows:
+                    rows[name] = rows[name] + 1e-9
+                t0 = time.perf_counter()
+                vega.chi2_batch(rows).cpu()
+                per_round.append(n_rows / (time.perf_counter() - t0))
+            rates[n_rows] = float(np.median(per_round))
+            log(f'dr16pub grid-route chi2_batch({n_rows}), {len(names)} '
+                f'names: {rates[n_rows]:.1f} evals/s (median of '
+                f'{TIMED_ROUNDS}; per round '
+                f'{", ".join(f"{r:.1f}" for r in per_round)})')
+        log(json.dumps({
+            'metric': 'likelihood evals/sec/chip',
+            'value': round(rates[BATCH], 3),
+            'unit': f'evals/s/chip (synthetic-dr16-published-full, '
+                    f'{len(names)} names, vega_tpu\'s route: crosses from '
+                    f'the payload, autos dense, batch={BATCH}, f64, 1 '
+                    f'chip(s), {card}, vega_tpu_torch, cold build='
+                    f'{cold_s:.1f}s; batch {GRID_BATCHES[1]}: '
+                    f'{rates[GRID_BATCHES[1]]:.1f}; dense: '
+                    f'{dense_rate:.1f})'}))
+        profile_call(f'dr16pub grid-route chi2_batch({BATCH})',
+                     lambda: vega.chi2_batch(batches).cpu(), device)
+        grid = vega.chi2_batch(goldens['points']).cpu().numpy()
+        d_grid = grid - dense_want
+        log(f'dr16pub grid route vs JAX dense goldens ({len(grid)} points, '
+            f'chi2 {dense_want.min():.6g} .. {dense_want.max():.6g}): '
+            f'd chi2 ' + ', '.join(f'{d:.6g}' for d in d_grid)
+            + f' (relative {np.max(np.abs(d_grid) / dense_want):.3e}); '
+            'reported, not enforced (the sigma_velo node convergence of '
+            'ROADMAP.md section 3)')
+
+        # --- the warm build: loads from the cache, launches nothing
+        warm = VegaInterface(main_ini, device=device)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        warm.get_collapsed(frozenset(names))
+        warm_s = time.perf_counter() - t0
+        warm_launches = sum(LAUNCHES.values())
+        same = torch.equal(warm.chi2_batch(goldens['points']),
+                           torch.as_tensor(grid, device=device))
+        log(f'dr16pub warm build: source {warm.grid_stats["source"]}, '
+            f'get_collapsed {warm_s:.3f} s, {warm_launches} kernel launches '
+            f'in it; chi2_batch at the golden points bit-equal to the cold '
+            f'interface\'s {same}')
+        if warm.grid_stats['source'] != 'disk' or warm_launches or not same:
+            fail('dr16pub warm build did not load the payload without a '
+                 'kernel launch, or serves another chi^2')
+        del warm
+
+    # --- the fits: vega_tpu's route, then the dense regime
+    seconds, counts = timed_fit(device, vega, 'dr16pub grid route')
+    best = vega.bestfit
+    want = goldens['fit_dense']
+    d_sigma = max(abs(best.values[n] - v) / e for n, v, e in
+                  zip(names, want['values'], want['errors']))
+    log(f'dr16pub grid-route fit: fval {best.fmin.fval!r}, valid '
+        f'{best.fmin.is_valid}; the dense chi^2 at its best fit '
+        f'{dense_vega.chi2(best.values)!r} (the JAX dense fit\'s '
+        f'{want["fval"]!r}); max |d value| from the JAX dense fit '
+        f'{d_sigma:.3e} errors; reported, not enforced')
+    timed_fit(device, dense_vega, 'dr16pub dense')
+    check_fit('dr16pub dense', 'published', dense_vega, names, want)
+    log(f'dr16pub phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -2758,8 +3079,11 @@ def main():
             f'{time.perf_counter() - t0:.2f} s')
         dense_launches, dense_checks, knot_grid = run_dense_path(
             device, main_ini)
-        edge_checks = check_edge_layouts(device, knot_grid,
-                                         dense_checks[0]['layout'][1])
+        n_ell = dense_checks[0]['layout'][1]
+        edge_checks = check_edge_layouts(device, knot_grid, n_ell)
+        edge_checks += check_edge_layouts(
+            device, legacy_knot_grid(device, main_ini), n_ell,
+            'old_fftlog')
         mark('dense')
         grid_launches, grid_checks = run_grid_path(device, main_ini, card)
         mark('grid')
@@ -2779,15 +3103,19 @@ def main():
         table6_launches, table6_checks = run_table6_path(device, work, card,
                                                          fit_ini)
         mark('table6')
+        dr16pub_launches, dr16pub_checks = run_dr16pub_path(device, work,
+                                                            card)
+        mark('dr16pub')
     log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
               + mc_checks + sampler_checks + dr16_checks + desi_checks
-              + table6_checks)
+              + table6_checks + dr16pub_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
-         **dr16_launches, **desi_launches, **table6_launches},
+         **dr16_launches, **desi_launches, **table6_launches,
+         **dr16pub_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -333,7 +333,12 @@ def test_global_mock_matches_jax(desi):
 def test_initialize_monte_carlo_draws_the_global_mock(desi):
     """initialize_monte_carlo on the joint covariance (its initial fit
     replaced by the values at hand) draws the joint mock of [control]
-    mc_seed, as vega_tpu's does, and the chi^2 reads it."""
+    mc_seed, as vega_tpu's does, and the chi^2 reads it. A mock is each
+    package's own fiducial model plus the draw L @ N(0, 1): the draw is
+    numpy's on both sides (the same seed, Cholesky factor and product)
+    and is held to 1e-14 of its largest entry; the fiducials are two
+    implementations' models, held to XI_RTOL as every model here, and so
+    is the mock."""
     port, ref = desi['port']['joint'], desi['jax']['joint']
     saved = [(v, v.mc_config, v.minimizer) for v in (port, ref)]
     try:
@@ -344,7 +349,15 @@ def test_initialize_monte_carlo_draws_the_global_mock(desi):
         got = port.initialize_monte_carlo()
         want = np.asarray(ref.initialize_monte_carlo())
         assert port.monte_carlo
-        assert max_rel(got, want) <= 1e-14
+        mask, fid_got = port.analysis._global_mock_pieces(
+            port.compute_model({}))
+        mask_want, fid_want = ref.analysis._global_mock_pieces(
+            ref.compute_model({}, run_init=False))
+        assert np.array_equal(mask, mask_want)
+        fid_got, fid_want = fid_got[mask], fid_want[mask]
+        assert max_rel(fid_got, fid_want) <= XI_RTOL
+        assert max_rel(got - fid_got, want - fid_want) <= 1e-14
+        assert max_rel(got, want) <= XI_RTOL
         assert port.chi2() == pytest.approx(ref.chi2(), rel=CHI2_RTOL)
     finally:
         for vega, mc_config, minimizer in saved:

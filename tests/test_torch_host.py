@@ -25,6 +25,7 @@ from vega_tpu.statics import resolve
 from vega_tpu.testing import make_synthetic_dataset as jax_make_dataset
 from vega_tpu.vega_interface import VegaInterface as JaxInterface
 from vega_tpu_torch import mocks, state
+from vega_tpu_torch.broadband_poly import BroadbandPolynomials
 from vega_tpu_torch.correlation_func import CorrelationFunction
 from vega_tpu_torch.model import Model
 from vega_tpu_torch.pktoxi import PktoXi
@@ -309,7 +310,7 @@ def test_synthetic_dataset_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize('cls', [Model, PowerSpectrum, CorrelationFunction,
-                                 PktoXi])
+                                 PktoXi, BroadbandPolynomials])
 def test_model_constructors_require_a_device(cls):
     """Nothing under VegaInterface picks a device of its own."""
     device = inspect.signature(cls).parameters['device']
@@ -343,7 +344,8 @@ new = {'vega_tpu_torch.factored', 'vega_tpu_torch.gridcollapse',
        'vega_tpu_torch.output', 'vega_tpu_torch.postprocess',
        'vega_tpu_torch.postprocess.fit_results',
        'vega_tpu_torch.scripts.run_vega_mc',
-       'vega_tpu_torch.scripts.run_vega_mc_fits'}
+       'vega_tpu_torch.scripts.run_vega_mc_fits',
+       'vega_tpu_torch.broadband_poly'}
 assert new <= set(names), sorted(new - set(names))
 print('ok', len(names))
 '''

@@ -620,7 +620,9 @@ def test_plain_combine_matches_pallas_at_a_metal_layout():
     ('model', 'fullshape smoothing = gauss', 'Full-shape smoothing'),
     ('model', 'skip-nl-model-in-peak = True', 'skip-nl-model-in-peak'),
     ('model', 'velocity dispersion = gauss', 'Velocity dispersion'),
-    ('broadband', 'bb1 = add pre rp,rt 0:0:1 0:0:1', 'Broadband'),
+    ('model', 'fht_extrap = True', 'fht_extrap'),
+    ('model', 'marginalize-below-rtmax = 20.',
+     'Small-scale marginalization'),
 ])
 def test_unported_options_still_raise(variants, tmp_path, section, line,
                                       match):

@@ -3,7 +3,8 @@
 Counterpart of vega_tpu/correlation_func.py: the AP coordinate rescaling
 and Hankel transform (`compute_core`, `_rescale_coords`, :175-221), the
 standard bias redshift evolution (:250-276, the mean evolution), the
-growth factor (:290-307), dense and factored (`compute`, :97-120), the
+growth factor (:290-307, or the legacy 100-point integration of
+old_growth_func, :309-331), dense and factored (`compute`, :97-120), the
 QSO radiation of the cross (`compute_qso_radiation`, :336-364; factored
 as one term whose coefficient is its strength) and the template of the
 DESI instrumental systematics (:389-415), which model.py adds. Host
@@ -27,6 +28,32 @@ from .utils import col, find_file, not_ported, to_tensor
 DESI_INST_SYS_AMP = 0.0003189935987295203
 
 
+def compute_growth_old(z_grid, z_fid, Omega_m, Omega_de):
+    """The deprecated growth factor squared, D(z) from a 100-point
+    integration on [0, 5] interpolated linearly, on the host
+    (vega_tpu/correlation_func.py:309-331, kept for the DR16
+    configurations that set old_growth_func)."""
+    from scipy.integrate import quad
+
+    def hubble(z):
+        return np.sqrt(Omega_m * (1 + z) ** 3 + Omega_de
+                       + (1 - Omega_m - Omega_de) * (1 + z) ** 2)
+
+    def dD1(a):
+        z = 1 / a - 1
+        return 1. / (a * hubble(z)) ** 3
+
+    nbins, zmax = 100, 5.
+    z = zmax * np.arange(nbins, dtype=float) / (nbins - 1)
+    d1 = np.zeros(nbins)
+    for i in range(nbins):
+        a = 1 / (1 + z[i])
+        d1[i] = 2.5 * Omega_m * hubble(z[i]) * quad(dD1, 0, a)[0]
+    d1_interp = interp1d(z, d1)
+    growth = d1_interp(z_grid) / d1_interp(z_fid)
+    return growth ** 2
+
+
 class CorrelationFunction:
     """xi-space model (reference: correlation_func.py:10-115)."""
 
@@ -47,8 +74,7 @@ class CorrelationFunction:
         for option, feature in (
                 ('relativistic correction', 'Relativistic correction'),
                 ('standard asymmetry', 'Standard asymmetry'),
-                ('UVB-shotnoise', 'UV shotnoise'),
-                ('old_growth_func', 'old_growth_func')):
+                ('UVB-shotnoise', 'UV shotnoise')):
             if config.getboolean(option, False):
                 raise not_ported(feature, 4)
         if config.getint('single_multipole', -1) >= 0:
@@ -82,7 +108,9 @@ class CorrelationFunction:
         z_fid = fiducial['z_fiducial']
         omega_m = fiducial.get('Omega_m', None)
         omega_de = fiducial.get('Omega_de', None)
-        if omega_de is None:
+        if config.getboolean('old_growth_func', False):
+            growth = compute_growth_old(self._z, z_fid, omega_m, omega_de)
+        elif omega_de is None:
             growth = ((1 + z_fid) / (1. + np.asarray(self._z))) ** 2
         else:
             growth = (growth_function(self._z, omega_m, omega_de)

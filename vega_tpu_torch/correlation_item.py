@@ -3,9 +3,9 @@
 Counterpart of vega_tpu/correlation_item.py for the dense likelihood:
 tracer info, config sections, coordinates, the metal correlation list,
 the stacked-delta weights files of the new-metals mode and the cosmology
-of the data file's header, which the new-metals matrices read. Broadband
-and small-scale marginalization are not ported yet and raise at
-construction.
+of the data file's header, which the new-metals matrices read, and the
+broadband's binning. Small-scale marginalization is not ported yet and
+raises at construction.
 """
 
 from __future__ import annotations
@@ -55,8 +55,7 @@ class CorrelationItem:
                 self.tracer2['weights-path'] = self.tracer1['weights-path']
         self.test_flag = config['data'].getboolean('test', False)
         self.has_metals = False
-        if 'broadband' in config:
-            raise not_ported('Broadband polynomials', 4)
+        self.has_bb = False
         marg_options = ('marginalize-below-rtmax', 'marginalize-above-rtmin',
                         'marginalize-below-rpmax', 'marginalize-above-rpmin')
         if (any(config['model'].getfloat(opt, 0) > 0 for opt in marg_options)
@@ -77,6 +76,11 @@ class CorrelationItem:
             if corr_hash not in self.metal_correlations:
                 self.metal_correlations.append(corr_hash)
         self.has_metals = True
+
+    def init_broadband(self, coeff_binning_model):
+        """(vega_tpu/correlation_item.py:98-100)"""
+        self.coeff_binning_model = coeff_binning_model
+        self.has_bb = True
 
     def init_cosmo(self, cosmo_params):
         """The data file's cosmology (vega_tpu/correlation_item.py:111-117)."""

@@ -71,9 +71,9 @@ class Data:
         self.scaled_log_cov_det = None
 
     def _wire_corr_item(self, corr_item):
-        """Hand the metal grids and matrices read here and the FITS
-        header's cosmology to the CorrelationItem (vega_tpu/data.py:94-108
-        without broadband)."""
+        """Hand the metal grids and matrices read here, the broadband's
+        model binning and the FITS header's cosmology to the
+        CorrelationItem (vega_tpu/data.py:94-108)."""
         if 'metals' in corr_item.config:
             metal_config = corr_item.config['metals']
             if corr_item.new_metals:
@@ -82,6 +82,8 @@ class Data:
             else:
                 catalog, pairs = self._init_metals(metal_config)
             corr_item.init_metals(catalog, pairs)
+        if 'broadband' in corr_item.config:
+            corr_item.init_broadband(self.coeff_binning_model)
         if self.cosmo_params is not None:
             corr_item.init_cosmo(self.cosmo_params)
 
@@ -225,6 +227,7 @@ class Data:
 
         self.model_coordinates = None
         self.dist_model_coordinates = None
+        self.coeff_binning_model = 1
         if dmat_path is not None:
             self._read_dmat(dmat_path)
         elif len(hdul) > 2:
@@ -346,9 +349,9 @@ class Data:
         self._distortion_mat = self._column(hdul[1].columns, 'DM', 'DM_BLIND')
         if self._distortion_mat is None:
             raise ValueError('No DM or DM_BLIND column in distortion file.')
-        coeff_binning_model = header['COEFMOD']
+        self.coeff_binning_model = header['COEFMOD']
         self.model_coordinates = self._coords(
-            header, np_factor=coeff_binning_model,
+            header, np_factor=self.coeff_binning_model,
             rp_grid=hdul[2]['RP'], rt_grid=hdul[2]['RT'],
             z_grid=hdul[2]['Z'])
         self.dist_model_coordinates = self._coords(header)

@@ -516,9 +516,10 @@ class Metals:
     @staticmethod
     def _class_shared_factors(pk_obj, local_pars):
         """Multiplicative (mu_k, k) factors shared by every pair of a
-        class (vega_tpu/metals.py:446-488): the binning window, the
-        velocity dispersion and the McDonald term."""
-        factor = pk_obj._common_factors(local_pars)
+        class (vega_tpu/metals.py:446-488): the binning window (the
+        static one: vega_tpu's stacked path reads no `par / per binsize`
+        parameter), the velocity dispersion and the McDonald term."""
+        factor = pk_obj._common_factors(local_pars, binsize_overrides=False)
         if (pk_obj.small_scale_nl is not None
                 and 'mcdonald' in pk_obj.small_scale_nl):
             dnl = pk_obj.compute_dnl_mcdonald()

@@ -2,18 +2,20 @@
 distortion matrix.
 
 Counterpart of vega_tpu/model.py (`compute`, :211-245) with the metal
-correlations (metals.py) and the DESI instrumental systematics
-(:84-86,136-148: amplitude x a static template on the smooth component),
-without broadband. The distortion matrix, where the data carry one that
-is not the identity, is a dense f64 matmul (vega_tpu/model.py:93-97,
+correlations (metals.py), the DESI instrumental systematics
+(:84-86,136-148: amplitude x a static template on the smooth component)
+and the broadband polynomials before and after the distortion
+(:59-63,149-160,180-209). The distortion matrix, where the data carry one
+that is not the identity, is a dense f64 matmul (vega_tpu/model.py:93-97,
 152-157).
 
 With a `Sampling` the model takes the factored path where it can and
 returns a FactoredXi whose terms are the peak's then the smooth's, in
 the order of vega_tpu's: per component the Kaiser terms, the QSO
 radiation's (smooth), the metals', the instrumental systematics'
-(smooth); `coefficients` is its coefficient part, run per evaluation on
-(B,) tensors.
+(smooth), the additive broadband's before the distortion, then after it;
+`coefficients` is its coefficient part, run per evaluation on (B,)
+tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from . import correlation_func as corr_func
 from . import metals, pktoxi, power_spectrum
-from .factored import FactoredXi, densify, stack_coefficients
+from .broadband_poly import BroadbandPolynomials
+from .factored import FactoredXi, RecordingParams, densify, stack_coefficients
 from .utils import col, to_tensor
 
 
@@ -40,6 +43,13 @@ class Model:
             str(corr_item.data_coordinates.rp_binsize)
         corr_item.config['model']['bin_size_rt'] = \
             str(corr_item.data_coordinates.rt_binsize)
+
+        self.broadband = None
+        if 'broadband' in corr_item.config:
+            self.broadband = BroadbandPolynomials(
+                corr_item.config['broadband'], corr_item.name,
+                corr_item.model_coordinates, corr_item.dist_model_coordinates,
+                device=self.device)
 
         self.Pk_core = power_spectrum.PowerSpectrum(
             corr_item.config['model'], fiducial, corr_item.tracer1,
@@ -104,12 +114,42 @@ class Model:
                 xi_model = xi_model.add_vec(vec, coeff=coeff)
             else:
                 xi_model = xi_model + col(coeff, 1) * vec
+        if self.broadband is not None:
+            xi_model = self._apply_broadband(xi_model, pars, 'pre', sampling)
         if self._dist_mat is not None:
             if isinstance(xi_model, FactoredXi):
                 xi_model = xi_model.matmul(self._dist_mat)
             else:
                 xi_model = xi_model @ self._dist_mat.T
+        if self.broadband is not None:
+            xi_model = self._apply_broadband(xi_model, pars, 'post',
+                                             sampling)
         return xi_model, bad
+
+    def _apply_broadband(self, xi_model, pars, position, sampling):
+        """The multiplicative then the additive broadband of one position
+        (vega_tpu/model.py:180-209). A factored xi stays factored: a
+        multiplicative polynomial that read no sampled name scales the
+        basis rows, the additive columns become terms. A sampled
+        multiplicative coefficient densifies and applies both stages here;
+        a sky term that read a sampled name densifies before the additive
+        stage."""
+        broadband = self.broadband
+        if isinstance(xi_model, FactoredXi):
+            rec = RecordingParams(pars, sampling)
+            bb_mul = broadband.compute(rec, f'{position}-mul')
+            if rec.traced():
+                return (xi_model.dense() * bb_mul
+                        + broadband.compute(pars, f'{position}-add'))
+            if isinstance(bb_mul, torch.Tensor):
+                xi_model = xi_model.mul_vec(bb_mul)
+            terms = broadband.compute_add_terms(pars, position, sampling)
+            if terms is None:
+                return (xi_model.dense()
+                        + broadband.compute(pars, f'{position}-add'))
+            return xi_model.add_terms(terms)
+        xi_model = xi_model * broadband.compute(pars, f'{position}-mul')
+        return xi_model + broadband.compute(pars, f'{position}-add')
 
     def _inst_sys_term(self, pars):
         """(coefficient, template) of the instrumental systematics."""
@@ -189,7 +229,9 @@ class Model:
         the QSO radiation's strength (smooth), the metals' weight x (1,
         b1 + b2, b1 b2) per pair (the smooth's alone with
         no-metal-decomp, both without), the instrumental systematics'
-        amplitude (smooth). Reads only scalars and (B,) tensors."""
+        amplitude (smooth), each component's additive broadband
+        coefficients before, then after, the distortion. Reads only
+        scalars and (B,) tensors."""
         kaiser = self.Pk_core.kaiser_coefficients(pars)
         metal = [] if self.metals is None else self.metals.coefficients(pars)
         peak = kaiser if self.metals is None or self.no_metal_decomp \
@@ -197,6 +239,10 @@ class Model:
         smooth = kaiser + self.Xi_core.radiation_coefficients(pars) + metal
         if self._inst_sys_template is not None:
             smooth.append(self._inst_sys_term(pars)[0])
+        if self.broadband is not None:
+            bb = (self.broadband.add_coefficients(pars, 'pre')
+                  + self.broadband.add_coefficients(pars, 'post'))
+            peak, smooth = peak + bb, smooth + bb
         coeffs = [pars['bao_amp'] * c for c in peak] + smooth
         return stack_coefficients(coeffs, self.Pk_core._muk_t).expand(
             n_rows, len(coeffs))

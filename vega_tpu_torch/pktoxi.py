@@ -15,6 +15,11 @@ runs on the device as
 The r = 0 mask and the out-of-range flag are computed here, outside the
 kernel (vega_tpu/pktoxi.py:334-336,353-355).
 
+With old_fftlog the operators of step 2 are the legacy Hamilton-2000
+ones (`hamilton_operators`, vega_tpu/pktoxi.py:68-110) on their own knot
+grid, log r - dr/2 with the last knot's row zero, and their own spline
+operators; step 3 is the same kernel on that grid.
+
 A FactoredPk (vega_tpu/pktoxi.py:295-324) takes steps 1-2 once for its T
 basis grids, whatever the coordinates: (T, n_muk, n_k) -> (T, L, n_k)
 knot tables, kept on the FactoredPk. When the rescaled coordinates do
@@ -30,6 +35,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from numpy import fft as npfft
+from scipy.special import loggamma
 
 from .factored import FactoredXi, stack_coefficients
 from .ops.fftlog import FFTLogP2Xi
@@ -52,6 +59,48 @@ LEGENDRE_COEFFS = {
 }
 
 
+def hamilton_operators(k, ell_vals, n_exp, project_scale):
+    """Dense operators of the legacy Hamilton-2000 transform (the
+    conventions of the reference's Pk2Mp; vega_tpu/pktoxi.py:68-110):
+    (ops (n_ell, n_r, n_k), logr_knots (n_r,)), ops[i] mapping the input
+    spectrum (a multipole if project_scale, else the raw 1D pk) to xi at
+    the shifted knots log(r) - dr/2, the last knot's row zero."""
+    k = np.asarray(k, dtype=np.float64)
+    k0 = k[0]
+    log_span = np.log(k.max() / k0)
+    n = len(k)
+    emm = n * npfft.fftfreq(n)
+    r = 1.0 * np.exp(-emm * log_span / n)
+    dr = abs(np.log(r[1] / r[0]))
+    order = np.argsort(r)
+    r_sorted = r[order]
+
+    q = 2.0 - n_exp - 0.5
+    x = q + 2j * np.pi * emm / log_span
+
+    ops = []
+    for ell in ell_vals:
+        mu = ell + 0.5
+        lg1 = loggamma((mu + 1 + x) / 2)
+        lg2 = loggamma((mu + 1 - x) / 2)
+        um = (k0 * 1.0) ** (-2j * np.pi * emm / log_span) \
+            * 2 ** x * np.exp(lg1 - lg2)
+        um[0] = um[0].real
+        # input -> fft -> * um -> ifft -> sort -> / r^(3 - n)
+        weight = k ** n_exp * np.sqrt(np.pi / 2)
+        if project_scale:
+            # the standard path folds (-1)^(ell//2) / (2 pi^2) into the
+            # projected multipole (the reference's pktoxi.py:260)
+            weight = weight * ((-1.0) ** (ell // 2) / (2 * np.pi ** 2))
+        basis = np.eye(n) * weight[None, :]
+        an = npfft.fft(basis, axis=1) * um[None, :]
+        xi_rows = npfft.ifft(an, axis=1)[:, order].real
+        xi_rows /= r_sorted[None, :] ** (3 - n_exp)
+        xi_rows[:, -1] = 0.0
+        ops.append(np.ascontiguousarray(xi_rows.T))
+    return np.stack(ops), np.log(r_sorted) - dr / 2
+
+
 def legendre(ell, x):
     """P_ell(x) by Horner's rule on the monomial coefficients."""
     coeffs = LEGENDRE_COEFFS[ell]
@@ -71,9 +120,8 @@ class PktoXi:
         self.muk_weights = np.asarray(muk_weights, dtype=np.float64)
 
         self.ell_max = config.getint('ell_max', 6)
-        if config.getboolean('old_fftlog', False):
-            raise not_ported('old_fftlog', 4)
-        if config.getboolean('fht_extrap', False):
+        self.old_fftlog = config.getboolean('old_fftlog', False)
+        if config.getboolean('fht_extrap', False) and not self.old_fftlog:
             raise not_ported('fht_extrap', 4)
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
@@ -87,10 +135,14 @@ class PktoXi:
             for ell in self.ell_vals
         ])                                                  # (n_ell, n_muk)
 
-        fftlogs = [FFTLogP2Xi(self.k_grid, ell, lowring=lowring)
-                   for ell in self.ell_vals]
-        logr = np.log(fftlogs[0].r_grid)
-        ops = np.stack([f.operator() for f in fftlogs])
+        if self.old_fftlog:
+            ops, logr = hamilton_operators(self.k_grid, self.ell_vals,
+                                           n_exp=2, project_scale=True)
+        else:
+            fftlogs = [FFTLogP2Xi(self.k_grid, ell, lowring=lowring)
+                       for ell in self.ell_vals]
+            logr = np.log(fftlogs[0].r_grid)
+            ops = np.stack([f.operator() for f in fftlogs])
         s_mat = notaknot_second_derivative_matrix(logr)
         # pk_ell -> spline second derivatives, fused into one operator
         # (the JAX package's np.einsum('ij,ljk->lik', ...) as one BLAS

@@ -3,10 +3,11 @@
 Counterpart of vega_tpu/power_spectrum.py: `compute_peak_smooth`
 (vega_tpu/power_spectrum.py:203-320), dense and factored, and the
 single-component `compute` the metal correlations use, with the factors
-of a DR16-shaped configuration: the static binning window G(k), the
-Lorentzian velocity dispersion, the BAO peak broadening, the HCD
-effective biases (Rogers, fvoigt, sinc), the small-scale non-linear
-terms (Arinyo, McDonald) and the division-free Kaiser polynomial. Every
+of a DR16-shaped configuration: the binning window G(k), static or with
+the per-dataset `par / per binsize <name>` parameters, the Lorentzian
+velocity dispersion, the BAO peak broadening, the HCD effective biases
+(Rogers, fvoigt, sinc), the small-scale non-linear terms (Arinyo,
+McDonald) and the division-free Kaiser polynomial. Every
 other factor raises NotImplementedError naming its ROADMAP.md item.
 
 Parameters arrive as a dict of Python floats and (B,) tensors; a factor
@@ -191,10 +192,6 @@ class PowerSpectrum:
         common or peak factor read a sampled name that is not a grid
         name, both components come back as FactoredPk
         (vega_tpu/power_spectrum.py:298-315)."""
-        if (f'par binsize {self._name}' in params
-                or f'per binsize {self._name}' in params):
-            raise not_ported('Per-dataset binsize parameters', 4)
-
         def mul(acc, fac):
             if fac is None:
                 return acc
@@ -234,10 +231,17 @@ class PowerSpectrum:
         kaiser = self.compute_kaiser_poly(params)
         return peak_static * kaiser, smooth_static * kaiser, bad
 
-    def _common_factors(self, params):
+    def _common_factors(self, params, binsize_overrides=True):
         """G(k) and the velocity dispersion, or None
-        (vega_tpu/power_spectrum.py:232-265)."""
-        common = self.pk_Gk if self.use_Gk else None
+        (vega_tpu/power_spectrum.py:232-265). With `binsize_overrides`
+        False G(k) is the static window whatever the parameters say, as
+        vega_tpu's stacked metal path takes it
+        (vega_tpu/metals.py:456-457)."""
+        common = None
+        if self.use_Gk:
+            common = (self.compute_Gk(params)
+                      if binsize_overrides and self._has_binsize(params)
+                      else self.pk_Gk)
         if self.velocity_dispersion == 'lorentz':
             lorentz = self.compute_velocity_dispersion_lorentz(params)
             common = lorentz if common is None else common * lorentz
@@ -271,13 +275,35 @@ class PowerSpectrum:
         if nl is not None:
             factor = factor * nl
         if self.use_Gk:
-            factor = factor * self.pk_Gk
+            factor = factor * (self.compute_Gk(params)
+                               if self._has_binsize(params) else self.pk_Gk)
         if self.velocity_dispersion == 'lorentz':
             factor = factor * self.compute_velocity_dispersion_lorentz(params)
         pk_full = pk_lin * factor
         if bool(params['peak']):
             pk_full = pk_full * self.compute_peak_nl(params)
         return pk_full, bad
+
+    def _has_binsize(self, params):
+        """Whether the parameters carry this dataset's bin sizes."""
+        return (f'par binsize {self._name}' in params
+                or f'per binsize {self._name}' in params)
+
+    def compute_Gk(self, params):
+        """The binning window with the per-dataset `par / per binsize
+        <name>` parameters in place of the data's bin sizes
+        (vega_tpu/power_spectrum.py:653-668): (mu_k, k), or (B, mu_k, k)
+        for a batched bin size."""
+        bin_size_rp = params.get(f'par binsize {self._name}',
+                                 self._bin_size_rp)
+        bin_size_rt = params.get(f'per binsize {self._name}',
+                                 self._bin_size_rt)
+        gk = 1.
+        if not (isinstance(bin_size_rp, float) and bin_size_rp == 0):
+            gk = gk * utils.sinc(self.k_par_grid * col(bin_size_rp, 2) / 2)
+        if not (isinstance(bin_size_rt, float) and bin_size_rt == 0):
+            gk = gk * utils.sinc(self.k_trans_grid * col(bin_size_rt, 2) / 2)
+        return gk
 
     # ------------------------------------------------------------------
     # Kaiser decomposition for the factored path

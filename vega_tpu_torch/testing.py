@@ -15,11 +15,15 @@ matrices); with `new_metals=True` instead the stacked-delta weights files
 and a [metal-matrix] section, from which the model computes its metal
 matrices (the DESI DR1 set-up, examples/DESI_data_setup/make_configs.py).
 `global_cov=True` writes the block-diagonal joint covariance as
-vega_tpu's does.
+vega_tpu's does. `make_dr16_published_dataset` writes eBOSS DR16's
+flagship configuration as examples/eBOSS_DR16/make_configs.py builds it
+(four correlations, the DR16 compatibility switches, the sky residual),
+on synthetic data.
 """
 
 from __future__ import annotations
 
+import configparser
 from pathlib import Path
 
 import numpy as np
@@ -559,4 +563,205 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
             zeff=z_eff, global_cov_file=global_cov_file,
             extra_control=extra_control))
 
+    return main_path
+
+
+# eBOSS DR16 as published (du Mas des Bourboux et al. 2020, Table 6): the
+# combined auto + cross fit of examples/eBOSS_DR16/make_configs.py, whose
+# dictionaries vega_tpu's BuildConfig turns into these ini sections
+# (vega_tpu/build_config.py:222-419,494-560): DR16_OPTIONS (:45-56:
+# Rogers HCD, Arinyo NL in the autos, BAO broadening, Lorentzian velocity
+# dispersion, five metals through the metal files with fast_metals,
+# bias_eta parameters), DR16_EXTRA_MODEL (:59-60), the sky-residual
+# broadband SKY_BB in both autos (:62), binsize 4 (par / per binsize
+# <name> in each correlation's [parameters]), PARAMETERS (:96-121) and
+# PRIORS (:91-94), and the combined fit's 18 sampled names (:174-177).
+# `test = True` under [data] reads identity metal matrices from metal
+# files without distortion columns. With make_dr16_published_dataset this
+# is the configuration synthetic-dr16-published.
+DR16PUB_CORRELATIONS = ('lyaxlya', 'lyaxlyb', 'lyaxqso', 'lybxqso')
+DR16PUB_METALS = ('CIV(eff)', 'SiII(1260)', 'SiIII(1207)', 'SiII(1193)',
+                  'SiII(1190)')
+DR16PUB_ZEFF = 2.334
+DR16PUB_EXTRA_MODEL = {'old_fftlog': 'True', 'old_growth_func': 'True',
+                       'ell-max': '6'}
+DR16PUB_SKY_BB = {'bb1': 'add pre rp,rt 0:0:1 0:0:1 broadband_sky'}
+# the main [parameters] BuildConfig resolves from PARAMETERS and the sky
+# defaults of make_configs.py's sky_params (in its order and text)
+DR16PUB_PARAMETERS = {
+    'ap': '1.0', 'at': '1.0', 'sigmaNL_per': '3.24',
+    'sigmaNL_par': '6.36984', 'bao_amp': '1.0',
+    'beta_LYA': '1.669', 'bias_eta_LYA': '-0.201',
+    'growth_rate': '0.970386', 'alpha_LYA': '2.9',
+    'beta_QSO': '0.26', 'bias_eta_QSO': '1', 'alpha_QSO': '1.44',
+    'dnl_arinyo_q1': '0.303', 'dnl_arinyo_q2': '0.267',
+    'dnl_arinyo_kv': '0.576', 'dnl_arinyo_av': '0.443',
+    'dnl_arinyo_bv': '1.66', 'dnl_arinyo_kp': '11.062',
+    'bias_hcd': '-0.0523', 'beta_hcd': '0.646', 'L0_hcd': '10.0',
+    'drp_QSO': '0.0', 'sigma_velo_disp_lorentz_QSO': '6.86',
+    'bias_eta_CIV(eff)': '-0.0052', 'beta_CIV(eff)': '0.27',
+    'alpha_CIV(eff)': '1.0',
+    'bias_eta_SiII(1260)': '-0.0027', 'beta_SiII(1260)': '0.5',
+    'alpha_SiII(1260)': '1.0',
+    'bias_eta_SiIII(1207)': '-0.0045', 'beta_SiIII(1207)': '0.5',
+    'alpha_SiIII(1207)': '1.0',
+    'bias_eta_SiII(1193)': '-0.002', 'beta_SiII(1193)': '0.5',
+    'alpha_SiII(1193)': '1.0',
+    'bias_eta_SiII(1190)': '-0.0029', 'beta_SiII(1190)': '0.5',
+    'alpha_SiII(1190)': '1.0',
+    'BB-lyaxlya-0-broadband_sky-scale-sky': '0.01',
+    'BB-lyaxlya-0-broadband_sky-sigma-sky': '31.0',
+    'BB-lyaxlyb-0-broadband_sky-scale-sky': '0.01',
+    'BB-lyaxlyb-0-broadband_sky-sigma-sky': '31.0',
+}
+SKY_NAMES = tuple(f'BB-{name}-0-broadband_sky-{kind}-sky'
+                  for name in ('lyaxlya', 'lyaxlyb')
+                  for kind in ('scale', 'sigma'))
+# the combined fit's [sample] (make_configs.py:66-89,174-177)
+DR16PUB_SAMPLE = {
+    'ap': 'True', 'at': 'True', 'bias_eta_LYA': 'True', 'beta_LYA': 'True',
+    'bias_hcd': 'True', 'beta_hcd': 'True',
+    **{f'bias_eta_{m}': '-0.02 0. -0.003 0.01'
+       for m in ('SiII(1260)', 'SiIII(1207)', 'SiII(1193)', 'SiII(1190)',
+                 'CIV(eff)')},
+    'drp_QSO': 'True', 'sigma_velo_disp_lorentz_QSO': 'True',
+    'beta_QSO': 'True',
+    **{name: ('0 0.5 0.01 0.1' if 'scale' in name else '10 60 31. 0.1')
+       for name in SKY_NAMES},
+}
+DR16PUB_PRIORS = {'beta_hcd': 'gaussian 0.5 0.09',
+                  'bias_eta_CIV(eff)': 'gaussian -0.005 0.0026'}
+
+
+def _ini_parser():
+    config = configparser.ConfigParser()
+    config.optionxform = lambda option: option
+    return config
+
+
+def dr16_published_correlation(name, data_file, metal_file, size='full'):
+    """One correlation's ini of the published configuration, as
+    vega_tpu's BuildConfig writes it from make_configs.py's `corr_info`
+    (a ConfigParser; size='tiny' adds the synthetic configuration's
+    small mu_k grid to [model])."""
+    is_cross = name.endswith('xqso')
+    tracer2 = ('QSO', 'discrete') if is_cross else ('LYA', 'continuous')
+    config = _ini_parser()
+    config['data'] = {
+        'name': name, 'tracer1': 'LYA', 'tracer2': tracer2[0],
+        'tracer1-type': 'continuous', 'tracer2-type': tracer2[1],
+        'filename': str(data_file), 'test': 'True'}
+    config['cuts'] = {
+        'rp-min': '-200.0' if is_cross else '0.0', 'rp-max': '+300.',
+        'rt-min': '0', 'rt-max': '300.', 'r-min': '10.0', 'r-max': '180.0',
+        'mu-min': '-1', 'mu-max': '1'}
+    model = {'z evol LYA': 'bias_vs_z_std'}
+    if is_cross:
+        model['z evol QSO'] = 'bias_vs_z_std'
+    else:
+        model['small scale nl'] = 'dnl_arinyo'
+        model['use_metal_autos'] = 'True'
+    model['model-hcd'] = 'Rogers2018'
+    model['fast_metals'] = 'True'
+    if is_cross:
+        model['velocity dispersion'] = 'lorentz'
+    model['marginalize-all-rmin-cuts'] = 'False'
+    model.update(DR16PUB_EXTRA_MODEL)
+    if size == 'tiny':
+        model.update(num_bins_muk='50', ell_max='6')
+    config['model'] = model
+    config['parameters'] = {f'par binsize {name}': '4',
+                            f'per binsize {name}': '4'}
+    metals = ' '.join(DR16PUB_METALS)
+    config['metals'] = {'filename': str(metal_file),
+                        'z evol': 'bias_vs_z_std', 'in tracer1': metals}
+    if is_cross:
+        config['metals']['velocity dispersion'] = 'lorentz'
+    else:
+        config['metals']['in tracer2'] = metals
+    if not is_cross:
+        config['broadband'] = dict(DR16PUB_SKY_BB)
+    return config
+
+
+def dr16_published_main(ini_files, template_file, out_file, sample=None,
+                        extra_control=None):
+    """The main ini of the published configuration, as BuildConfig
+    writes it (a ConfigParser): the combined fit's [sample] and [priors]
+    unless `sample` ({name: [sample] entry}) is given, and [control]
+    with `extra_control` ({option: value}) beside run_sampler."""
+    sample = DR16PUB_SAMPLE if sample is None else sample
+    config = _ini_parser()
+    config['data sets'] = {
+        'zeff': str(DR16PUB_ZEFF),
+        'ini files': ' '.join(str(f) for f in ini_files)}
+    config['cosmo-fit type'] = {
+        'cosmo fit func': 'ap_at', 'full-shape': 'False',
+        'full-shape-alpha': 'False', 'smooth-scaling': 'False'}
+    config['fiducial'] = {'filename': str(template_file)}
+    config['output'] = {'filename': str(out_file)}
+    config['sample'] = dict(sample)
+    priors = {k: v for k, v in DR16PUB_PRIORS.items() if k in sample}
+    if priors:
+        config['priors'] = priors
+    config['parameters'] = dict(DR16PUB_PARAMETERS)
+    config['control'] = {'run_sampler': 'False', **(extra_control or {})}
+    return config
+
+
+def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
+                                sample=None, extra_control=None):
+    """eBOSS DR16's published configuration on synthetic data; returns the
+    main ini's path. Four correlations (lyaxlya, lyaxlyb: 2500 bins each;
+    lyaxqso, lybxqso: 5000 bins each at size='full'), the files of
+    `make_synthetic_dataset` otherwise: the fiducial template, picca-style
+    data files drawn from np.random.default_rng(seed) and then replaced
+    by the model at the configuration's parameters (evaluated on
+    `device`, the card unless the caller asks for 'cpu'), and a metal
+    file per correlation (`write_metal_file`, rp shifts of the five
+    metals). `sample` replaces the combined fit's [sample];
+    `extra_control` ({option: value}) goes under [control]."""
+    from .vega_interface import VegaInterface, resolve_device
+    device = resolve_device(device)
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    tiny = size == 'tiny'
+    nt = 10 if tiny else 50
+    template_file = workdir / 'fiducial_eh98.fits'
+    make_fiducial_template(template_file, n_k=128 if tiny else 814)
+
+    data_files, metal_files, crosses = {}, {}, {}
+    for name in DR16PUB_CORRELATIONS:
+        crosses[name] = name.endswith('xqso')
+        data_files[name] = workdir / f'cf_{name}.fits'
+        metal_files[name] = workdir / f'metal_{name}.fits'
+        coords = _write_correlation_data(data_files[name], crosses[name],
+                                         DR16PUB_ZEFF, rng, nt=nt)
+        write_metal_file(
+            metal_files[name], coords, DR16PUB_ZEFF, 'LYA',
+            'QSO' if crosses[name] else 'LYA', metals_in1=DR16PUB_METALS,
+            metals_in2=() if crosses[name] else DR16PUB_METALS,
+            rp_shifts=metal_rp_shifts(DR16PUB_METALS, DR16PUB_ZEFF))
+    ini_files = []
+    for name in DR16PUB_CORRELATIONS:
+        ini_files.append(workdir / f'{name}.ini')
+        with open(ini_files[-1], 'w') as fh:
+            dr16_published_correlation(name, data_files[name],
+                                       metal_files[name], size).write(fh)
+    # BuildConfig's output directory and run name
+    (workdir / 'output_fitter').mkdir(exist_ok=True)
+    main_path = workdir / 'main.ini'
+    with open(main_path, 'w') as fh:
+        dr16_published_main(
+            ini_files, template_file,
+            workdir / 'output_fitter' / '_'.join(DR16PUB_CORRELATIONS),
+            sample, extra_control).write(fh)
+
+    # the data vectors: the model at the configuration's parameters
+    model_cf = VegaInterface(main_path, device=device).compute_model()
+    for name in DR16PUB_CORRELATIONS:
+        _write_correlation_data(data_files[name], crosses[name],
+                                DR16PUB_ZEFF, rng,
+                                model_xi=np.asarray(model_cf[name]), nt=nt)
     return main_path
