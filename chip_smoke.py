@@ -162,6 +162,39 @@ configuration, with no JAX:
    in the sweep, each launch layout (the legacy knot grid's among them)
    held against its plain version. The legacy knot grid also joins the
    edge layouts.
+12. DESI DR1's baseline as run on mocks (phase desi_mock), configuration
+   synthetic-desi-mock-full (testing.make_desi_mock_dataset; examples/
+   DESI_mock_setup): the DESI model with Gaussian full-shape smoothing in
+   [model] and [metals] at fixed widths, no Arinyo term, no instrumental
+   systematics, new-metals matrices of the four Si lines, per-correlation
+   covariances, DESI_MOCK_FIT_SAMPLE's 15 names, against the desi_mock
+   part of tests/data/torch_port_mocks_goldens.json:
+   - dense regime: chi^2 at the defaults, chi2_batch(8192) (finite;
+     kernel vs plain route 1e-10), the JAX dense chi^2 at 8 points and
+     value and gradient at 2 (1e-8), evals/s, peak memory and the device
+     shares of the metal matrices, the metal stacks' combine and the
+     power-spectrum grids (the smoothing among them);
+   - grid regime (the widths fixed, so both correlations stay factored):
+     DESI_MOCK_GRID_NAMES on 32 x 32 nodes, the cold build, T, modes and
+     ranks against the JAX payload's, chi2_batch against the JAX grid
+     chi^2 (2e-4 + 1e-9 |chi2|), evals/s at 8192 / 32768, and minimize()
+     on the payload against the JAX grid fit (values 1e-2 / errors 1e-3 of
+     the JAX errors);
+   it fails unless the metal stacks launched F_0 on both paths.
+13. The LyaCoLoRe raw-mock auto (phase lyacolore), configuration
+   synthetic-lyacolore-full (testing.make_lyacolore_dataset; examples/
+   lyacolore_mocks): LYA x LYA on the DR9LyaMocks template (old_fftlog),
+   Gaussian smoothing with par_sigma_smooth and per_sigma_smooth
+   sampled beside ap, at, bias_LYA and beta_LYA, against the lyacolore
+   part of the goldens:
+   - vega_tpu's route for the six names: the sweep over (ap, at) finds the
+     auto dense (the smoothing reads sampled widths), so the payload is
+     empty and every call dense; its sweep time and chi2_batch(8192);
+   - dense regime: as desi_mock's (the power-spectrum grids' and the
+     combine's shares);
+   - minimize() over the six names against the JAX dense fit (1e-2 / 1e-3
+     of the JAX errors); it fails unless the fit launched F_d (d >= 1),
+     P_d and Ft_d.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -212,6 +245,7 @@ DESI_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_desi_goldens.json'
 TABLE6_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_table6_goldens.json'
 TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
 DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
+MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 # the payload's node-convergence floor against the dense chi^2 (vega_tpu
 # measured 1.6e-3 at most on the reference data, docs/performance.md:
 # 178-181) and vega_tpu's warning line for the held-out probe bound
@@ -245,11 +279,11 @@ KERNEL_HESS_RTOL = 1e-9      # and Hessians
 # best fits: |d value| <= FIT_VALUE_SIGMA x the JAX error, errors within
 # FIT_ERROR_RTOL, |d fval| <= FIT_FVAL_ABS
 FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3, 'joint': 1e-2,
-                   'published': 1e-2}
+                   'published': 1e-2, 'mock': 1e-2}
 FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5, 'joint': 1e-3,
-                  'published': 1e-3}
+                  'published': 1e-3, 'mock': 1e-3}
 FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8, 'joint': 1e-4,
-                'published': 1e-4}
+                'published': 1e-4, 'mock': 1e-4}
 # the desi phase's global mock against the JAX one: the same numpy draw
 # around each package's own best fit; its dense calls take 1.6 s each, so
 # two timed rounds
@@ -2982,6 +3016,316 @@ def run_dr16pub_path(device, work, card):
     return launches, checks
 
 
+# ----------------------------------------------------------------------
+# The mock configurations: DESI DR1 as run on mocks, LyaCoLoRe
+# ----------------------------------------------------------------------
+def mock_dense_regime(device, label, vega, goldens, launches, checks,
+                      hooks):
+    """The dense regime of a mock phase, counts from zero: chi^2 at the
+    defaults, chi2_batch(8192) (finite; kernel vs plain route
+    PLAIN_RTOL), the JAX goldens' chi^2 at their points and value and
+    gradient at theirs (GOLDEN_RTOL), evals/s and the device shares of
+    `hooks` ({key: [(owner, attribute)]}). Returns the rate."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    names = goldens['names']
+    rng = np.random.default_rng(0)
+    batches = desi_rows(vega.params, names, BATCH, rng)
+    seen = watch_metals(vega) if any(
+        m.metals is not None for m in vega.models.values()) else {}
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        chi2_default = vega.chi2()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches[f'{label}_dense'] = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    checks += check_launches(device, f'{label}_dense', layouts)
+    d_default = abs(chi2_default - goldens['chi2_default'])
+    if not d_default <= GOLDEN_RTOL * max(abs(goldens['chi2_default']),
+                                          1.0):
+        fail(f'{label} chi2 at the defaults {chi2_default!r}, the JAX '
+             f'package {goldens["chi2_default"]!r}')
+    chi2_np = chi2.cpu().numpy()
+    if chi2_np.shape != (BATCH,) or not np.all(np.isfinite(chi2_np)) \
+            or np.any(chi2_np >= 1e100):
+        fail(f'{label} dense chi2_batch is not finite of shape (8192,) '
+             'without a penalty')
+    log(f'{label} dense chi2_batch({BATCH}), {len(names)} names: chi2 at '
+        f'the defaults {chi2_default!r} (JAX {goldens["chi2_default"]!r}), '
+        f'first call {first_s:.3f} s, peak device memory {peak_gb:.2f} GB, '
+        f'chi2 in [{chi2_np.min():.6g}, {chi2_np.max():.6g}], kernel '
+        f'launches {launches[f"{label}_dense"]}'
+        + (f', {metal_launches(seen, "F")} of F_0 from the metal stacks at '
+           + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen)
+           if seen else ''))
+    if seen and not metal_launches(seen, 'F'):
+        fail(f'the {label} dense path launched no F_0 from metals.py')
+    plain = vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
+    rel = float(np.max(np.abs(plain - chi2_np) / np.abs(plain)))
+    log(f'{label} dense kernel path vs plain path: max relative diff '
+        f'{rel:.3e}')
+    if not rel <= PLAIN_RTOL:
+        fail(f'{label} kernel path vs plain path differ by {rel:.3e}')
+    want = np.asarray(goldens['chi2_dense'])
+    got = vega.chi2_batch(goldens['params']).cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    deriv = goldens['dense']
+    grads = []
+    for point, value_w, grad_w in zip(goldens['derivative_points'],
+                                      deriv['chi2'], deriv['gradient']):
+        value, grad = vega.chi2_value_and_gradient(point)
+        g = np.array([grad[n] for n in names])
+        grads.append(max(abs(value / value_w - 1), rel_err(g, grad_w)))
+    log(f'{label} dense vs JAX goldens: chi2 at {len(want)} points max '
+        f'relative diff {rel:.3e}; value and gradient at {len(grads)} '
+        f'points {max(grads):.3e}')
+    if not rel <= GOLDEN_RTOL or not max(grads) <= GOLDEN_RTOL:
+        fail(f'{label} dense chi2 / gradient vs the JAX goldens differ by '
+             f'{rel:.3e} / {max(grads):.3e} > {GOLDEN_RTOL}')
+    times = []
+    for _ in range(DESI_TIMED_ROUNDS):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    rate = BATCH / float(np.median(times))
+    log(f'{label} dense chi2_batch({BATCH}): {rate:.1f} evals/s (median of '
+        f'{DESI_TIMED_ROUNDS}, s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)})')
+    total_ms, parts = device_shares(device, vega, batches, hooks=hooks)
+    log(f'{label} dense chi2_batch({BATCH}) on CUDA events: {total_ms:.1f} '
+        'ms; ' + ', '.join(f'{key} {ms:.1f} ms ({ms / total_ms:.1%})'
+                           for key, ms in parts.items())
+        + f'; the rest (transform, core combine, chi^2) '
+        f'{total_ms - sum(parts.values()):.1f} ms')
+    profile_call(f'{label} dense chi2_batch({BATCH})',
+                 lambda: vega.chi2_batch(batches).cpu(), device)
+    return rate
+
+
+def run_desi_mock_path(device, work, card):
+    """Phase desi_mock (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    import vega_tpu_torch.metals as metals_mod
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (DESI_MOCK_FIT_SAMPLE,
+                                        make_desi_mock_dataset, with_sample)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(MOCKS_GOLDENS.read_text())['desi_mock']
+    names, grid_names = goldens['names'], goldens['grid_names']
+    t_phase = time.perf_counter()
+    main_ini = make_desi_mock_dataset(Path(work) / 'desi_mock', size='full',
+                                      device=device,
+                                      sample=DESI_MOCK_FIT_SAMPLE)
+    log(f'desi_mock: configuration synthetic-desi-mock-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    if sorted(dense_vega.sample_params['limits']) != sorted(names):
+        fail(f'desi_mock samples {sorted(dense_vega.sample_params["limits"])}')
+    log('desi_mock dense: new-metals matrices on the host ' + ', '.join(
+        f'{n} {len(item.metal_correlations)} pairs '
+        f'{dense_vega.models[n].metals.matrix_build_s:.3f} s'
+        for n, item in dense_vega.corr_items.items()))
+    launches, checks = {}, []
+    models = list(dense_vega.models.values())
+    mock_dense_regime(device, 'desi_mock', dense_vega, goldens, launches,
+                      checks, hooks={
+                          'metal matrices': [(m.metals, 'apply_metal_matrix')
+                                             for m in models],
+                          'metal combine': [(metals_mod,
+                                             'spline_legendre_combine')],
+                          'power-spectrum grids (smoothing included)': [
+                              (m.Pk_core, 'compute_peak_smooth')
+                              for m in models]})
+
+    # --- the grid regime: the fixed widths keep both correlations
+    # factored; counts from zero
+    grid_main = with_sample(main_ini, {n: DESI_MOCK_FIT_SAMPLE[n]
+                                       for n in grid_names},
+                            Path(main_ini).parent / 'main_grid.ini')
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid_vega = VegaInterface(grid_main, device=device)
+    seen_grid = watch_metals(grid_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        payload = grid_vega.get_collapsed(frozenset(grid_names))
+        torch.cuda.synchronize(device)
+        collapse_s = time.perf_counter() - t0
+        rng = np.random.default_rng(1)
+        grid_batches = desi_rows(grid_vega.params, grid_names, BATCH, rng)
+        chi2 = grid_vega.chi2_batch(grid_batches).cpu().numpy()
+    launches['desi_mock_grid'] = dict(LAUNCHES)
+    checks += check_launches(device, 'desi_mock_grid', layouts)
+    stats = grid_vega.grid_stats
+    log(f'desi_mock grid cold build ({len(grid_names)} names): '
+        f'{payload["__grid__"]}, {stats["nodes"]} nodes; chi^2 constants '
+        f'{stats["constants_s"]:.3f} s, device sweep {stats["sweep_s"]:.3f} '
+        f's, host payload build {stats["host_s"]:.3f} s, total '
+        f'{collapse_s:.3f} s; kernel launches {launches["desi_mock_grid"]}, '
+        f'{metal_launches(seen_grid, "F")} of F_0 from the metal stacks at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen_grid))
+    for name in grid_vega.corr_items:
+        if name not in payload:
+            fail(f'desi_mock: {name} is not served by the grid payload')
+        p, want = payload[name], goldens['payload'][name]
+        log(f'  {name}: T = {p["cref"].shape[0]}, retained modes '
+            f'A {p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+            f'SVD rank A {p["B_A"].shape[1]} / sy {p["B_sy"].shape[1]} '
+            f'(JAX package: T = {want["terms"]}, modes {want["modes_A"]} / '
+            f'{want["modes_sy"]}, rank {want["rank_A"]} / '
+            f'{want["rank_sy"]}), dc_max {float(p["dc_max"]):.6g}')
+        if p['cref'].shape[0] != want['terms']:
+            fail(f'desi_mock: {name} has {p["cref"].shape[0]} terms, the '
+                 f'JAX package {want["terms"]}')
+    if not metal_launches(seen_grid, 'F'):
+        fail('the desi_mock grid sweep launched no F_0 from metals.py')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('desi_mock grid chi2_batch is not finite without a penalty')
+    got = grid_vega.chi2_batch({n: goldens['params'][n]
+                                for n in grid_names}).cpu().numpy()
+    want_grid = np.asarray(goldens['chi2_grid'])
+    d_grid = np.abs(got - want_grid)
+    bound = GRID_ABS_TOL + GRID_REL_TOL * np.abs(want_grid)
+    log(f'desi_mock grid vs JAX grid goldens ({len(got)} points): max |d '
+        f'chi2| {d_grid.max():.3e} (bound {bound.min():.3e} .. '
+        f'{bound.max():.3e}); vs the JAX dense chi2 '
+        f'{np.abs(got - goldens["chi2_grid_dense"]).max():.6g} (the JAX grid '
+        f'path\'s own {goldens["max_abs_grid_minus_dense"]:.6g})')
+    if not np.all(d_grid <= bound):
+        fail(f'desi_mock grid chi2 vs the JAX grid chi2: |d| '
+             f'{d_grid.max():.3e} over the bound')
+    rates = {}
+    for n_rows in GRID_BATCHES:
+        rows = desi_rows(grid_vega.params, grid_names, n_rows, rng)
+        grid_vega.chi2_batch(rows).cpu()
+        per_round = []
+        for _ in range(GRID_ROUNDS):
+            for name in rows:
+                rows[name] = rows[name] + 1e-9
+            t0 = time.perf_counter()
+            grid_vega.chi2_batch(rows).cpu()
+            per_round.append(n_rows / (time.perf_counter() - t0))
+        rates[n_rows] = float(np.median(per_round))
+        log(f'desi_mock grid chi2_batch({n_rows}): {rates[n_rows]:.1f} '
+            f'evals/s (median of {GRID_ROUNDS}; per round '
+            f'{", ".join(f"{r:.1f}" for r in per_round)})')
+    log(json.dumps({
+        'metric': 'likelihood evals/sec/chip',
+        'value': round(rates[BATCH], 3),
+        'unit': f'evals/s/chip (synthetic-desi-mock-full, {len(grid_names)} '
+                f'names, batch={BATCH}, f64, 1 chip(s), {card}, '
+                f'vega_tpu_torch, collapse={collapse_s:.1f}s; batch '
+                f'{GRID_BATCHES[1]}: {rates[GRID_BATCHES[1]]:.1f})'}))
+    profile_call(f'desi_mock grid chi2_batch({BATCH})',
+                 lambda: grid_vega.chi2_batch(grid_batches).cpu(), device)
+    timed_fit(device, grid_vega, 'desi_mock grid')
+    check_fit('desi_mock grid', 'grid', grid_vega, grid_names,
+              goldens['fit_grid'])
+    log(f'desi_mock phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
+def run_lyacolore_path(device, work, card):
+    """Phase lyacolore (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    from vega_tpu_torch import pktoxi as pktoxi_mod
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (LYACOLORE_FIT_SAMPLE,
+                                        make_lyacolore_dataset)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(MOCKS_GOLDENS.read_text())['lyacolore']
+    names = goldens['names']
+    t_phase = time.perf_counter()
+    main_ini = make_lyacolore_dataset(Path(work) / 'lyacolore', size='full',
+                                      device=device,
+                                      sample=LYACOLORE_FIT_SAMPLE)
+    log(f'lyacolore: configuration synthetic-lyacolore-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    launches, checks = {}, []
+
+    # --- vega_tpu's route for the six names: its sweep over (ap, at)
+    # finds the auto dense (the smoothing reads sampled widths), so every
+    # call is dense; counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        route_vega = VegaInterface(main_ini, device=device)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        payload = route_vega.get_collapsed(frozenset(names))
+        torch.cuda.synchronize(device)
+        sweep_s = time.perf_counter() - t0
+        rng = np.random.default_rng(2)
+        batches = desi_rows(route_vega.params, names, BATCH, rng)
+        route_vega.chi2_batch(batches).cpu()
+    launches['lyacolore_route'] = dict(LAUNCHES)
+    checks += check_launches(device, 'lyacolore_route', layouts)
+    if payload != {}:
+        fail(f'lyacolore: the route serves {sorted(payload)}, vega_tpu\'s '
+             'route nothing (a dense auto)')
+    times = []
+    for _ in range(DESI_TIMED_ROUNDS):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        t0 = time.perf_counter()
+        route_vega.chi2_batch(batches).cpu()
+        times.append(time.perf_counter() - t0)
+    log(f'lyacolore route: the sweep over (ap, at) in {sweep_s:.3f} s found '
+        f'nothing factored (grid_stats {route_vega.grid_stats.get("nodes")} '
+        f'nodes), so every call is dense, as in vega_tpu; chi2_batch({BATCH}) '
+        f'{BATCH / float(np.median(times)):.1f} evals/s (s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)}); kernel launches '
+        f'{launches["lyacolore_route"]}')
+    del route_vega
+
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    models = list(dense_vega.models.values())
+    mock_dense_regime(device, 'lyacolore', dense_vega, goldens, launches,
+                      checks, hooks={
+                          'power-spectrum grids (smoothing included)': [
+                              (m.Pk_core, 'compute_peak_smooth')
+                              for m in models],
+                          'combine': [(pktoxi_mod,
+                                       'spline_legendre_combine')]})
+
+    # --- the dense fit: its gradient and Hessian run F_d, P_d and Ft_d;
+    # counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        timed_fit(device, dense_vega, 'lyacolore dense')
+    launches['lyacolore_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'lyacolore_fit', layouts)
+    check_fit('lyacolore dense', 'mock', dense_vega, names,
+              goldens['fit_dense'])
+    by_primitive = {primitive: sum(
+        n for key, n in launches['lyacolore_fit'].items()
+        if key[0] == primitive and (primitive != 'F' or key[1] >= 1))
+        for primitive in ('F', 'P', 'Ft')}
+    log(f'lyacolore fit kernel launches: {launches["lyacolore_fit"]}; F_d '
+        f'(d >= 1), P_d, Ft_d: {by_primitive}')
+    if not all(by_primitive.values()):
+        fail('the lyacolore dense fit launched no F_d (d >= 1), P_d or Ft_d')
+    log(f'lyacolore phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 # (name, primitive, orders, the TPU code it replaces: file:line, and
 # which part of it)
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
@@ -3106,16 +3450,23 @@ def main():
         dr16pub_launches, dr16pub_checks = run_dr16pub_path(device, work,
                                                             card)
         mark('dr16pub')
+        desi_mock_launches, desi_mock_checks = run_desi_mock_path(
+            device, work, card)
+        mark('desi_mock')
+        lyacolore_launches, lyacolore_checks = run_lyacolore_path(
+            device, work, card)
+        mark('lyacolore')
     log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
               + mc_checks + sampler_checks + dr16_checks + desi_checks
-              + table6_checks + dr16pub_checks)
+              + table6_checks + dr16pub_checks + desi_mock_checks
+              + lyacolore_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **desi_launches, **table6_launches,
-         **dr16pub_launches},
+         **dr16pub_launches, **desi_mock_launches, **lyacolore_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

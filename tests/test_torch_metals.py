@@ -616,10 +616,10 @@ def test_plain_combine_matches_pallas_at_a_metal_layout():
 @pytest.mark.parametrize('section,line,match', [
     ('model', 'relativistic correction = True', 'Relativistic correction'),
     ('model', 'UVB-fluctuations = True', 'UV fluctuations'),
-    ('model', 'pk-damping-scale = 2.0', 'Pk damping'),
-    ('model', 'fullshape smoothing = gauss', 'Full-shape smoothing'),
-    ('model', 'skip-nl-model-in-peak = True', 'skip-nl-model-in-peak'),
-    ('model', 'velocity dispersion = gauss', 'Velocity dispersion'),
+    ('model', 'HeII-reionization = True', 'HeII reionization'),
+    ('model', 'standard asymmetry = True', 'Standard asymmetry'),
+    ('model', 'UVB-shotnoise = True', 'UV shotnoise'),
+    ('model', 'single_multipole = 2', 'single_multipole'),
     ('model', 'fht_extrap = True', 'fht_extrap'),
     ('model', 'marginalize-below-rtmax = 20.',
      'Small-scale marginalization'),

@@ -264,11 +264,27 @@ def close(got, want, rtol):
         np.abs(want[finite]))
 
 
-def test_mc_scripts_match_jax(mc_ini):
+def test_mc_scripts_match_jax(mc_ini, monkeypatch):
     """run_vega_mc --sequential against vega_tpu's on the same seed (the
     same numpy mocks, each package's fit); then the port's batched
     run_vega_mc, and each package's run_vega_mc_fits on the MOCKS it
-    wrote: values and errors within MC_RTOL."""
+    wrote: values and errors within MC_RTOL.
+
+    vega_tpu keys the data terms of its collapse on id() of the current
+    data vectors (vega_tpu/vega_interface.py:642-644): a mock freed and
+    its address given to a later mock serves the earlier mock's terms,
+    so whether its fit of a mock is right depends on the process's
+    allocations (ROADMAP.md §3). Every vector vega_tpu reads is kept
+    alive here, so no two mocks share an id."""
+    alive = []
+    current_data_vecs = JaxInterface._current_data_vecs
+
+    def keep_alive(self):
+        vecs = current_data_vecs(self)
+        alive.extend(vecs.values())
+        return vecs
+
+    monkeypatch.setattr(JaxInterface, '_current_data_vecs', keep_alive)
     port_seq = with_output(mc_ini, 'port_seq')
     jax_seq = with_output(mc_ini, 'jax_seq')
     assert run_vega_mc.main([str(port_seq), '--sequential',

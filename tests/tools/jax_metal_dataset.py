@@ -44,7 +44,8 @@ def _with_omega_m(path, omega_m):
 def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
                            sample=None, seed=0, noise=0.0, extra_control='',
                            with_distortion=False, extra_model='',
-                           new_metals=False, global_cov=False):
+                           new_metals=False, global_cov=False,
+                           extra_metals=''):
     """main.ini of a synthetic dataset with `metals` in every LYA tracer,
     written and given its data vectors by vega_tpu alone (the arguments
     are the port's make_synthetic_dataset's)."""
@@ -95,7 +96,8 @@ def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
             extra_data, new_model, matrix_section = new_metals_lines(
                 stack_file, catalog_file, is_cross)
             text = ini_text(data_file, extra_model=new_model + lines + '\n'
-                            + metals_section('None', metals, is_cross)
+                            + metals_section('None', metals, is_cross,
+                                             extra_metals)
                             + '\n' + matrix_section)
         else:
             metal_file = workdir / f'metal_{stem}.fits'
@@ -105,7 +107,8 @@ def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
                 metals_in2=metals,
                 rp_shifts=jt.metal_rp_shifts(metals, z_eff))
             text = ini_text(data_file, extra_model=lines + '\n'
-                            + metals_section(metal_file, metals, is_cross))
+                            + metals_section(metal_file, metals, is_cross,
+                                             extra_metals))
             # identity metal matrices: `test = True` under [data]
             extra_data = 'test = True\n'
         line = f'filename = {data_file}\n'

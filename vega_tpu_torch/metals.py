@@ -176,8 +176,15 @@ class Metals:
                        'rescale-coords-systematics', 'pk-damping-scale']
         if any(key in metals_config for key in unsupported):
             return None
+        # the extrapolated transform is not linear in P, which the
+        # moment factorization cannot express (vega_tpu/metals.py:160-164;
+        # the [model] section builds the metals' transform)
+        if corr_item.config['model'].getboolean('fht_extrap', False):
+            return None
         # rp-only matrices act on the (rp, rt) grid, not on a pair's rows
-        # (vega_tpu/metals.py:164-165)
+        # (vega_tpu/metals.py:164-165); metal-scaling rescales each
+        # pair's coordinates (vega_tpu/metals.py:167-168,239-242 read it
+        # off the pairs' shared scale parameters)
         if self._scale_params.metal_scaling or self.rp_only_metal_mats:
             return None
 
@@ -516,14 +523,27 @@ class Metals:
     @staticmethod
     def _class_shared_factors(pk_obj, local_pars):
         """Multiplicative (mu_k, k) factors shared by every pair of a
-        class (vega_tpu/metals.py:446-488): the binning window (the
-        static one: vega_tpu's stacked path reads no `par / per binsize`
-        parameter), the velocity dispersion and the McDonald term."""
-        factor = pk_obj._common_factors(local_pars, binsize_overrides=False)
+        class, in vega_tpu's order (vega_tpu/metals.py:446-488): the
+        binning window (the static one: vega_tpu's stacked path reads no
+        `par / per binsize` parameter), the mock binning window, the
+        full-shape smoothing, the velocity dispersion and the McDonald
+        term. The smoothing is the representative pair's, as vega_tpu
+        takes it."""
+        factors = []
+        if pk_obj.use_Gk:
+            factors.append(pk_obj.pk_Gk)
+        if pk_obj.mock_bin_size is not None:
+            factors.append(pk_obj._compute_mock_binsize_gk(local_pars))
+        smoothing = pk_obj._fullshape_smoothing(local_pars)
+        if smoothing is not None:
+            factors.append(smoothing)
+        factors += pk_obj._velocity_dispersion_factors(local_pars)
         if (pk_obj.small_scale_nl is not None
                 and 'mcdonald' in pk_obj.small_scale_nl):
-            dnl = pk_obj.compute_dnl_mcdonald()
-            factor = dnl if factor is None else factor * dnl
+            factors.append(pk_obj.compute_dnl_mcdonald())
+        factor = None
+        for f in factors:
+            factor = f if factor is None else factor * f
         return factor
 
     # ------------------------------------------------------------------

@@ -3,12 +3,16 @@
 Counterpart of vega_tpu/power_spectrum.py: `compute_peak_smooth`
 (vega_tpu/power_spectrum.py:203-320), dense and factored, and the
 single-component `compute` the metal correlations use, with the factors
-of a DR16-shaped configuration: the binning window G(k), static or with
-the per-dataset `par / per binsize <name>` parameters, the Lorentzian
+of the DR16, DESI and mock configurations: Pk damping, the binning
+window G(k), static or with the per-dataset `par / per binsize <name>`
+parameters, the mock binning window (`mock-bin-size`,
+`mock-los-smoothing`), the Lorentzian, Gaussian or `lorentz_gauss`
 velocity dispersion, the BAO peak broadening, the HCD effective biases
 (Rogers, fvoigt, sinc), the small-scale non-linear terms (Arinyo,
-McDonald) and the division-free Kaiser polynomial. Every
-other factor raises NotImplementedError naming its ROADMAP.md item.
+McDonald), the full-shape smoothing (gauss, gauss_iso, exp; left out of
+the peak with the NL term under `skip-nl-model-in-peak`) and the
+division-free Kaiser polynomial. UV fluctuations and HeII reionization
+raise NotImplementedError naming their ROADMAP.md item.
 
 Parameters arrive as a dict of Python floats and (B,) tensors; a factor
 that reads only floats stays an unbatched (mu_k, k) grid, and a factor
@@ -104,24 +108,18 @@ class PowerSpectrum:
         self._bin_size_rt = config.getfloat('bin_size_rt')
         self.use_Gk = config.getboolean('model binning', True)
 
-        unported = {
-            'pk-damping-scale': 'Pk damping',
-            'fullshape smoothing': 'Full-shape smoothing',
-            'mock-bin-size': 'Mock binning window',
-        }
-        for option, feature in unported.items():
-            if config.get(option, None) is not None:
-                raise not_ported(feature, 4)
+        self.skip_nl_model_in_peak = config.getboolean(
+            'skip-nl-model-in-peak', False)
+        self.pk_damping_scale = config.getfloat('pk-damping-scale', None)
+        self.pk_damping_power = config.getint('pk-damping-power', 2)
         for option, feature in (('UVB-fluctuations', 'UV fluctuations'),
-                                ('HeII-reionization', 'HeII reionization'),
-                                ('skip-nl-model-in-peak',
-                                 'skip-nl-model-in-peak')):
+                                ('HeII-reionization', 'HeII reionization')):
             if config.getboolean(option, False):
                 raise not_ported(feature, 4)
+        self.fullshape_smoothing = config.get('fullshape smoothing', None)
         self.velocity_dispersion = config.get('velocity dispersion', None)
-        if self.velocity_dispersion not in (None, 'lorentz'):
-            raise not_ported(
-                f'Velocity dispersion "{self.velocity_dispersion}"', 4)
+        self.mock_bin_size = config.getfloat('mock-bin-size', None)
+        self.mock_los_smoothing = config.get('mock-los-smoothing', None)
 
         self.hcd_model = config.get('model-hcd', None)
         if self.hcd_model is not None and not any(
@@ -155,6 +153,13 @@ class PowerSpectrum:
         self._k_t = to_tensor(self.k_grid, self.device)
         self._delta_sq = to_tensor(
             self.k_grid ** 3 * pk_fid / (2 * np.pi ** 2), self.device)
+        # Pk damping exp(-s^2 k^p / 2), a (k,) factor that reads no
+        # parameter (vega_tpu/power_spectrum.py:219-222)
+        self._pk_damping = None
+        if self.pk_damping_scale is not None:
+            self._pk_damping = torch.exp(
+                -self.pk_damping_scale ** 2
+                * self._k_t ** self.pk_damping_power / 2)
 
         num_bins_muk = config.getint('num_bins_muk', 1000)
         quadrature = config.get('muk-quadrature', 'midpoint')
@@ -208,7 +213,12 @@ class PowerSpectrum:
         peak_nl = self.compute_peak_nl(rec_peak)
 
         smooth_static = mul(mul(pk_smooth_lin, common), nl)
-        peak_static = mul(mul(mul(pk_peak_lin, common), nl), peak_nl)
+        # skip-nl-model-in-peak leaves the NL factor out of the peak
+        # alone (vega_tpu/power_spectrum.py:291-295)
+        peak_static = mul(pk_peak_lin, common)
+        if not self.skip_nl_model_in_peak:
+            peak_static = mul(peak_static, nl)
+        peak_static = mul(peak_static, peak_nl)
 
         if (sampling is not None and sampling.sampled
                 and not (rec_common.traced() or rec_nl.traced()
@@ -231,36 +241,75 @@ class PowerSpectrum:
         kaiser = self.compute_kaiser_poly(params)
         return peak_static * kaiser, smooth_static * kaiser, bad
 
-    def _common_factors(self, params, binsize_overrides=True):
-        """G(k) and the velocity dispersion, or None
-        (vega_tpu/power_spectrum.py:232-265). With `binsize_overrides`
-        False G(k) is the static window whatever the parameters say, as
-        vega_tpu's stacked metal path takes it
-        (vega_tpu/metals.py:456-457)."""
-        common = None
+    def _common_factors(self, params):
+        """The factors shared by the peak and the smooth component, or
+        None, multiplied in vega_tpu's order
+        (vega_tpu/power_spectrum.py:217-265): Pk damping, G(k), the mock
+        binning window, the velocity dispersion."""
+        common = self._pk_damping
+        factors = []
         if self.use_Gk:
-            common = (self.compute_Gk(params)
-                      if binsize_overrides and self._has_binsize(params)
-                      else self.pk_Gk)
-        if self.velocity_dispersion == 'lorentz':
-            lorentz = self.compute_velocity_dispersion_lorentz(params)
-            common = lorentz if common is None else common * lorentz
+            factors.append(self._binning_window(params))
+        if self.mock_bin_size is not None:
+            factors.append(self._compute_mock_binsize_gk(params))
+        factors += self._velocity_dispersion_factors(params)
+        for factor in factors:
+            common = factor if common is None else common * factor
         return common
 
     def _nl_factor(self, params):
-        """(small-scale NL factor or None, bad flag): Arinyo with its
-        not-finite flag, or McDonald."""
-        if self.small_scale_nl is None:
-            return None, False
-        if 'arinyo' in self.small_scale_nl:
-            return self.compute_dnl_arinyo(params)
-        return self.compute_dnl_mcdonald(), False
+        """(NL factor or None, bad flag): the small-scale NL term (Arinyo
+        with its not-finite flag, or McDonald), then the full-shape
+        smoothing (vega_tpu/power_spectrum.py:267-286)."""
+        nl, bad = None, False
+        if self.small_scale_nl is not None:
+            if 'arinyo' in self.small_scale_nl:
+                nl, bad = self.compute_dnl_arinyo(params)
+            else:
+                nl = self.compute_dnl_mcdonald()
+        smoothing = self._fullshape_smoothing(params)
+        if smoothing is not None:
+            nl = smoothing if nl is None else nl * smoothing
+        return nl, bad
+
+    def _fullshape_smoothing(self, params):
+        """The full-shape smoothing factor, or None: 'gauss' (and
+        'gauss_iso') or 'exp' (vega_tpu/power_spectrum.py:279-286)."""
+        if self.fullshape_smoothing is None:
+            return None
+        if 'gauss' in self.fullshape_smoothing:
+            return self.compute_fullshape_gauss_smoothing(params)
+        if 'exp' in self.fullshape_smoothing:
+            return self.compute_fullshape_exp_smoothing(params)
+        raise ValueError('"fullshape smoothing" must be "gauss" or "exp"')
+
+    def _velocity_dispersion_factors(self, params):
+        """The velocity dispersion's factors, in the order they multiply:
+        'lorentz_gauss' the Lorentzian then the Gaussian, else one of
+        them (vega_tpu/power_spectrum.py:247-266)."""
+        kind = self.velocity_dispersion
+        if kind is None:
+            return []
+        if 'lorentz_gauss' in kind:
+            return [self.compute_velocity_dispersion_lorentz(params),
+                    self.compute_velocity_dispersion_gauss(params)]
+        if 'gauss' in kind:
+            return [self.compute_velocity_dispersion_gauss(params)]
+        if 'lorentz' in kind:
+            return [self.compute_velocity_dispersion_lorentz(params)]
+        raise ValueError('"velocity dispersion" must be "gauss" or "lorentz"')
 
     def compute(self, pk_lin, params, fast_metals=False):
         """One component: P(k, mu_k) = pk_lin x every factor, returns
         (pk, bad) (vega_tpu/power_spectrum.py:189-201,462-535; the metal
-        correlations' unrolled path). fast_metals leaves the bias product
-        out of the Kaiser term."""
+        correlations' unrolled path), the factors in `_shared_factor`'s
+        order: Kaiser, small-scale NL, G(k), mock binning, full-shape
+        smoothing, velocity dispersion, Pk damping, then the peak
+        broadening. fast_metals leaves the bias product out of the
+        Kaiser term; skip-nl-model-in-peak leaves the NL term and the
+        smoothing out of the peak component."""
+        peak = bool(params['peak'])
+        skip_nl = self.skip_nl_model_in_peak and peak
         bias1, beta1, bias2, beta2 = utils.bias_beta(
             params, self.tracer1_name, self.tracer2_name)
         if self.hcd_model is not None:
@@ -270,24 +319,42 @@ class PowerSpectrum:
             if self.tracer2_name == 'LYA':
                 bias2, beta2 = self.compute_bias_beta_hcd(bias2, beta2,
                                                           params)
-        factor = self.compute_kaiser(bias1, beta1, bias2, beta2, fast_metals)
-        nl, bad = self._nl_factor(params)
-        if nl is not None:
-            factor = factor * nl
+        factors = [self.compute_kaiser(bias1, beta1, bias2, beta2,
+                                       fast_metals)]
+        bad = False
+        if self.small_scale_nl is not None and not skip_nl:
+            if 'arinyo' in self.small_scale_nl:
+                dnl, bad = self.compute_dnl_arinyo(params)
+                factors.append(dnl)
+            else:
+                factors.append(self.compute_dnl_mcdonald())
         if self.use_Gk:
-            factor = factor * (self.compute_Gk(params)
-                               if self._has_binsize(params) else self.pk_Gk)
-        if self.velocity_dispersion == 'lorentz':
-            factor = factor * self.compute_velocity_dispersion_lorentz(params)
+            factors.append(self._binning_window(params))
+        if self.mock_bin_size is not None:
+            factors.append(self._compute_mock_binsize_gk(params))
+        if not skip_nl:
+            smoothing = self._fullshape_smoothing(params)
+            if smoothing is not None:
+                factors.append(smoothing)
+        factors += self._velocity_dispersion_factors(params)
+        if self._pk_damping is not None:
+            factors.append(self._pk_damping)
+        factor = factors[0]
+        for f in factors[1:]:
+            factor = factor * f
         pk_full = pk_lin * factor
-        if bool(params['peak']):
+        if peak:
             pk_full = pk_full * self.compute_peak_nl(params)
         return pk_full, bad
 
-    def _has_binsize(self, params):
-        """Whether the parameters carry this dataset's bin sizes."""
-        return (f'par binsize {self._name}' in params
-                or f'per binsize {self._name}' in params)
+    def _binning_window(self, params):
+        """G(k): with this dataset's `par / per binsize <name>` when the
+        parameters carry them, else the static window of the data's bin
+        sizes."""
+        if (f'par binsize {self._name}' in params
+                or f'per binsize {self._name}' in params):
+            return self.compute_Gk(params)
+        return self.pk_Gk
 
     def compute_Gk(self, params):
         """The binning window with the per-dataset `par / per binsize
@@ -509,6 +576,91 @@ class PowerSpectrum:
         peak_nl = (self.k_par_grid ** 2 * col(sigma_par, 2) ** 2
                    + self.k_trans_grid ** 2 * col(sigma_trans, 2) ** 2)
         return torch.exp(-peak_nl / 2)
+
+    def _compute_mock_binsize_gk(self, params):
+        """The mock pixelization window sinc x sinc of `mock-bin-size`,
+        along the line of sight scaled by `mock-los-smoothing` (growth,
+        amplitude) or alone (only-los) (vega_tpu/power_spectrum.py:
+        670-686)."""
+        bin_size = self.mock_bin_size
+        par_size, per_size = bin_size, bin_size
+        los = self.mock_los_smoothing
+        if los == 'growth':
+            par_size = bin_size * (1 + params['growth_rate'])
+        elif los == 'amplitude':
+            par_size = bin_size * (1 + params['los_smooth_amp'])
+        elif los == 'only-los':
+            per_size = 0.
+        elif los is not None:
+            raise ValueError(f'Unknown mock LOS smoothing option {los}.')
+        gk = utils.sinc(self.k_par_grid * col(par_size, 2) / 2)
+        if not (isinstance(per_size, float) and per_size == 0):
+            gk = gk * utils.sinc(self.k_trans_grid * col(per_size, 2) / 2)
+        return gk
+
+    def _gauss(self, sigma_par, sigma_trans):
+        """exp(-(k_par^2 s_par^2 + k_trans^2 s_trans^2) / 2)."""
+        return torch.exp(-(self.k_par_grid ** 2 * col(sigma_par, 2) ** 2
+                           + self.k_trans_grid ** 2
+                           * col(sigma_trans, 2) ** 2) / 2)
+
+    def compute_fullshape_gauss_smoothing(self, params):
+        """Full-shape Gaussian smoothing (vega_tpu/power_spectrum.py:
+        688-721): the squared Gaussian of the global `par / per_sigma_
+        smooth` (one of them standing for both), else of `par / per_
+        sigma_smooth_metals` for a pair that is not LYA / QSO on both
+        sides, else the product of each tracer's own Gaussian."""
+        check1 = self.tracer1_name in ['LYA', 'QSO']
+        check2 = self.tracer2_name in ['LYA', 'QSO']
+        if 'par_sigma_smooth' in params or 'per_sigma_smooth' in params:
+            sigma_par = params.get('par_sigma_smooth', None)
+            sigma_trans = params.get('per_sigma_smooth', None)
+            if sigma_par is None and sigma_trans is None:
+                raise ValueError(
+                    'Fullshape gaussian smoothing requested without '
+                    'par_sigma_smooth and/or per_sigma_smooth.')
+            if sigma_par is None:
+                sigma_par = sigma_trans
+            if sigma_trans is None:
+                sigma_trans = sigma_par
+            return self._gauss(sigma_par, sigma_trans) ** 2
+        if ('par_sigma_smooth_metals' in params
+                and 'per_sigma_smooth_metals' in params
+                and not (check1 and check2)):
+            return self._gauss(params['par_sigma_smooth_metals'],
+                               params['per_sigma_smooth_metals']) ** 2
+        return (self._gauss(params[f'par_sigma_smooth_{self.tracer1_name}'],
+                            params[f'per_sigma_smooth_{self.tracer1_name}'])
+                * self._gauss(
+                    params[f'par_sigma_smooth_{self.tracer2_name}'],
+                    params[f'per_sigma_smooth_{self.tracer2_name}']))
+
+    def compute_fullshape_exp_smoothing(self, params):
+        """Gaussian times exponential smoothing
+        (vega_tpu/power_spectrum.py:723-730)."""
+        gauss_sm = (self.k_par_grid ** 2
+                    * col(params['par_sigma_smooth'], 2) ** 2
+                    + self.k_trans_grid ** 2
+                    * col(params['per_sigma_smooth'], 2) ** 2)
+        exp_sm = (torch.abs(self.k_par_grid)
+                  * col(params['par_exp_smooth'], 2) ** 2
+                  + torch.abs(self.k_trans_grid)
+                  * col(params['per_exp_smooth'], 2) ** 2)
+        return torch.exp(-gauss_sm / 2) * torch.exp(-exp_sm)
+
+    def compute_velocity_dispersion_gauss(self, params):
+        """Gaussian velocity dispersion (vega_tpu/power_spectrum.py:
+        732-745)."""
+        if 'discrete' not in (self.tracer1_type, self.tracer2_type):
+            raise ValueError('Velocity dispersion needs a discrete tracer')
+        smoothing = 1.
+        for name, kind in ((self.tracer1_name, self.tracer1_type),
+                           (self.tracer2_name, self.tracer2_type)):
+            if kind == 'discrete':
+                sigma = col(params['sigma_velo_disp_gauss_' + name], 2)
+                smoothing = smoothing * torch.exp(
+                    -0.25 * (self.k_par_grid * sigma) ** 2)
+        return smoothing * torch.ones_like(self.k_par_grid)
 
     def compute_velocity_dispersion_lorentz(self, params):
         """Lorentzian velocity dispersion (vega_tpu/power_spectrum.py:

@@ -18,7 +18,10 @@ matrices (the DESI DR1 set-up, examples/DESI_data_setup/make_configs.py).
 vega_tpu's does. `make_dr16_published_dataset` writes eBOSS DR16's
 flagship configuration as examples/eBOSS_DR16/make_configs.py builds it
 (four correlations, the DR16 compatibility switches, the sky residual),
-on synthetic data.
+on synthetic data. `make_desi_mock_dataset` and `make_lyacolore_dataset`
+write the two mock configurations of examples/DESI_mock_setup and
+examples/lyacolore_mocks (full-shape smoothing, the DR9LyaMocks
+template).
 """
 
 from __future__ import annotations
@@ -174,6 +177,90 @@ def desi_extra_model(parameters=None):
     return {'auto': options + '\ndesi-instrumental-systematics = True'
             + block,
             'cross': options + '\nradiation effects = True' + block}
+
+
+# DESI DR1's baseline as run on mocks
+# (examples/DESI_mock_setup/make_configs.py:18-30): the DESI model with
+# Gaussian full-shape smoothing in [model] and in [metals], no Arinyo
+# term, no instrumental systematics, the four Si lines without CIV(eff),
+# and DESI's sampled names without bias_CIV(eff) and desi_inst_sys_amp.
+# The example writes no smoothing width (BuildConfig writes them only when
+# given, vega_tpu/build_config.py:729-735), and then vega_tpu raises
+# KeyError at the first evaluation; the widths here are the per-tracer
+# pairs of LYA and QSO and the Si pairs' `_metals` pair at
+# vega_tpu/templates/parameter_defaults.ini's 2.0 (ROADMAP.md §3).
+DESI_MOCK_METALS = DESI_METALS[:4]
+DESI_MOCK_SMOOTHING = {f'{axis}_sigma_smooth_{group}': 2.
+                       for group in ('LYA', 'QSO', 'metals')
+                       for axis in ('par', 'per')}
+DESI_MOCK_PARAMETERS = {
+    **{k: v for k, v in DESI_PARAMETERS.items()
+       if 'CIV' not in k and not k.startswith('dnl_arinyo')
+       and k != 'desi_inst_sys_amp'},
+    **DESI_MOCK_SMOOTHING}
+DESI_MOCK_SAMPLED = tuple(n for n in DESI_SAMPLED
+                          if n not in ('bias_CIV(eff)', 'desi_inst_sys_amp'))
+DESI_MOCK_PRIORS = {k: v for k, v in DESI_PRIORS.items()
+                    if k in DESI_MOCK_SAMPLED}
+# [sample] entries (lower, upper, start, error) of a fit of the DESI mock:
+# default_values.txt's limits and errors, starts off the truth; L0_hcd's
+# upper limit raised from 10, where its value sits, to 30. The grid
+# regime's names: (ap, at) on the grid, the linear names in the
+# coefficient program (L0_hcd and the QSO nuisances, which shape grids,
+# fixed).
+DESI_MOCK_FIT_SAMPLE = {
+    'ap': '0.5 1.5 1.02 0.02', 'at': '0.5 1.5 0.98 0.03',
+    'bias_LYA': '-1.0 0.0 -0.12 0.01', 'beta_LYA': '0.0 3.0 1.6 0.1',
+    'bias_QSO': '0.0 6.0 3.6 0.1',
+    'sigma_velo_disp_lorentz_QSO': '0.0 15.0 6.5 0.5',
+    'drp_QSO': '-3.0 3.0 0.1 0.1', 'qso_rad_strength': '0.0 2.0 0.7 0.1',
+    'bias_hcd': '-0.5 0.0 -0.055 0.01', 'beta_hcd': '0.0 5.0 0.65 0.1',
+    'L0_hcd': '0.0 30.0 9.0 1.0',
+    'bias_SiII(1190)': '-0.5 0.0 -0.005 0.001',
+    'bias_SiII(1193)': '-0.5 0.0 -0.0025 0.001',
+    'bias_SiIII(1207)': '-0.5 0.0 -0.007 0.001',
+    'bias_SiII(1260)': '-0.5 0.0 -0.0045 0.001',
+}
+DESI_MOCK_GRID_NAMES = ('ap', 'at', 'bias_LYA', 'beta_LYA', 'bias_QSO',
+                        'qso_rad_strength', 'bias_hcd', 'beta_hcd',
+                        'bias_SiII(1190)', 'bias_SiII(1193)',
+                        'bias_SiIII(1207)', 'bias_SiII(1260)')
+# the mock's [model] and [metals] options (MOCK_OPTIONS)
+DESI_MOCK_SMOOTHING_OPTION = 'fullshape smoothing = gauss\n'
+
+
+def desi_mock_extra_model(parameters=None):
+    """The `extra_model` of the DESI mock configuration, per correlation
+    ({'auto', 'cross'}): Rogers HCD, the QSO radiation on the cross and
+    the full-shape smoothing, then a [parameters] section
+    (DESI_MOCK_PARAMETERS by default)."""
+    parameters = DESI_MOCK_PARAMETERS if parameters is None else parameters
+    block = ('\n\n[parameters]\n'
+             + '\n'.join(f'{k} = {v}' for k, v in parameters.items()) + '\n')
+    hcd = f'model-hcd = {DR16_MODEL_OPTIONS["model-hcd"]}\n'
+    return {'auto': hcd + DESI_MOCK_SMOOTHING_OPTION + block,
+            'cross': hcd + 'radiation effects = True\n'
+            + DESI_MOCK_SMOOTHING_OPTION + block}
+
+
+def make_desi_mock_dataset(workdir, size='full', device='cuda', seed=0,
+                           sample=None, extra_control=''):
+    """DESI DR1's baseline as run on mocks on the synthetic auto + cross
+    dataset; returns the main ini's path. `make_synthetic_dataset` with
+    the new-metals matrices of DESI_MOCK_METALS, `desi_mock_extra_model()`
+    and the smoothing option in each [metals] section; [priors] of
+    DESI_MOCK_PRIORS after `extra_control`. `sample` ({name: [sample]
+    entry}) defaults to DESI_MOCK_SAMPLED at their default_values.txt
+    limits. Per-correlation covariances: the grid payload serves them."""
+    sample = ({name: 'True' for name in DESI_MOCK_SAMPLED}
+              if sample is None else sample)
+    return make_synthetic_dataset(
+        workdir, cross=True, size=size, device=device, sample=sample,
+        seed=seed, extra_model=desi_mock_extra_model(),
+        metals=list(DESI_MOCK_METALS), new_metals=True,
+        extra_metals=DESI_MOCK_SMOOTHING_OPTION,
+        extra_control=extra_control + priors_section(
+            {k: v for k, v in DESI_MOCK_PRIORS.items() if k in sample}))
 
 
 def priors_section(priors):
@@ -415,12 +502,13 @@ def write_metal_file(path, coords, z_eff, tracer1, tracer2,
     return path
 
 
-def metals_section(metal_file, metals, is_cross):
+def metals_section(metal_file, metals, is_cross, extra=''):
     """The [metals] section of one correlation's ini, as vega_tpu's
     BuildConfig writes it (vega_tpu/build_config.py:264-272,317-319):
     the legacy metal file, the standard bias evolution, the metals in
     each continuous tracer, and for the cross the [model] section's
-    velocity dispersion."""
+    velocity dispersion; then the lines of `extra` (the section's own
+    model options, as build_config.py:361-381 adds them)."""
     lines = ['[metals]', f'filename = {metal_file}',
              'z evol = bias_vs_z_std']
     if not is_cross:
@@ -428,13 +516,14 @@ def metals_section(metal_file, metals, is_cross):
     lines.append('in tracer2 = ' + ' '.join(metals))
     if is_cross:
         lines.append('velocity dispersion = lorentz')
-    return '\n'.join(lines) + '\n'
+    return '\n'.join(lines) + '\n' + extra
 
 
 def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                            sample=None, seed=0, noise=0.0, extra_control='',
                            with_distortion=False, extra_model='',
-                           metals=None, new_metals=False, global_cov=False):
+                           metals=None, new_metals=False, global_cov=False,
+                           extra_metals=''):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
     The files equal vega_tpu.testing.make_synthetic_dataset's, given the
@@ -461,7 +550,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     matrices), or with `new_metals=True` from the stacked-delta weights
     files `delta_stack.fits` and `qso_catalog.fits`
     (`new_metals_weights(seed)`), the lines of `new_metals_lines` and
-    OMEGAM in the data files' headers.
+    OMEGAM in the data files' headers. `extra_metals` (text) ends each
+    [metals] section.
 
     `device` is where the second pass evaluates the model: the card
     unless the caller asks for 'cpu'; asking for CUDA without a GPU
@@ -510,7 +600,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
             extra_data, new_model, matrix_section = new_metals_lines(
                 stack_file, catalog_file, is_cross)
             lines = (new_model + lines + '\n'
-                     + metals_section('None', metals, is_cross)
+                     + metals_section('None', metals, is_cross,
+                                      extra_metals)
                      + '\n' + matrix_section)
         elif metals:
             metal_file = workdir / f'metal_{stem}.fits'
@@ -519,7 +610,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                 'LYA', metals_in1=() if is_cross else metals,
                 metals_in2=metals,
                 rp_shifts=metal_rp_shifts(metals, z_eff))
-            lines += '\n' + metals_section(metal_file, metals, is_cross)
+            lines += '\n' + metals_section(metal_file, metals, is_cross,
+                                            extra_metals)
             extra_data = 'test = True\n'
         ini_files.append(workdir / ini_name)
         ini_files[-1].write_text(ini_text(data_file, extra_model=lines,
@@ -765,3 +857,130 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
                                 DR16PUB_ZEFF, rng,
                                 model_xi=np.asarray(model_cf[name]), nt=nt)
     return main_path
+
+
+# The LyaCoLoRe raw-mock auto-correlation
+# (examples/lyacolore_mocks/make_configs.py:23-62): LYA x LYA on the
+# DR9LyaMocks template (read by path from vega_tpu/models), Gaussian
+# full-shape smoothing with par_sigma_smooth and per_sigma_smooth sampled
+# (2.4 each), no small-scale NL, no BAO broadening (sigmaNL 0), no metals,
+# the cuts r in [10, 180], rp >= 0. The ini sections are BuildConfig's
+# (vega_tpu/build_config.py:222-419,494-760) for these options, with one
+# departure: `old_fftlog = True` in [model] (LYACOLORE_EXTRA_MODEL, given
+# to BuildConfig as the correlation's extra-model). The template's k grid
+# is log-spaced to 0.8% only, and the FFTLog operator of both packages
+# refuses it (ValueError, ops/fftlog.py); the legacy transform reads it
+# as it is (ROADMAP.md §3).
+LYACOLORE_EXTRA_MODEL = {'old_fftlog': 'True'}
+LYACOLORE_TEMPLATE = 'DR9LyaMocks/DR9LyaMocks.fits'
+LYACOLORE_ZEFF = 2.33
+LYACOLORE_SAMPLED = ('ap', 'at', 'bias_LYA', 'beta_LYA', 'par_sigma_smooth',
+                     'per_sigma_smooth')
+
+
+def lyacolore_parameters(zeff=LYACOLORE_ZEFF):
+    """The main [parameters] BuildConfig resolves for the example (its
+    template's values, the Lya bias of build_config.py:755-757 at zeff,
+    the smoothing widths make_configs.py passes)."""
+    bias = -0.1167 * ((1 + zeff) / (1 + 2.334)) ** 2.9
+    return {'ap': '1.0', 'at': '1.0', 'sigmaNL_per': '0.0',
+            'sigmaNL_par': '0.0', 'bao_amp': '1.', 'bias_LYA': str(bias),
+            'beta_LYA': '1.67', 'alpha_LYA': '2.9',
+            'par_sigma_smooth': '2.4', 'per_sigma_smooth': '2.4'}
+
+
+def lyacolore_correlation(data_file, size='full'):
+    """The auto-correlation's ini, as BuildConfig writes it (a
+    ConfigParser; size='tiny' adds the small mu_k grid to [model])."""
+    config = _ini_parser()
+    config['data'] = {
+        'name': 'lyaxlya', 'tracer1': 'LYA', 'tracer2': 'LYA',
+        'tracer1-type': 'continuous', 'tracer2-type': 'continuous',
+        'filename': str(data_file)}
+    config['cuts'] = {
+        'rp-min': '0.0', 'rp-max': '+300.', 'rt-min': '0', 'rt-max': '300.',
+        'r-min': '10.0', 'r-max': '180.0', 'mu-min': '-1', 'mu-max': '1'}
+    model = {'z evol LYA': 'bias_vs_z_std', 'use_metal_autos': 'True',
+             'marginalize-all-rmin-cuts': 'False', **LYACOLORE_EXTRA_MODEL}
+    if size == 'tiny':
+        model.update(num_bins_muk='50', ell_max='6')
+    model['fullshape smoothing'] = 'gauss'
+    config['model'] = model
+    return config
+
+
+def lyacolore_main(ini_file, out_file, sample=None, extra_control=None):
+    """The main ini, as BuildConfig writes it (a ConfigParser): [sample]
+    the six names of the example unless `sample` ({name: [sample] entry})
+    is given, [control] with `extra_control` ({option: value})."""
+    config = _ini_parser()
+    config['data sets'] = {'zeff': str(LYACOLORE_ZEFF),
+                           'ini files': str(ini_file)}
+    config['cosmo-fit type'] = {
+        'cosmo fit func': 'ap_at', 'full-shape': 'False',
+        'full-shape-alpha': 'False', 'smooth-scaling': 'False'}
+    config['fiducial'] = {'filename': LYACOLORE_TEMPLATE}
+    config['output'] = {'filename': str(out_file)}
+    config['sample'] = ({name: 'True' for name in LYACOLORE_SAMPLED}
+                        if sample is None else dict(sample))
+    config['parameters'] = lyacolore_parameters()
+    config['control'] = {'run_sampler': 'False', **(extra_control or {})}
+    return config
+
+
+def make_lyacolore_dataset(workdir, size='full', device='cuda', seed=0,
+                           sample=None, extra_control=None):
+    """The LyaCoLoRe raw-mock auto fit on synthetic data; returns the main
+    ini's path. One LYA x LYA data file (2500 bins at size='full', 100 at
+    'tiny') drawn from np.random.default_rng(seed), then replaced by the
+    model at the configuration's parameters (evaluated on `device`, the
+    card unless the caller asks for 'cpu'); the DR9LyaMocks template at
+    both sizes. `sample` replaces the example's [sample];
+    `extra_control` ({option: value}) goes under [control]."""
+    from .vega_interface import VegaInterface, resolve_device
+    device = resolve_device(device)
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    nt = 10 if size == 'tiny' else 50
+    data_file = workdir / 'cf_lyaxlya.fits'
+    _write_correlation_data(data_file, False, LYACOLORE_ZEFF, rng, nt=nt)
+    ini_file = workdir / 'lyaxlya.ini'
+    with open(ini_file, 'w') as fh:
+        lyacolore_correlation(data_file, size).write(fh)
+    (workdir / 'output_fitter').mkdir(exist_ok=True)
+    main_path = workdir / 'main.ini'
+    with open(main_path, 'w') as fh:
+        lyacolore_main(ini_file, workdir / 'output_fitter' / 'lyaxlya',
+                       sample, extra_control).write(fh)
+    model_cf = VegaInterface(main_path, device=device).compute_model()
+    _write_correlation_data(data_file, False, LYACOLORE_ZEFF, rng,
+                            model_xi=np.asarray(model_cf['lyaxlya']), nt=nt)
+    return main_path
+
+
+# [sample] entries of a fit of the LyaCoLoRe configuration: the six names
+# at default_values.txt's limits and errors, starts off the truth
+LYACOLORE_FIT_SAMPLE = {
+    'ap': '0.5 1.5 1.02 0.02', 'at': '0.5 1.5 0.98 0.03',
+    'bias_LYA': '-1.0 0.0 -0.11 0.01', 'beta_LYA': '0.0 3.0 1.6 0.1',
+    'par_sigma_smooth': '0.0 10.0 2.2 0.1',
+    'per_sigma_smooth': '0.0 10.0 2.6 0.1',
+}
+
+
+def with_sample(main_ini, sample, path):
+    """Write a copy of the main ini `main_ini` at `path` with [sample]
+    replaced by `sample` ({name: entry}) and [priors] kept for its names;
+    returns `path`."""
+    config = _ini_parser()
+    config.read(main_ini)
+    config['sample'] = dict(sample)
+    if 'priors' in config:
+        priors = {k: v for k, v in config['priors'].items() if k in sample}
+        config.remove_section('priors')
+        if priors:
+            config['priors'] = priors
+    with open(path, 'w') as fh:
+        config.write(fh)
+    return Path(path)
