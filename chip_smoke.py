@@ -195,6 +195,30 @@ configuration, with no JAX:
    - minimize() over the six names against the JAX dense fit (1e-2 / 1e-3
      of the JAX errors); it fails unless the fit launched F_d (d >= 1),
      P_d and Ft_d.
+14. A fit from the command line (phase run_vega), configuration
+   synthetic-dr16-published-full with the components written
+   (make_dr16_published_dataset(..., components=True): [output] write_pk
+   and write_cf, fast_metals and fast_metal_bias off, which both packages
+   require), against tests/data/torch_port_run_vega_goldens.json:
+   - `vega_tpu_torch.cli fit main.ini --device cuda` (run_vega: the
+     interface, vega_tpu's route for the 18 names, which sweeps and finds
+     nothing factored once the metals run unrolled, the fit, the results
+     file, and the wedge and shell plots where matplotlib is installed,
+     decided before the call), timed; the best fit against the JAX dense
+     fit of the dr16pub goldens (1e-2 / 1e-3 of the JAX errors);
+   - the results file read back: MODEL_*, BESTFIT, PK_* and Xi_* of the
+     four correlations, the MODEL_ models and BESTFIT's names, values,
+     errors and covariance equal to the in-memory fit and every
+     component column to the in-memory component, bit for bit;
+     bao_amp x peak + smooth against the best-fit model (1e-12);
+   - the components at the goldens' point, the metal pairs' own
+     (model.metals) among them, against vega_tpu's (1e-10 of max|ref|
+     at 64 indices and in norm);
+   - compute_sensitivity_exact over the 18 names at the goldens' nominal
+     (1e-9) and compute_sensitivity over (ap, at, bias_eta_LYA,
+     beta_LYA), 8 rebuilds (1e-8), partials and Fisher sums;
+   it fails unless the exact Jacobian launched F_0, a kernel of order
+   d >= 1 and the transpose.
 
 Each path runs with the kernels' launch counts set to 0 just before it,
 and fails if the forward kernel was not launched. Every kernel launch a
@@ -246,6 +270,16 @@ TABLE6_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_table6_goldens.json'
 TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
 DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
+RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
+# the run_vega phase against the JAX goldens, each of the largest entry of
+# the reference vector: the saved components at the goldens' point, the
+# exact partials (and the Fisher sums, of the sum of their bins'
+# absolute values), the central differences; bao_amp x peak + smooth
+# against the returned model
+COMPONENT_RTOL = 1e-10
+SENSITIVITY_EXACT_RTOL = 1e-9
+SENSITIVITY_FD_RTOL = 1e-8
+COMPONENT_SUM_RTOL = 1e-12
 # the payload's node-convergence floor against the dense chi^2 (vega_tpu
 # measured 1.6e-3 at most on the reference data, docs/performance.md:
 # 178-181) and vega_tpu's warning line for the held-out probe bound
@@ -1206,7 +1240,7 @@ def run_mc_path(device, work):
     with switch('VEGA_TPU_FACTORED', None), \
             switch('VEGA_TPU_GRID_COLLAPSE', None):
         vega = VegaInterface(mc_ini, device=device)
-    fiducial = vega.compute_model(vega.mc_config['params'])
+    fiducial = vega.compute_model(vega.mc_config['params'], run_init=False)
     engine = MonteCarloEngine(vega)
     log(f'mc: configuration and fiducial at {vega.mc_config["params"]} in '
         f'{time.perf_counter() - t0:.2f} s')
@@ -3017,6 +3051,261 @@ def run_dr16pub_path(device, work, card):
 
 
 # ----------------------------------------------------------------------
+# A fit from the command line: run_vega on DR16 as published
+# ----------------------------------------------------------------------
+def held_to_summary(got, want):
+    """max |got - want| over want's indices, of max|want|, and the norms'
+    relative difference: got the full vector, want the goldens' summary
+    (tests/tools/make_torch_port_run_vega_goldens.py::summary)."""
+    got = np.asarray(got, dtype=float).ravel()
+    if got.size != want['size']:
+        fail(f'a vector of {got.size} entries against {want["size"]}')
+    scale = want['max_abs'] or 1.0
+    err = float(np.max(np.abs(got[want['index']] - want['values']))) / scale
+    norm = abs(float(np.linalg.norm(got)) - want['norm']) / (
+        want['norm'] or 1.0)
+    return max(err, norm)
+
+
+def check_sensitivity(label, vega, want, rtol):
+    """vega.sensitivity against the goldens' partials and Fisher sums:
+    returns the worst partial and the worst sum (of its bins' absolute
+    sum); fails above rtol."""
+    worst_partial = worst_fisher = 0.
+    for corr, partials in want['partials'].items():
+        got = vega.sensitivity['partials'][corr]
+        if sorted(got) != sorted(partials):
+            fail(f'{label}: {corr} has partials in {sorted(got)}')
+        for name, summ in partials.items():
+            worst_partial = max(worst_partial, held_to_summary(got[name],
+                                                               summ))
+        fisher = {'|'.join(k): v
+                  for k, v in vega.sensitivity['fisher'][corr].items()}
+        if sorted(fisher) != sorted(want['fisher_sums'][corr]):
+            fail(f'{label}: {corr} has Fisher pairs {sorted(fisher)}')
+        for key, sums in want['fisher_sums'][corr].items():
+            scale = np.asarray(want['fisher_abs_sums'][corr][key])
+            diff = np.abs(np.nansum(fisher[key], axis=1) - sums)
+            worst_fisher = max(worst_fisher,
+                               float(np.max(diff / np.maximum(scale, 1e-300))))
+    log(f'{label} vs the JAX goldens: partials max diff {worst_partial:.3e} '
+        f'of max|ref|, Fisher sums {worst_fisher:.3e} of their bins\' '
+        f'absolute sum')
+    if not max(worst_partial, worst_fisher) <= rtol:
+        fail(f'{label} differs from the JAX goldens by {worst_partial:.3e} '
+             f'/ {worst_fisher:.3e} > {rtol:g}')
+
+
+def check_results_hdus(label, hdus, vega):
+    """The results file's MODEL_* models and BESTFIT (names, values,
+    errors, covariance) against the interface's best fit and minimizer,
+    bit for bit; fails on any difference."""
+    for corr, model in vega.bestfit_model.items():
+        if not np.array_equal(hdus[f'MODEL_{corr}'][f'{corr}_MODEL'],
+                              np.asarray(model)):
+            fail(f'{label}: MODEL_{corr} is not the in-memory best-fit '
+                 'model')
+    minimizer, best = vega.minimizer, hdus['BESTFIT']
+    names = list(minimizer.values)
+    if [str(n) for n in best['names']] != names:
+        fail(f'{label}: BESTFIT names {list(best["names"])}, the fit\'s '
+             f'{names}')
+    for column, want in (
+            ('values', [minimizer.values[n] for n in names]),
+            ('errors', [minimizer.errors[n] for n in names]),
+            ('covariance', np.asarray(minimizer.covariance))):
+        if not np.array_equal(best[column], np.asarray(want, dtype=float)):
+            fail(f'{label}: BESTFIT {column} is not the minimizer\'s')
+
+
+def component_summaries(model):
+    """Every saved component of one correlation's model, the metal
+    pairs' own (model.metals) beside the model's, keyed as
+    tests/tools/make_torch_port_run_vega_goldens.py keys them."""
+    def key_of(key):
+        return key if key == 'core' else '|'.join(key)
+
+    got = {}
+    for prefix, owner in (('', model), ('metals/', model.metals)):
+        if owner is None:
+            continue
+        for comp in ('pk', 'xi', 'xi_distorted'):
+            for part in ('peak', 'smooth', 'full'):
+                for key, value in getattr(owner, comp)[part].items():
+                    got[f'{prefix}{comp}/{part}/{key_of(key)}'] = value
+    return got
+
+
+def run_run_vega_path(device, work, card):
+    """Phase run_vega (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    import importlib.util
+
+    from vega_tpu_torch import cli
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.scripts import run_vega
+    from vega_tpu_torch.testing import make_dr16_published_dataset
+
+    goldens = json.loads(RUN_VEGA_GOLDENS.read_text())
+    fit_goldens = json.loads(DR16PUB_GOLDENS.read_text())
+    names = goldens['names']
+    t_phase = time.perf_counter()
+    main_ini = make_dr16_published_dataset(
+        Path(work) / 'run_vega', size='full', device=device, components=True)
+    log(f'run_vega: configuration synthetic-dr16-published-full with the '
+        f'components written in {time.perf_counter() - t_phase:.2f} s')
+    plots = importlib.util.find_spec('matplotlib') is not None
+    log('run_vega: matplotlib ' + ('is installed: the plots are drawn'
+                                   if plots else 'is not installed: no '
+                                   'plots'))
+    launches, checks = {}, []
+
+    # --- fit and write from the command line: counts from zero
+    interfaces = []
+    fit_and_write = run_vega.fit_and_write
+
+    def keep(*args, **kwargs):
+        interfaces.append(fit_and_write(*args, **kwargs))
+        return interfaces[-1]
+
+    run_vega.fit_and_write = keep
+    try:
+        with switch('VEGA_TPU_GRID_CACHE', None), \
+                switch('VEGA_TPU_GRID_CACHE_DIR',
+                       str(Path(work) / 'grid_cache_run_vega')):
+            LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats(device)
+            with recorded_launches() as layouts:
+                t0 = time.perf_counter()
+                status = cli.main(['fit', str(main_ini), '--device',
+                                   str(device)])
+                torch.cuda.synchronize(device)
+                fit_s = time.perf_counter() - t0
+    finally:
+        run_vega.fit_and_write = fit_and_write
+    launches['run_vega_fit'] = dict(LAUNCHES)
+    vega = interfaces[0]
+    log(f'run_vega: cli fit {fit_s:.2f} s (interface, route sweep, fit, '
+        f'results file{", plots" if plots else ""}), exit {status}, peak '
+        f'device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f}'
+        f' GB, route {vega.grid_stats.get("source")} (sweep '
+        f'{vega.grid_stats.get("sweep_s", float("nan")):.2f} s, served '
+        f'{sorted(set(vega.get_collapsed(frozenset(names))) - {"__grid__"})}'
+        f'), kernel launches {launches["run_vega_fit"]}')
+    checks += check_launches(device, 'run_vega_fit', layouts)
+    if status != 0 or not launches['run_vega_fit'].get(('F', 0)):
+        fail('run_vega: the fit exited non-zero or launched no F_0')
+    check_fit('run_vega', 'published', vega, names,
+              fit_goldens['fit_dense'])
+
+    # --- the results file read back
+    path = vega.output.outfile + '.fits'
+    hdus = {h.name: h for h in read_fits(path) if getattr(h, 'name', '')}
+    want_hdus = {'BESTFIT'} | {f'{kind}_{corr}' for corr in vega.corr_items
+                               for kind in ('MODEL', 'PK', 'Xi')}
+    if not want_hdus <= set(hdus):
+        fail(f'run_vega: {path} holds {sorted(hdus)}')
+    check_results_hdus('run_vega', hdus, vega)
+    worst_sum = 0.
+    for corr, model in vega.models.items():
+        for hdu, columns in (
+                (f'PK_{corr}', vega.output._get_components(model.pk)),
+                (f'Xi_{corr}', vega.output._cf_hdu(corr, model)['columns'])):
+            for column, value in columns.items():
+                if not np.array_equal(hdus[hdu][column], value):
+                    fail(f'run_vega: {hdu} {column} is not the in-memory '
+                         'component')
+        combined = (vega.params['bao_amp']
+                    * model.xi_distorted['peak']['core']
+                    + model.xi_distorted['smooth']['core'])
+        want = vega.bestfit_model[corr]
+        worst_sum = max(worst_sum, float(np.max(np.abs(combined - want))
+                                         / np.max(np.abs(want))))
+    log(f'run_vega: {path} ({os.path.getsize(path) / 1e6:.1f} MB) holds '
+        f'{sorted(hdus)}; every MODEL_ column, BESTFIT\'s names, values, '
+        f'errors and covariance and every PK_ / Xi_ column equal to the '
+        f'in-memory fit and components; bao_amp x peak + smooth against '
+        f'the best-fit model '
+        f'{worst_sum:.3e} of max|model|')
+    if not worst_sum <= COMPONENT_SUM_RTOL:
+        fail(f'run_vega: bao_amp x peak + smooth misses the model by '
+             f'{worst_sum:.3e}')
+    if plots:
+        out_base = vega.output.outfile
+        pngs = [Path(f'{out_base}_{corr}_{kind}.png')
+                for corr in vega.corr_items for kind in ('wedges', 'shells')]
+        if not all(png.exists() for png in pngs):
+            fail('run_vega: a wedge or shell plot is missing')
+        log(f'run_vega: {len(pngs)} plots written')
+
+    # --- the components at the goldens' point
+    t0 = time.perf_counter()
+    model_cf = vega.compute_model(goldens['point'], run_init=False)
+    worst = 0.
+    for corr, model in vega.models.items():
+        want = goldens['components'][corr]
+        got = component_summaries(model)
+        got['model'] = model_cf[corr]
+        if sorted(got) != sorted(want):
+            fail(f'run_vega: {corr} saves {sorted(got)}, vega_tpu '
+                 f'{sorted(want)}')
+        for key, summ in want.items():
+            worst = max(worst, held_to_summary(got[key], summ))
+    log(f'run_vega: components at the goldens\' point against the JAX '
+        f'goldens {worst:.3e} of max|ref| ({time.perf_counter() - t0:.2f} '
+        's)')
+    if not worst <= COMPONENT_RTOL:
+        fail(f'run_vega: components differ from the JAX goldens by '
+             f'{worst:.3e} > {COMPONENT_RTOL:g}')
+
+    # --- Fisher sensitivity at the goldens' nominal: counts from zero
+    nominal = {n: tuple(v) for n, v in goldens['nominal'].items()}
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        vega.compute_sensitivity_exact(nominal=nominal, verbose=False)
+        torch.cuda.synchronize(device)
+        exact_s = time.perf_counter() - t0
+    launches['run_vega_sensitivity_exact'] = dict(LAUNCHES)
+    counts = launches['run_vega_sensitivity_exact']
+    log(f'run_vega: compute_sensitivity_exact over {len(nominal)} names '
+        f'{exact_s:.2f} s, peak device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, kernel '
+        f'launches {counts}')
+    if not (counts.get(('F', 0))
+            and any(n for (p, d), n in counts.items()
+                    if p in ('F', 'P') and d >= 1)
+            and any(n for (p, _), n in counts.items() if p == 'Ft')):
+        fail('run_vega: the exact Jacobian did not launch F_0, a kernel of '
+             'order d >= 1 and the transpose')
+    checks += check_launches(device, 'run_vega_sensitivity_exact', layouts)
+    check_sensitivity('run_vega compute_sensitivity_exact', vega,
+                      goldens['exact'], SENSITIVITY_EXACT_RTOL)
+
+    # the other sampled names at the goldens' point, not the run's fit
+    vega.params.update(goldens['point'])
+    fd_nominal = {n: nominal[n] for n in goldens['fd_names']}
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        vega.compute_sensitivity(nominal=fd_nominal, verbose=False)
+        torch.cuda.synchronize(device)
+        fd_s = time.perf_counter() - t0
+    launches['run_vega_sensitivity_fd'] = dict(LAUNCHES)
+    log(f'run_vega: compute_sensitivity over {list(fd_nominal)} '
+        f'({2 * len(fd_nominal)} rebuilds) {fd_s:.2f} s, kernel launches '
+        f'{launches["run_vega_sensitivity_fd"]}')
+    checks += check_launches(device, 'run_vega_sensitivity_fd', layouts)
+    check_sensitivity('run_vega compute_sensitivity', vega, goldens['fd'],
+                      SENSITIVITY_FD_RTOL)
+    log(f'run_vega phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
+# ----------------------------------------------------------------------
 # The mock configurations: DESI DR1 as run on mocks, LyaCoLoRe
 # ----------------------------------------------------------------------
 def mock_dense_regime(device, label, vega, goldens, launches, checks,
@@ -3456,17 +3745,21 @@ def main():
         lyacolore_launches, lyacolore_checks = run_lyacolore_path(
             device, work, card)
         mark('lyacolore')
+        run_vega_launches, run_vega_checks = run_run_vega_path(
+            device, work, card)
+        mark('run_vega')
     log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
     checks = (dense_checks + grid_checks + fit_checks + scan_checks
               + mc_checks + sampler_checks + dr16_checks + desi_checks
               + table6_checks + dr16pub_checks + desi_mock_checks
-              + lyacolore_checks)
+              + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **desi_launches, **table6_launches,
-         **dr16pub_launches, **desi_mock_launches, **lyacolore_launches},
+         **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,
+         **run_vega_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

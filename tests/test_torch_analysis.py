@@ -381,7 +381,7 @@ def test_generate_mocks_is_fid_plus_z_lt(setup):
     """generate_mocks: fiducial + z L^T per correlation, z drawn in
     corr_items order from a generator seeded with `seed`."""
     port = setup['port']
-    fiducial = port.compute_model(MC_PARAMS)
+    fiducial = port.compute_model(MC_PARAMS, run_init=False)
     got = MonteCarloEngine(port).generate_mocks(fiducial, 4, seed=21)
     gen = torch.Generator().manual_seed(21)
     for name, data in port.data.items():
@@ -404,7 +404,7 @@ def test_run_monte_carlo_matches_jax(setup):
     results = []
     for vega in (jax_vega, port):
         fiducial = (vega.compute_model(run_init=False) if vega is jax_vega
-                    else vega.compute_model())
+                    else vega.compute_model(run_init=False))
         vega.monte_carlo = True
         vega.analysis.run_monte_carlo(fiducial, num_mocks=2, seed=11)
         results.append(vega.analysis)
@@ -481,7 +481,8 @@ def test_mc_start_from_fit_is_not_ported(setup):
     port.main_config['control']['mc_start_from_fit'] = \
         port.output.outfile + '.fits'
     fiducial = port.get_fiducial_for_monte_carlo()
-    want = port.compute_model(port.minimizer.values | MC_PARAMS)
+    want = port.compute_model(port.minimizer.values | MC_PARAMS,
+                              run_init=False)
     for name in port.corr_items:
         assert np.array_equal(fiducial[name], want[name])
     port.main_config.remove_option('control', 'mc_start_from_fit')

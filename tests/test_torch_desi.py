@@ -350,7 +350,7 @@ def test_initialize_monte_carlo_draws_the_global_mock(desi):
         want = np.asarray(ref.initialize_monte_carlo())
         assert port.monte_carlo
         mask, fid_got = port.analysis._global_mock_pieces(
-            port.compute_model({}))
+            port.compute_model({}, run_init=False))
         mask_want, fid_want = ref.analysis._global_mock_pieces(
             ref.compute_model({}, run_init=False))
         assert np.array_equal(mask, mask_want)

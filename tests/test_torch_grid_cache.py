@@ -235,7 +235,8 @@ def test_monte_carlo_mode_writes_nothing(tiny, tmp_path, monkeypatch):
     kept in memory only (vega_tpu/vega_interface.py:827-832)."""
     cache = cache_in(monkeypatch, tmp_path)
     vega = VegaInterface(tiny[0], device='cpu')
-    vega.analysis.create_monte_carlo_sim(vega.compute_model(), seed=3)
+    vega.analysis.create_monte_carlo_sim(vega.compute_model(run_init=False),
+                                         seed=3)
     vega.monte_carlo = True
     assert vega.get_collapsed(frozenset(NAMES))
     assert vega.grid_stats['source'] == 'sweep'

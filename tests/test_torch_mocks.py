@@ -392,7 +392,7 @@ def test_fht_extrap_beside_old_fftlog_matches_jax(fht_extrap):
         assert ref.models[name].metals._stacked_plans is None
         assert vega.models[name].metals._stacked_plans is None
     want = ref.compute_model(run_init=False)
-    got = vega.compute_model()
+    got = vega.compute_model(run_init=False)
     for name in ref.corr_items:
         assert max_rel(got[name], want[name]) <= XI_RTOL
     chi2, want_chi2 = vega.chi2(), float(ref.chi2())
@@ -525,7 +525,8 @@ def test_desi_mock_example_without_widths_raises_as_jax(desi_mock,
     with pytest.raises(KeyError, match='par_sigma_smooth_LYA'):
         JaxInterface(tmp_path / 'main.ini').compute_model(run_init=False)
     with pytest.raises(KeyError, match='par_sigma_smooth_LYA'):
-        VegaInterface(tmp_path / 'main.ini', device='cpu').compute_model()
+        VegaInterface(tmp_path / 'main.ini',
+                      device='cpu').compute_model(run_init=False)
 
 
 def test_fixed_widths_stay_factored(desi_mock):

@@ -180,17 +180,40 @@ def test_hdf_output(fits, tmp_path):
 
 
 def test_components_output_is_not_ported(tmp_path):
-    """[output] write_cf / write_pk wait on the model's save-components
-    (ROADMAP.md section 1 item 4)."""
+    """[output] write_cf / write_pk, not ported before the model's
+    save-components (ROADMAP.md section 1 item 4b), now as vega_tpu writes
+    them: each package writes the tiny auto's results with its models'
+    saved components; PK_ and Xi_ read by either package's FITS reader
+    hold the same columns, within MODEL_RTOL of each other."""
     main = make_synthetic_dataset(tmp_path, cross=False, size='tiny')
     config = configparser.ConfigParser()
     config.optionxform = str
     config.read(main)
-    config['output']['write_cf'] = 'True'
+    config['output'].update(write_cf='True', write_pk='True')
     with open(main, 'w') as fh:
         config.write(fh)
-    with pytest.raises(NotImplementedError, match='item 4'):
-        VegaInterface(main, device='cpu')
+    files = {}
+    for writer, vega in (('port', VegaInterface(main, device='cpu')),
+                         ('jax', JaxInterface(main))):
+        model = vega.compute_model(run_init=False)
+        vega.output.outfile = str(tmp_path / f'{writer}_components')
+        vega.output.write_results(model, vega.params, models=vega.models)
+        files[writer] = vega.output.outfile + '.fits'
+    tables = {(writer, reader): {h.name: h for h in read(path)
+                                 if getattr(h, 'name', '')}
+              for writer, path in files.items()
+              for reader, read in (('port', read_fits),
+                                   ('jax', jax_read_fits))}
+    want = tables['jax', 'jax']
+    assert {'PK_lyaxlya', 'Xi_lyaxlya'} <= set(want)
+    for hdus in tables.values():
+        assert set(hdus) == set(want)
+        for name in ('PK_lyaxlya', 'Xi_lyaxlya'):
+            assert set(hdus[name].columns) == set(want[name].columns)
+            for col in want[name].columns:
+                ref = np.asarray(want[name][col])
+                assert np.max(np.abs(np.asarray(hdus[name][col]) - ref)) \
+                    <= MODEL_RTOL * np.max(np.abs(ref))
 
 
 def test_compute_prior_chi2_matches_jax(tmp_path):

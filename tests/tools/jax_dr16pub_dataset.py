@@ -78,10 +78,13 @@ def build_dr16_published_inis(workdir, size='full', sample=None):
 
 
 def make_jax_dr16_published_dataset(workdir, size='full', seed=0,
-                                    sample=None, extra_control=None):
+                                    sample=None, extra_control=None,
+                                    components=False):
     """main.ini of the published configuration, its data vectors the
     model of vega_tpu at the configuration's parameters (the arguments
-    are the port's make_dr16_published_dataset's)."""
+    are the port's make_dr16_published_dataset's; components=True writes
+    the components with the port's DR16PUB_COMPONENTS_MODEL departure in
+    each correlation's [model])."""
     from vega_tpu import testing as jt
     from vega_tpu.models.eisenstein_hu import make_fiducial_template
     from vega_tpu.vega_interface import VegaInterface
@@ -112,6 +115,16 @@ def make_jax_dr16_published_dataset(workdir, size='full', seed=0,
     config['fiducial']['filename'] = str(template_file)
     for key, value in (extra_control or {}).items():
         config['control'][key] = value
+    if components:
+        config['output'].update(write_pk='True', write_cf='True')
+        for path in config['data sets']['ini files'].split():
+            corr = configparser.ConfigParser()
+            corr.optionxform = lambda option: option
+            corr.read(path)
+            corr['model'].update(fast_metals='False',
+                                 fast_metal_bias='False')
+            with open(path, 'w') as fh:
+                corr.write(fh)
     with open(main_path, 'w') as fh:
         config.write(fh)
 
@@ -131,3 +144,36 @@ def make_jax_dr16_published_dataset(workdir, size='full', seed=0,
             workdir / f'cf_{name}.fits', name.endswith('xqso'), z_eff, rng,
             model_xi=np.asarray(model_cf[name]), nt=nt)
     return main_path
+
+
+def configuration_variant(main_path, workdir, names=None, output=None,
+                          model=None):
+    """A copy of the configuration `main_path` in `workdir` (main.ini and
+    each correlation's ini; the data, metal and template files are
+    shared): only the correlations `names` (default all), with `output`
+    ({option: value}) set in the main [output] and `model` in every
+    correlation's [model]; returns the copy's main.ini path."""
+    def parser(path):
+        config = configparser.ConfigParser()
+        config.optionxform = lambda option: option
+        config.read(path)
+        return config
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    main = parser(main_path)
+    ini_files = []
+    for path in main['data sets']['ini files'].split():
+        corr = parser(path)
+        if names is not None and corr['data']['name'] not in names:
+            continue
+        corr['model'].update(model or {})
+        ini_files.append(workdir / Path(path).name)
+        with open(ini_files[-1], 'w') as fh:
+            corr.write(fh)
+    main['data sets']['ini files'] = ' '.join(str(f) for f in ini_files)
+    main['output'].update(output or {})
+    out = workdir / 'main.ini'
+    with open(out, 'w') as fh:
+        main.write(fh)
+    return out

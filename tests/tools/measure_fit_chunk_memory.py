@@ -124,7 +124,8 @@ def main():
         with cs.switch('VEGA_TPU_FACTORED', None), \
                 cs.switch('VEGA_TPU_GRID_COLLAPSE', None):
             vega = VegaInterface(mc_ini, device=device)
-    fiducial = vega.compute_model(vega.mc_config['params'])
+    fiducial = vega.compute_model(vega.mc_config['params'],
+                                  run_init=False)
     engine = MonteCarloEngine(vega)
     sample = {key: {n: vega.mc_config['sample'][key][n] for n in names}
               for key in ('limits', 'values', 'errors', 'fix')}

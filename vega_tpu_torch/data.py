@@ -62,6 +62,9 @@ class Data:
         self.variance = (np.ones(self.full_data_size)
                          if corr_item.low_mem_mode
                          else self._cov_mat.diagonal().copy())
+        # the covariance as read, for the plots (vega_tpu/data.py:75-79:
+        # an alias, since the port never updates the covariance in place)
+        self.cov_mat_org = None if corr_item.low_mem_mode else self._cov_mat
         self.masked_data_vec = self.data_vec[self.data_mask]
 
         # Monte-Carlo state (vega_tpu/data.py:88-91)
@@ -94,6 +97,10 @@ class Data:
     @property
     def distortion_mat(self):
         return self._distortion_mat
+
+    @property
+    def has_cov_mat_org(self):
+        return self.cov_mat_org is not None
 
     @property
     def has_distortion(self):
@@ -241,6 +248,9 @@ class Data:
                                        or self.model_coordinates)
         self.model_mask = self.dist_model_coordinates.get_mask_scale_cuts(
             cuts_config)
+        # the r cuts as configured, for the plots (vega_tpu/data.py:295)
+        self.r_min_cut = cuts_config.getfloat('r-min', 10.)
+        self.r_max_cut = cuts_config.getfloat('r-max', 180.)
 
     # ------------------------------------------------------------------
     # Metals (vega_tpu/data.py:328-424)

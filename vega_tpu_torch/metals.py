@@ -35,6 +35,16 @@ then a device f64 tensor applied after the combine: the full
 (rp x rt) matrix as one GEMM (xi @ D^T), or with `rp_only_metal_mats`
 the (rp, rp) matrix along the line of sight (D @ xi.reshape(rp, rt)),
 a configuration the stacking plan refuses, as vega_tpu's does.
+
+With save-components (the fiducial's 'save-components') the plan refuses
+every configuration, as vega_tpu's does (vega_tpu/metals.py:165): the
+pairs run unrolled in every evaluation, fit included, and an evaluation
+asked to save (a `component` name) keeps each pair's P(k, mu_k), xi and
+distorted xi in `pk`, `xi` and `xi_distorted` under that component
+(vega_tpu/metals.py:505-516). fast_metals and separate-metal-auto-biases
+refuse save-components (ValueError), and so does, at a saved evaluation,
+the bias product taken outside the pairs' spectra (fast_metal_bias,
+on unless [model] sets it False: AssertionError), as in vega_tpu.
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ from .factored import (FactoredXi, RecordingParams, _broadcast_cat,
 from .io.fits import read_fits
 from .native import pair_hist
 from .ops.spline_combine import spline_legendre_combine
-from .utils import col, to_tensor
+from .utils import col, host_row, to_tensor
 
 # per-class constants `state` carries between the packages
 PLAN_CONSTANTS = ('r', 'mu', 'growth', 'rel_z', 'moment_proj')
@@ -87,6 +97,16 @@ class Metals:
         if self.fast_metals or self.separate_metal_auto_biases:
             self.fast_metal_bias = True
         self.growth_rate = fiducial.get('growth_rate', None)
+
+        self.save_components = fiducial.get('save-components', False)
+        if self.save_components and (self.fast_metals
+                                     or self.separate_metal_auto_biases):
+            raise ValueError('Cannot save pk/cf components in fast_metals '
+                             'mode. Either turn fast_metals off, or turn off '
+                             'write_pk/write_cf.')
+        self.pk = {'peak': {}, 'smooth': {}, 'full': {}}
+        self.xi = {'peak': {}, 'smooth': {}, 'full': {}}
+        self.xi_distorted = {'peak': {}, 'smooth': {}, 'full': {}}
 
         self.main_tracers = [corr_item.tracer1['name'],
                              corr_item.tracer2['name']]
@@ -181,11 +201,13 @@ class Metals:
         # the [model] section builds the metals' transform)
         if corr_item.config['model'].getboolean('fht_extrap', False):
             return None
-        # rp-only matrices act on the (rp, rt) grid, not on a pair's rows
-        # (vega_tpu/metals.py:164-165); metal-scaling rescales each
-        # pair's coordinates (vega_tpu/metals.py:167-168,239-242 read it
-        # off the pairs' shared scale parameters)
-        if self._scale_params.metal_scaling or self.rp_only_metal_mats:
+        # saved components are per pair (vega_tpu/metals.py:165); rp-only
+        # matrices act on the (rp, rt) grid, not on a pair's rows
+        # (:164-165); metal-scaling rescales each pair's coordinates
+        # (:167-168,239-242 read it off the pairs' shared scale
+        # parameters)
+        if (self.save_components or self._scale_params.metal_scaling
+                or self.rp_only_metal_mats):
             return None
 
         has_arinyo = ('small scale nl' in metals_config
@@ -550,9 +572,11 @@ class Metals:
     # Unrolled per-pair loop
     # ------------------------------------------------------------------
     def compute_metal_corr(self, pars, pk_lin, corr_hash, fast_metals,
-                           use_kernel=True):
+                           use_kernel=True, component=None):
         """One metal sub-correlation with its metal matrix applied
-        (vega_tpu/metals.py:491-517). Returns (xi (B', n), bad)."""
+        (vega_tpu/metals.py:491-517). Returns (xi (B', n), bad). With
+        save-components and a `component`, the pair's spectrum, xi and
+        distorted xi are saved under it."""
         pk, bad_pk = self.Pk_metal[corr_hash].compute(
             pk_lin, pars, fast_metals=fast_metals)
         xi, bad_xi = self.Xi_metal[corr_hash].compute(
@@ -560,16 +584,28 @@ class Metals:
         # Cross-metal symmetry in autos (reference: metals.py:237-239)
         if self.is_auto_correlation and corr_hash[0] != corr_hash[1]:
             xi = xi * 2
-        return self.apply_metal_matrix(xi, corr_hash), bad_pk | bad_xi
+        save = self.save_components and component is not None
+        if save:
+            if fast_metals:
+                raise AssertionError('You need to set fast_metal_bias=False.')
+            self.pk[component][corr_hash] = host_row(pk, 2)
+            self.xi[component][corr_hash] = host_row(xi, 1)
+        xi = self.apply_metal_matrix(xi, corr_hash)
+        if save:
+            self.xi_distorted[component][corr_hash] = host_row(xi, 1)
+        return xi, bad_pk | bad_xi
 
-    def compute(self, pars, pk_lin, use_kernel=True, sampling=None):
+    def compute(self, pars, pk_lin, use_kernel=True, sampling=None,
+                component=None):
         """Sum of all metal correlations (vega_tpu/metals.py:542-603).
-        Returns (xi_metals (B', n) or a FactoredXi, bad)."""
+        Returns (xi_metals (B', n) or a FactoredXi, bad). `component`
+        names the component an evaluation saves (save-components)."""
         if self._stacked_plans is not None:
             return self.compute_stacked(pars, pk_lin, use_kernel, sampling)
-        return self.compute_unrolled(pars, pk_lin, use_kernel)
+        return self.compute_unrolled(pars, pk_lin, use_kernel, component)
 
-    def compute_unrolled(self, pars, pk_lin, use_kernel=True):
+    def compute_unrolled(self, pars, pk_lin, use_kernel=True,
+                         component=None):
         """The per-pair loop (vega_tpu/metals.py:553-603): the path of
         configurations the stacking plan refuses."""
         local_pars = self._local_pars(pars)
@@ -601,7 +637,8 @@ class Metals:
                         f'parameter found for {corr_hash}.')
                 bias_product = bias_product * factor
             xi, xi_bad = self.compute_metal_corr(
-                local_pars, pk_lin, corr_hash, use_fast_bias, use_kernel)
+                local_pars, pk_lin, corr_hash, use_fast_bias, use_kernel,
+                component)
             bad = bad | xi_bad
             if use_fast_bias:
                 xi = col(bias_product, 1) * xi

@@ -16,6 +16,15 @@ radiation's (smooth), the metals', the instrumental systematics'
 (smooth), the additive broadband's before the distortion, then after it;
 `coefficients` is its coefficient part, run per evaluation on (B,)
 tensors.
+
+With save-components (the fiducial's 'save-components', set by [output]
+write_pk / write_cf) a model keeps the components of the evaluations it
+is asked to save (`compute(..., save=True)`, VegaInterface.compute_model
+alone: one dense row) as host arrays, keyed as vega_tpu keys them
+(vega_tpu/model.py:53-57,117-163): `pk`, `xi` and `xi_distorted`, each
+{'peak': {}, 'smooth': {}, 'full': {}}, with the core model under
+'core' and, with the metals decomposed (no-metal-decomp = False), each
+metal pair's under its (name1, name2).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from . import correlation_func as corr_func
 from . import metals, pktoxi, power_spectrum
 from .broadband_poly import BroadbandPolynomials
 from .factored import FactoredXi, RecordingParams, densify, stack_coefficients
-from .utils import col, to_tensor
+from .utils import col, host_row, to_tensor
 
 
 class Model:
@@ -43,6 +52,12 @@ class Model:
             str(corr_item.data_coordinates.rp_binsize)
         corr_item.config['model']['bin_size_rt'] = \
             str(corr_item.data_coordinates.rt_binsize)
+
+        self.save_components = fiducial.get('save-components', False)
+        if self.save_components:
+            self.pk = {'peak': {}, 'smooth': {}, 'full': {}}
+            self.xi = {'peak': {}, 'smooth': {}, 'full': {}}
+            self.xi_distorted = {'peak': {}, 'smooth': {}, 'full': {}}
 
         self.broadband = None
         if 'broadband' in corr_item.config:
@@ -90,21 +105,31 @@ class Model:
                 self._dist_mat = to_tensor(dist, self.device)
 
     def _compute_model(self, pars, pk_model, use_kernel, sampling=None,
-                       xi_metals=None, pk_lin=None):
+                       xi_metals=None, pk_lin=None, component=None):
         """One component's correlation function
         (vega_tpu/model.py:100-165): the core model, plus `xi_metals`
         when given (no-metal-decomp), else with metals the metal stack on
-        this component's linear spectrum `pk_lin`."""
+        this component's linear spectrum `pk_lin`. With `component`
+        ('peak' or 'smooth') its components are saved."""
         xi_model, bad = self.Xi_core.compute(pk_model, self.PktoXi, pars,
                                              use_kernel, sampling)
+        if component is not None:
+            self.pk[component]['core'] = host_row(pk_model, 2)
+            self.xi[component]['core'] = host_row(xi_model, 1)
         if self.metals is not None:
             if self.no_metal_decomp and xi_metals is not None:
                 xi_model = self._add_xi(xi_model, xi_metals)
             elif not self.no_metal_decomp:
                 xi_m, bad_m = self.metals.compute(pars, pk_lin, use_kernel,
-                                                  sampling)
+                                                  sampling, component)
                 xi_model = self._add_xi(xi_model, xi_m)
                 bad = bad | bad_m
+                if component is not None:
+                    for mine, theirs in (
+                            (self.pk, self.metals.pk),
+                            (self.xi, self.metals.xi),
+                            (self.xi_distorted, self.metals.xi_distorted)):
+                        mine[component].update(theirs[component])
         if self._inst_sys_template is not None and not pars['peak']:
             # vega_tpu/model.py:136-148: the amplitude is the term's
             # coefficient; without the parameter the default amplitude
@@ -124,6 +149,8 @@ class Model:
         if self.broadband is not None:
             xi_model = self._apply_broadband(xi_model, pars, 'post',
                                              sampling)
+        if component is not None:
+            self.xi_distorted[component]['core'] = host_row(xi_model, 1)
         return xi_model, bad
 
     def _apply_broadband(self, xi_model, pars, position, sampling):
@@ -168,7 +195,7 @@ class Model:
         return densify(a) + densify(b)
 
     def compute(self, pars, pk_full, pk_smooth, use_kernel=True,
-                sampling=None, pk_cache=None):
+                sampling=None, pk_cache=None, save=False):
         """Peak/smooth decomposition (vega_tpu/model.py:211-245).
 
         pars : dict of floats and (B,) tensors
@@ -178,9 +205,14 @@ class Model:
             knot tables) and the factored metal stack between calls with
             the same sampled set, when no grid parameter shaped them (the
             grid sweep's node chunks)
+        save : keep this evaluation's components when the model has
+            save-components (one dense row: no `sampling`, B' = 1)
         Returns (xi_full, bad (B',)): xi_full is (B', M), B' = 1 when no
         parameter the model reads is batched, or a FactoredXi.
         """
+        save = save and self.save_components
+        if save and sampling is not None:
+            raise ValueError('components are saved on the dense path only')
         pars = dict(pars)
         pars['peak'] = True
         pk_peak_lin = pk_full - pk_smooth
@@ -195,7 +227,8 @@ class Model:
                     and pk_peak.grid_free):
                 pk_cache['pk'] = (pk_peak, pk_smooth_grid, bad_pk)
         xi_peak, bad_peak = self._compute_model(
-            pars, pk_peak, use_kernel, sampling, pk_lin=pk_peak_lin)
+            pars, pk_peak, use_kernel, sampling, pk_lin=pk_peak_lin,
+            component='peak' if save else None)
         del pk_peak
 
         pars['peak'] = False
@@ -205,7 +238,8 @@ class Model:
                 xi_metals, bad_metals = pk_cache['metals']
             else:
                 xi_metals, bad_metals = self.metals.compute(
-                    pars, pk_full, use_kernel, sampling)
+                    pars, pk_full, use_kernel, sampling,
+                    'full' if save else None)
                 # basis rows without a leading axis: no grid parameter
                 # moved them, every node chunk gets the same
                 if (pk_cache is not None
@@ -214,7 +248,7 @@ class Model:
                     pk_cache['metals'] = (xi_metals, bad_metals)
         xi_smooth, bad_smooth = self._compute_model(
             pars, pk_smooth_grid, use_kernel, sampling, xi_metals=xi_metals,
-            pk_lin=pk_smooth)
+            pk_lin=pk_smooth, component='smooth' if save else None)
         if isinstance(xi_peak, FactoredXi):
             xi_peak = xi_peak.scale(pars['bao_amp'])
         else:

@@ -1,11 +1,12 @@
 """Results output: FITS (and HDF5) writers.
 
 Counterpart of vega_tpu/output.py:19-273 with the same file layout
-(MODEL_* HDUs, BESTFIT, SCAN, Monte-Carlo outputs), so either package's
-FitResults reads the other's files (tests/test_torch_output.py). Written
-through the port's pure-numpy FITS writer; h5py is imported only by
-`write_results_hdf`. The model components' HDUs (PK_ / Xi_, [output]
-write_pk / write_cf) wait on the model's save-components and raise.
+(MODEL_* HDUs, BESTFIT, the model components' PK_ / Xi_ HDUs with
+[output] write_pk / write_cf, SCAN, Monte-Carlo outputs), so either
+package's FitResults and FITS reader read the other's files
+(tests/test_torch_output.py, test_torch_components.py). Written through
+the port's pure-numpy FITS writer; h5py is imported only by
+`write_results_hdf`.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from pathlib import Path
 import numpy as np
 
 from .io.fits import write_fits
-from .utils import not_ported
 
 
 class Output:
@@ -29,18 +29,18 @@ class Output:
         self.type = config.get('type', 'fits')
         self.overwrite = config.getboolean('overwrite', False)
         self.outfile = os.path.expandvars(config['filename'])
-        if (config.getboolean('write_cf', False)
-                or config.getboolean('write_pk', False)):
-            raise not_ported('[output] write_cf / write_pk (the PK_ and Xi_ '
-                             'component HDUs, save-components)', 4)
+        self.output_cf = config.getboolean('write_cf', False)
+        self.output_pk = config.getboolean('write_pk', False)
         self.mc_output = config.get('mc_output', None)
 
     def write_results(self, corr_funcs, params, minimizer=None,
-                      bestfit_corr_stats=None, scan_results=None):
-        """(vega_tpu/output.py:33-43)"""
+                      bestfit_corr_stats=None, scan_results=None,
+                      models=None):
+        """(vega_tpu/output.py:33-43); `models` ({name: Model}) carry the
+        saved components the PK_ / Xi_ HDUs hold."""
         if self.type == 'fits':
             self.write_results_fits(corr_funcs, params, minimizer,
-                                    bestfit_corr_stats, scan_results)
+                                    bestfit_corr_stats, scan_results, models)
         elif self.type in ('hdf', 'h5'):
             self.write_results_hdf(minimizer, scan_results)
         else:
@@ -53,15 +53,25 @@ class Output:
                       constant_values=pad_value)
 
     def write_results_fits(self, corr_funcs, params, minimizer=None,
-                           bestfit_corr_stats=None, scan_results=None):
-        """MODEL_* HDUs, BESTFIT and SCAN in `<filename>.fits`
-        (vega_tpu/output.py:51-76)."""
+                           bestfit_corr_stats=None, scan_results=None,
+                           models=None):
+        """MODEL_* HDUs, BESTFIT, PK_* / Xi_* and SCAN in
+        `<filename>.fits` (vega_tpu/output.py:51-76)."""
         if self.data is None:
             raise ValueError('Output initialized without a valid data object')
 
         hdus = self._model_hdus(corr_funcs, params, bestfit_corr_stats)
         if minimizer is not None:
             hdus.append(self._bestfit_hdu(minimizer))
+        if (self.output_pk or self.output_cf) and models is None:
+            raise ValueError('[output] write_pk / write_cf write the saved '
+                             'components of the models: pass models')
+        if self.output_pk:
+            for key, model in models.items():
+                hdus.append(self._component_hdu(f'PK_{key}', model.pk))
+        if self.output_cf:
+            for key, model in models.items():
+                hdus.append(self._cf_hdu(key, model))
         if scan_results is not None:
             assert minimizer is not None
             hdus.append(self._scan_hdu(scan_results))
@@ -173,6 +183,34 @@ class Output:
                 header[self._short_key(par + '_max')] = float(grid[-1])
                 header[self._short_key(par + '_nbin')] = len(grid)
         return {'name': 'SCAN', 'header': header, 'columns': columns}
+
+    def _cf_hdu(self, component, model):
+        """Xi_<name>: the raw and distorted xi components
+        (vega_tpu/output.py:181-185)."""
+        columns = {}
+        columns.update(self._get_components(model.xi, 'raw_'))
+        columns.update(self._get_components(model.xi_distorted, 'distorted_'))
+        return {'name': 'Xi_' + component, 'columns': columns}
+
+    def _component_hdu(self, name, model_components):
+        return {'name': name, 'columns': self._get_components(model_components)}
+
+    @staticmethod
+    def _get_components(model_components, name_prefix=''):
+        """Saved components as table columns, `<part>_core` and
+        `<part>_<name1>_<name2>` per metal pair (vega_tpu/output.py:
+        190-204)."""
+        columns = {}
+        for part, data in model_components.items():
+            if not data:
+                continue
+            for key, item in data.items():
+                if key == 'core':
+                    cname = name_prefix + part + '_core'
+                else:
+                    cname = name_prefix + part + '_' + key[0] + '_' + key[1]
+                columns[cname] = np.atleast_1d(np.asarray(item))
+        return columns
 
     def write_monte_carlo(self, cpu_id=None):
         """Monte-Carlo outputs: Bestfit, FitInfo and Mocks in

@@ -625,7 +625,7 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     # Second pass: regenerate the data vectors from the actual model at
     # the default parameters so fits are well-posed (truth = defaults)
     vega = VegaInterface(main_path, device=device)
-    model_cf = vega.compute_model()
+    model_cf = vega.compute_model(run_init=False)
     for name, corr_item in vega.corr_items.items():
         is_cross = corr_item.tracer1['type'] != corr_item.tracer2['type']
         _write_correlation_data(data_files[is_cross], is_cross, z_eff, rng,
@@ -723,6 +723,15 @@ DR16PUB_SAMPLE = {
 }
 DR16PUB_PRIORS = {'beta_hcd': 'gaussian 0.5 0.09',
                   'bias_eta_CIV(eff)': 'gaussian -0.005 0.0026'}
+# With the components written ([output] write_pk / write_cf), both
+# packages refuse the configuration as published: fast_metals raises
+# ValueError at construction and the metals' bias product outside their
+# spectra (fast_metal_bias, on by default) AssertionError at the first
+# saved evaluation (vega_tpu/metals.py:65-69,505-506). The departure their
+# messages ask for, in each correlation's [model] (ROADMAP.md §3); the
+# growth rate is not sampled, so the model is the published one.
+DR16PUB_COMPONENTS_MODEL = {'fast_metals': 'False',
+                            'fast_metal_bias': 'False'}
 
 
 def _ini_parser():
@@ -731,11 +740,13 @@ def _ini_parser():
     return config
 
 
-def dr16_published_correlation(name, data_file, metal_file, size='full'):
+def dr16_published_correlation(name, data_file, metal_file, size='full',
+                               components=False):
     """One correlation's ini of the published configuration, as
     vega_tpu's BuildConfig writes it from make_configs.py's `corr_info`
     (a ConfigParser; size='tiny' adds the synthetic configuration's
-    small mu_k grid to [model])."""
+    small mu_k grid to [model]; components=True the departure
+    DR16PUB_COMPONENTS_MODEL)."""
     is_cross = name.endswith('xqso')
     tracer2 = ('QSO', 'discrete') if is_cross else ('LYA', 'continuous')
     config = _ini_parser()
@@ -761,6 +772,8 @@ def dr16_published_correlation(name, data_file, metal_file, size='full'):
     model.update(DR16PUB_EXTRA_MODEL)
     if size == 'tiny':
         model.update(num_bins_muk='50', ell_max='6')
+    if components:
+        model.update(DR16PUB_COMPONENTS_MODEL)
     config['model'] = model
     config['parameters'] = {f'par binsize {name}': '4',
                             f'per binsize {name}': '4'}
@@ -777,11 +790,12 @@ def dr16_published_correlation(name, data_file, metal_file, size='full'):
 
 
 def dr16_published_main(ini_files, template_file, out_file, sample=None,
-                        extra_control=None):
+                        extra_control=None, components=False):
     """The main ini of the published configuration, as BuildConfig
     writes it (a ConfigParser): the combined fit's [sample] and [priors]
-    unless `sample` ({name: [sample] entry}) is given, and [control]
-    with `extra_control` ({option: value}) beside run_sampler."""
+    unless `sample` ({name: [sample] entry}) is given, [control] with
+    `extra_control` ({option: value}) beside run_sampler, and with
+    `components` write_pk and write_cf under [output]."""
     sample = DR16PUB_SAMPLE if sample is None else sample
     config = _ini_parser()
     config['data sets'] = {
@@ -792,6 +806,8 @@ def dr16_published_main(ini_files, template_file, out_file, sample=None,
         'full-shape-alpha': 'False', 'smooth-scaling': 'False'}
     config['fiducial'] = {'filename': str(template_file)}
     config['output'] = {'filename': str(out_file)}
+    if components:
+        config['output'].update(write_pk='True', write_cf='True')
     config['sample'] = dict(sample)
     priors = {k: v for k, v in DR16PUB_PRIORS.items() if k in sample}
     if priors:
@@ -802,7 +818,8 @@ def dr16_published_main(ini_files, template_file, out_file, sample=None,
 
 
 def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
-                                sample=None, extra_control=None):
+                                sample=None, extra_control=None,
+                                components=False):
     """eBOSS DR16's published configuration on synthetic data; returns the
     main ini's path. Four correlations (lyaxlya, lyaxlyb: 2500 bins each;
     lyaxqso, lybxqso: 5000 bins each at size='full'), the files of
@@ -812,7 +829,9 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
     `device`, the card unless the caller asks for 'cpu'), and a metal
     file per correlation (`write_metal_file`, rp shifts of the five
     metals). `sample` replaces the combined fit's [sample];
-    `extra_control` ({option: value}) goes under [control]."""
+    `extra_control` ({option: value}) goes under [control]; components=True
+    writes the components ([output] write_pk / write_cf) with the
+    departure DR16PUB_COMPONENTS_MODEL."""
     from .vega_interface import VegaInterface, resolve_device
     device = resolve_device(device)
     workdir = Path(workdir)
@@ -840,7 +859,8 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
         ini_files.append(workdir / f'{name}.ini')
         with open(ini_files[-1], 'w') as fh:
             dr16_published_correlation(name, data_files[name],
-                                       metal_files[name], size).write(fh)
+                                       metal_files[name], size,
+                                       components).write(fh)
     # BuildConfig's output directory and run name
     (workdir / 'output_fitter').mkdir(exist_ok=True)
     main_path = workdir / 'main.ini'
@@ -848,10 +868,11 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
         dr16_published_main(
             ini_files, template_file,
             workdir / 'output_fitter' / '_'.join(DR16PUB_CORRELATIONS),
-            sample, extra_control).write(fh)
+            sample, extra_control, components).write(fh)
 
     # the data vectors: the model at the configuration's parameters
-    model_cf = VegaInterface(main_path, device=device).compute_model()
+    model_cf = VegaInterface(main_path, device=device).compute_model(
+        run_init=False)
     for name in DR16PUB_CORRELATIONS:
         _write_correlation_data(data_files[name], crosses[name],
                                 DR16PUB_ZEFF, rng,
@@ -953,7 +974,8 @@ def make_lyacolore_dataset(workdir, size='full', device='cuda', seed=0,
     with open(main_path, 'w') as fh:
         lyacolore_main(ini_file, workdir / 'output_fitter' / 'lyaxlya',
                        sample, extra_control).write(fh)
-    model_cf = VegaInterface(main_path, device=device).compute_model()
+    model_cf = VegaInterface(main_path, device=device).compute_model(
+        run_init=False)
     _write_correlation_data(data_file, False, LYACOLORE_ZEFF, rng,
                             model_xi=np.asarray(model_cf['lyaxlya']), nt=nt)
     return main_path

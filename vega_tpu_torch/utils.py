@@ -50,6 +50,18 @@ def col(x, n_trailing):
     return x
 
 
+def host_row(x, ndim):
+    """A saved model component as a host array of `ndim` axes: one row
+    (1, ...) of a batched tensor, or an unbatched one."""
+    x = x.detach()
+    if x.dim() == ndim + 1 and x.shape[0] == 1:
+        x = x[0]
+    if x.dim() != ndim:
+        raise ValueError(f'a component of shape {tuple(x.shape)} is not '
+                         f'one row of {ndim} axes')
+    return x.cpu().numpy()
+
+
 def np_sinc(x):
     """Unnormalized sinc with sinc(0) = 1 (host-side init work)."""
     x = np.asarray(x, dtype=float)

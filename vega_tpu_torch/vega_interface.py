@@ -50,8 +50,19 @@ A grid payload is kept on disk under its content fingerprint
 later process of the same fit loads it instead of sweeping; an
 interrupted sweep resumes from its part files. A fit's results are
 written by `output` (output.Output: FITS or HDF5, read back with
-postprocess.FitResults). Plots, the components' HDUs (save-components),
-marginalization and blinding beyond "none" are not ported yet.
+postprocess.FitResults), with the model's components (PK_ / Xi_ HDUs)
+when [output] sets write_pk or write_cf: the models then keep the
+components of every `compute_model` (save-components, model.py).
+`plots` (plots.plot.VegaPlots, matplotlib) is built at first use, so an
+interface constructs where matplotlib is not installed.
+
+Fisher sensitivity per (rp, rt) bin (vega_interface.py:1508-1688):
+`compute_sensitivity` by central differences of the saved components,
+one rebuilt model per step; `compute_sensitivity_exact` from exact
+partials of vega_tpu's component graph, forward-mode columns taken as
+one double backward (`_component_jacobian`).
+
+Marginalization and blinding beyond "none" are not ported yet.
 """
 
 from __future__ import annotations
@@ -143,6 +154,11 @@ class VegaInterface:
 
         self.fiducial = self._read_fiducial(self.main_config['fiducial'])
         self.fiducial['z_eff'] = self.main_config['data sets'].getfloat('zeff')
+        # the models keep their components (vega_interface.py:62-65)
+        output = self.main_config['output']
+        self.fiducial['save-components'] = (
+            output.getboolean('write_cf', False)
+            or output.getboolean('write_pk', False))
         ini_files = self.main_config['data sets'].get('ini files').split()
         global_cov_file = self.main_config['data sets'].get(
             'global-cov-file', None)
@@ -197,9 +213,7 @@ class VegaInterface:
 
         self.scale_params = ScaleParameters(self.main_config['cosmo-fit type'])
 
-        self.models = {name: Model(item, self.fiducial, self.scale_params,
-                                   self.data[name], device=self.device)
-                       for name, item in self.corr_items.items()}
+        self._build_models()
 
         # Monte Carlo config (vega_interface.py:157-164)
         self.mc_config = None
@@ -291,6 +305,24 @@ class VegaInterface:
                         'run_sampler set, but no sampler config found')
 
         self.monte_carlo = False
+        self._plots = None
+
+    @property
+    def plots(self):
+        """The plots of the data (plots.plot.VegaPlots), built at first
+        use: matplotlib is imported here and nowhere else of the
+        interface (vega_interface.py:227-230 builds them at
+        construction)."""
+        if self._plots is None:
+            from .plots.plot import VegaPlots
+            self._plots = VegaPlots(vega_data=self.data)
+        return self._plots
+
+    def _build_models(self):
+        """One Model per correlation, under the current fiducial."""
+        self.models = {name: Model(item, self.fiducial, self.scale_params,
+                                   self.data[name], device=self.device)
+                       for name, item in self.corr_items.items()}
 
     def set_fiducial_pk(self, pk_full, pk_smooth):
         """Install the fiducial linear spectra (host arrays)."""
@@ -394,15 +426,15 @@ class VegaInterface:
                              f'{sorted(sizes)}')
         return local, n_b
 
-    def _model_graph(self, local_params, n_b, use_kernel=True):
+    def _model_graph(self, local_params, n_b, use_kernel=True, save=False):
         """(model_cf {name: (B, M)}, bad (B,)) for every correlation,
-        dense."""
+        dense; `save` keeps the components (Model.compute)."""
         model_cf = {}
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         for name in self.corr_items:
             cf, cf_bad = self.models[name].compute(
                 local_params, self._pk_full, self._pk_smooth,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, save=save)
             model_cf[name] = cf.expand(n_b, -1)
             bad = bad | cf_bad
         return model_cf, bad
@@ -704,7 +736,8 @@ class VegaInterface:
 
         self.minimizer.minimize()
 
-        self.bestfit_model = self.compute_model(self.minimizer.values)
+        self.bestfit_model = self.compute_model(self.minimizer.values,
+                                                run_init=False)
         self.total_data_size = 0
         self.bestfit_corr_stats = {}
         num_pars = len(self.sample_params['limits'])
@@ -751,6 +784,186 @@ class VegaInterface:
     def bestfit(self):
         return self.minimizer
 
+    def set_fast_metals(self):
+        """Turn fast metals on in every model's metals
+        (vega_interface.py:1431-1441): the growth rate of the unrolled
+        pairs stays the fiducial one and their bias product is taken
+        outside their spectra."""
+        print('Warning! Activating fast metals for minimizing/sampling.')
+        for name in self.corr_items:
+            metals = self.models[name].metals
+            if metals is not None:
+                metals.fast_metals = True
+
+    # ------------------------------------------------------------------
+    # Fisher sensitivity (vega_interface.py:1508-1688)
+    # ------------------------------------------------------------------
+    def _nominal(self, nominal):
+        """{name: (value, error)}: `nominal`, or the best fit's."""
+        if nominal is None:
+            if self.bestfit is None or not self.bestfit.run_flag:
+                raise RuntimeError(
+                    'No nominal parameter values provided or saved')
+            nominal = {name: (self.bestfit.values[name],
+                              self.bestfit.errors[name])
+                       for name in self.bestfit.values}
+        return nominal
+
+    def _sensitivity_components(self, model, pars):
+        """vega_tpu's component graph of one model
+        (vega_interface.py:1537-1576): peak and smooth (their spectra as
+        `Model.compute` builds them: the same factors as vega_tpu's
+        `_shared_factor` there, multiplied in `compute_peak_smooth`'s
+        order), the metals on the full spectrum added to the smooth
+        whatever no-metal-decomp says,
+        through the distortion matrix and without it; no broadband and
+        no instrumental systematics. (B', 2 distorted / raw, 2 peak /
+        smooth, n) for (B,) parameters."""
+        pars = dict(pars)
+        pars['peak'] = True
+        pk_peak, pk_smooth, _ = model.Pk_core.compute_peak_smooth(
+            pars, self._pk_full - self._pk_smooth, self._pk_smooth)
+        xi_peak, _ = model.Xi_core.compute(pk_peak, model.PktoXi, pars)
+        pars['peak'] = False
+        xi_smooth, _ = model.Xi_core.compute(pk_smooth, model.PktoXi, pars)
+        if model.metals is not None:
+            xi_metals, _ = model.metals.compute(pars, self._pk_full)
+            xi_smooth = xi_smooth + densify(xi_metals)
+        xi_peak, xi_smooth = torch.broadcast_tensors(xi_peak, xi_smooth)
+        raw = torch.stack([xi_peak, xi_smooth], dim=-2)
+        distorted = (raw if model._dist_mat is None
+                     else raw @ model._dist_mat.T)
+        return torch.stack([distorted, raw], dim=-3)
+
+    def _component_jacobian(self, name, values, free):
+        """Exact partials of `_sensitivity_components` of one correlation
+        at `values` ({name: float}) in the P names `free`: (P, 2, 2, n).
+
+        Forward-mode columns without a forward mode: every row r of a
+        batch of P equal rows carries its own leaf of each name, so with
+        u the components' cotangent, g_q = d(sum u . f)/d theta_q holds
+        row r's u_r . df_r/dtheta_q at r, and the gradient of
+        sum_r g_r[r] in u is row r's column df_r/dtheta_r. One forward,
+        one backward with its graph kept and one backward of that give
+        all P columns (through the combine its Functions' forward,
+        transpose and derivative kernels, ops/spline_combine.py)."""
+        n_free = len(free)
+        with torch.enable_grad():
+            leaves = [torch.full((n_free,), float(values[p]), dtype=DTYPE,
+                                 device=self.device, requires_grad=True)
+                      for p in free]
+            local = dict(values)
+            local.update(zip(free, leaves))
+            comps = self._sensitivity_components(self.models[name], local)
+            shape = (n_free,) + comps.shape[1:]
+            if not comps.requires_grad:
+                return comps.new_zeros(shape)
+            probe = torch.zeros(shape, dtype=DTYPE, device=self.device,
+                                requires_grad=True)
+            grads = torch.autograd.grad((probe * comps).sum(), leaves,
+                                        create_graph=True,
+                                        materialize_grads=True)
+            diagonal = sum(g[r] for r, g in enumerate(grads))
+            if not diagonal.requires_grad:
+                return comps.new_zeros(shape)
+            (jac,) = torch.autograd.grad(diagonal, probe,
+                                         materialize_grads=True)
+        return jac
+
+    def compute_sensitivity_exact(self, nominal=None, verbose=True):
+        """Model sensitivity from exact partials of vega_tpu's component
+        graph (vega_interface.py:1511-1595): `sensitivity['partials']
+        [corr][name]` is (2 distorted / raw, 2 peak / smooth, n_bins),
+        the peak's times the stored bao_amp, and `['fisher']` as
+        `compute_sensitivity` gives it. nominal: {name: (value, error)},
+        default the best fit."""
+        nominal = self._nominal(nominal)
+        values = copy.deepcopy(self.params)
+        for pname, (pvalue, _) in nominal.items():
+            values[pname] = pvalue
+        free = list(nominal)
+        bao_amp = self.params['bao_amp']
+        self.sensitivity = dict(nominal=copy.deepcopy(nominal),
+                                partials={}, fisher={})
+        for name in self.corr_items:
+            jac = self._component_jacobian(name, values,
+                                           free).cpu().numpy()
+            jac[:, :, 0, :] *= bao_amp
+            self.sensitivity['partials'][name] = {
+                pname: jac[i] for i, pname in enumerate(free)}
+            self.sensitivity['fisher'][name] = {}
+        self._fill_fisher(nominal, verbose)
+
+    def _fill_fisher(self, nominal, verbose=True):
+        """Fisher information per bin of each pair of names, distorted
+        and raw: the summed partials' masked product through the inverse
+        covariance, NaN outside the mask (vega_interface.py:1597-1617)."""
+        if verbose:
+            print('Computing Fisher information for each pair of parameters.')
+        for pindex1, pname1 in enumerate(nominal):
+            for pindex2, pname2 in enumerate(nominal):
+                if pindex1 > pindex2:
+                    continue
+                for n in self.corr_items:
+                    rp = self.corr_items[n].model_coordinates.rp_grid
+                    fisher = np.zeros((2, len(rp)))
+                    mask = self.data[n].data_mask
+                    for idistort in range(2):
+                        partial1 = self.sensitivity['partials'][n][pname1][
+                            idistort].sum(axis=0)
+                        partial2 = self.sensitivity['partials'][n][pname2][
+                            idistort].sum(axis=0)
+                        masked_info = (partial1[mask] * self.data[
+                            n].inv_masked_cov.dot(partial2[mask]))
+                        fisher[idistort, mask] = masked_info
+                        fisher[idistort, ~mask] = np.nan
+                    self.sensitivity['fisher'][n][(pname1, pname2)] = fisher
+
+    def compute_sensitivity(self, nominal=None, frac=0.1, verbose=True):
+        """Model sensitivity and Fisher information per (rp, rt) bin by
+        central differences (vega_interface.py:1619-1688): turns
+        save-components on, then per name and sign rebuilds the models
+        (`compute_model(run_init=True)`) and differences the saved
+        components at value +/- frac x error. nominal: {name: (value,
+        error)}, default the best fit."""
+        nominal = self._nominal(nominal)
+        params = copy.deepcopy(self.params)
+        for pname, (pvalue, _) in nominal.items():
+            params[pname] = pvalue
+
+        self.sensitivity = dict(nominal=copy.deepcopy(nominal),
+                                partials={}, fisher={})
+        for name in self.corr_items:
+            self.sensitivity['partials'][name] = {}
+            self.sensitivity['fisher'][name] = {}
+
+        self.fiducial['save-components'] = True
+        bao_amp = self.params['bao_amp']
+        for pindex, (pname, (pvalue, perror)) in enumerate(nominal.items()):
+            if verbose:
+                print(f'Calculating sensitivity for [{pindex}] {pname} at'
+                      f' {pvalue:.4f} +/- {perror:.4f}')
+            delta = frac * perror
+            for sign in (+1, -1):
+                params[pname] = pvalue + sign * delta
+                cfs = self.compute_model(params, run_init=True)
+                for n in cfs:
+                    if pname not in self.sensitivity['partials'][n]:
+                        rp = self.corr_items[n].model_coordinates.rp_grid
+                        self.sensitivity['partials'][n][pname] = \
+                            np.zeros((2, 2, len(rp)))
+                    model = self.models[n]
+                    part = self.sensitivity['partials'][n][pname]
+                    part[0, 0] += sign * bao_amp * \
+                        model.xi_distorted['peak']['core']
+                    part[0, 1] += sign * model.xi_distorted['smooth']['core']
+                    part[1, 0] += sign * bao_amp * model.xi['peak']['core']
+                    part[1, 1] += sign * model.xi['smooth']['core']
+            for n in self.corr_items:
+                self.sensitivity['partials'][n][pname] /= 2 * delta
+            params[pname] = pvalue
+        self._fill_fisher(nominal, verbose)
+
     # ------------------------------------------------------------------
     # Monte Carlo (vega_interface.py:1373-1428)
     # ------------------------------------------------------------------
@@ -784,7 +997,7 @@ class VegaInterface:
                 hdul = read_fits(utils.find_file(path))
                 fiducial_model[name] = hdul[1]['DA']
             return fiducial_model
-        return self.compute_model(mc_params)
+        return self.compute_model(mc_params, run_init=False)
 
     def initialize_monte_carlo(self, scale=None, print_func=print):
         """Draw one mock per correlation around the fiducial (seed
@@ -813,12 +1026,24 @@ class VegaInterface:
         return mocks
 
     @torch.no_grad()
-    def compute_model(self, params=None, use_kernel=True):
+    def compute_model(self, params=None, run_init=True, use_kernel=True):
         """Model correlations at one point as numpy arrays
         (vega_interface.py:1015-1099); raises VegaModelError where the
-        chi^2 would take the penalty."""
+        chi^2 would take the penalty. run_init=True builds the models
+        anew first, so that a changed fiducial (save-components) takes
+        effect, and drops the collapses built from the old ones
+        (vega_interface.py:1060-1071). With save-components each model
+        keeps this evaluation's components."""
+        if run_init:
+            self._build_models()
+            self._collapsed_cache = {}
+            self._collapse_data_cache = {}
+            self._grid_cache = {}
+            self._device_memo = {}
         local, _ = self._batch_params(params)
-        model_cf, bad = self._model_graph(local, 1, use_kernel)
+        model_cf, bad = self._model_graph(
+            local, 1, use_kernel,
+            save=self.fiducial.get('save-components', False))
         if bool(bad.any()):
             raise utils.VegaModelError(
                 'Model evaluation failed (out-of-bounds interpolation)')
