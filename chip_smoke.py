@@ -36,6 +36,27 @@ configuration, with no JAX:
      use_kernel=False (1e-10 relative in gradients, 1e-9 in Hessians),
      and minimize() against the JAX dense fit; it fails unless the dense
      fit launched the transpose kernel and a kernel of order d >= 1;
+5b. the f32 throughput mode (phase f32), vega_tpu's VEGA_TPU_X64=0, on
+   the fit configuration, against tests/data/torch_port_f32_goldens.json
+   (vega_tpu's f32 and f64 on the same files) within vega_tpu's f32
+   ladder (tests/test_f32_mode.py:106-109: |d chi2| <= 0.3 and <= 3e-4
+   |chi2|; fits within 1e-2 of the JAX errors):
+   - dense (VegaInterface built under VEGA_TPU_X64=0): chi2_batch(8192)
+     in f32 with only f32 kernels launched, kernel vs plain route and the
+     JAX f32 dense chi^2 (the ladder), the f64 interface and vega_tpu's
+     f64 (reported), evals/s of f64 and f32 in turns, a profile of
+     each;
+   - grid (dtype=torch.float32), 32 x 32 nodes: the cold sweep through
+     the f32 F_0, chi2_batch against vega_tpu's f64 grid (the ladder)
+     and its f32 grid (reported: vega_tpu's f32 host centring loses ~8.5
+     chi^2 there, ROADMAP.md section 3), 8192 / 32768 in bench.py's JSON
+     shape with f32 in its unit, a profile;
+   - minimize() dense and on the payload against the JAX f32 fits; it
+     fails unless the dense fit launched the f32 Ft_d and an f32 kernel
+     of order d >= 1;
+   every f32 launch layout is held against its f32 plain version (1e-5
+   of max|ref|) and reported against the f64 kernel on the same inputs,
+   and the six edge layouts run in f32 too;
 6. the profile scan: batched_chi2_scan over a 40 x 40 (ap, at) grid,
    each of linspace(0.95, 1.05, 40), on the fit configuration with
    bias_LYA and beta_LYA re-minimised at every point on the grid
@@ -117,9 +138,8 @@ configuration, with no JAX:
      no kernel launch and serves a bit-equal chi2_batch;
    - the port's dense chi^2 and gradient against the JAX dense goldens
      (1e-8), the grid chi^2 against them (the gate 5e-3 + 1e-9 |chi2|,
-     vega_tpu's node-convergence floor, reported; a miss is localised:
-     the nuisances at their reference, (ap, at) alone at 32 and 64 nodes,
-     (ap, at, sigma_velo) by combination and as the full tensor), rates
+     vega_tpu's node-convergence floor, reported: the miss is
+     sigma_velo's 12 nodes, ROADMAP.md section 3), rates
      at 8192 / 32768 in bench.py's JSON shape, a profile of one call;
    - minimize() on the payload from the start of TABLE6_SAMPLE, its
      results written with vega.output.write_results and read back with
@@ -155,9 +175,9 @@ configuration, with no JAX:
      ROADMAP.md section 3); a warm interface loads the payload with no
      launch and serves a bit-equal chi2_batch;
    - minimize() in that route (calls, wall time; the dense chi^2 at its
-     best fit against the JAX dense fit's, reported), then a dense
-     minimize() against the JAX dense fit (values 1e-2 / errors 1e-3 of
-     the JAX errors);
+     best fit against the JAX dense fit's, reported); the dense fit of
+     this configuration is the run_vega phase's (`cli fit`, held against
+     the same JAX dense fit);
    it fails unless the metal stacks launched F_0 on the dense path and
    in the sweep, each launch layout (the legacy knot grid's among them)
    held against its plain version. The legacy knot grid also joins the
@@ -228,7 +248,8 @@ recorded with its layout (B, G, coordinate rows, M, shared coordinates)
 and counted as it runs (ops.spline_combine.recorded_launches); right
 after, each kernel is held against its plain PyTorch version at each of
 those layouts (random tables, about 5% of the queries outside the knot
-range), max|diff| <= 1e-12 max|ref|, the transpose also bit for bit
+range), max|diff| <= 1e-12 max|ref| (1e-5 for the f32 kernels), the
+transpose also bit for bit
 against a second launch. Each layout is timed: the kernel's device time
 (launches queued behind a spin kernel), one wrapper call and the plain
 version (CUDA events), beside the layout's bytes and bound (HBM bytes at
@@ -271,6 +292,17 @@ TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
 DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
+F32_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_f32_goldens.json'
+# the f32 mode against vega_tpu's f32 ladder (tests/test_f32_mode.py:
+# 106-109: |d chi2| <= 0.3 and <= 3e-4 |chi2|, both held there on chi^2
+# of ~200-3,300, where the two parts meet at chi^2 = 1,000): here
+# |d chi2| <= max(0.3, 3e-4 |chi2|), the absolute part below 1,000 (rows
+# near the truth, chi^2 ~ 10, differ by ~0.01) and the relative part
+# above it (f32 sums of chi^2 ~ 3e4 differ by ~0.5, vega_tpu's own f32
+# from its f64 by 0.68 at 73,016); best fits within 1e-2 of the JAX
+# errors
+F32_CHI2_ABS, F32_CHI2_REL = 0.3, 3e-4
+F32_FIT_SIGMA = 1e-2
 # the run_vega phase against the JAX goldens, each of the largest entry of
 # the reference vector: the saved components at the goldens' point, the
 # exact partials (and the Fisher sums, of the sum of their bins'
@@ -290,6 +322,10 @@ TABLE6_MC_MOCKS = 64
 MC_TABLE_RTOL = 1e-10
 
 KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
+# the same for an f32 kernel against its f32 plain version: the two sum
+# in other orders (tests/test_torch_f32_kernels.py holds the plain
+# version to the Pallas kernels at 1e-5 of max|ref|)
+F32_KERNEL_TOL = 1e-5
 CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
 PLAIN_RTOL = 1e-10      # chi2_batch, kernel path vs plain path
 GOLDEN_RTOL = 1e-8      # chi2_batch vs the JAX package's dense chi^2
@@ -421,12 +457,12 @@ def random_case(rng, device, grid, layout):
     knot range, Legendre weights (or the transpose's g) in [-1, 1];
     shared rows with row stride 0."""
     from vega_tpu_torch.ops.spline import notaknot_second_derivative_matrix
-    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout
+    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout[:8]
     logr = grid.values
     span = logr[-1] - logr[0]
 
     def tensor(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=device)
+        return torch.as_tensor(a, dtype=grid.dtype, device=device)
 
     y_np = rng.normal(size=(n_b, n_ell, n_knots))
     y = tensor(y_np)
@@ -479,17 +515,17 @@ def kernel_call(primitive, order, grid, group, y, m, x, leg, g):
         grid, g, x, leg, order=order, use_kernel=use_kernel)
 
 
-def hold(run, primitive, label):
-    """The kernel against its plain version, max|diff| <= KERNEL_TOL
-    max|ref|; the transpose also bit for bit against a second launch.
-    Returns (max|diff|, max|ref|)."""
+def hold(run, primitive, label, tol=KERNEL_TOL):
+    """The kernel against its plain version, max|diff| <= tol max|ref|
+    (KERNEL_TOL in f64, F32_KERNEL_TOL in f32); the transpose also bit
+    for bit against a second launch. Returns (max|diff|, max|ref|)."""
     out, ref = run(True), run(False)
     torch.cuda.synchronize()
     err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     scale = max(float(r.abs().max()) for r in ref)
-    if not err <= KERNEL_TOL * scale:
+    if not err <= tol * scale:
         fail(f'kernel disagrees with its plain version ({label}): '
-             f'max|diff| {err:.3e} > {KERNEL_TOL:g} x {scale:.3e}')
+             f'max|diff| {err:.3e} > {tol:g} x {scale:.3e}')
     if primitive == 'Ft':
         again = run(True)
         if not all(torch.equal(a, b) for a, b in zip(out, again)):
@@ -498,12 +534,45 @@ def hold(run, primitive, label):
     return err, scale
 
 
+def layout_dtype(layout):
+    """'f64', or 'f32' for an f32 launch's layout (its ninth entry)."""
+    return layout[8] if len(layout) > 8 else 'f64'
+
+
 def layout_label(primitive, order, layout):
-    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout
+    n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout[:8]
     return (f'{primitive}_{order} B={n_b} L={n_ell} N={n_knots} G={group} '
             f'M={n_q}, {n_x} coordinate row(s)'
             f'{" (x stride 0)" if x_shared else ""}'
-            f'{" (leg stride 0)" if leg_shared else ""}')
+            f'{" (leg stride 0)" if leg_shared else ""}'
+            f'{" f32" if layout_dtype(layout) == "f32" else ""}')
+
+
+def twin_defined(primitive, order):
+    """Whether an f32 kernel's output is compared with the f64 kernel's:
+    an f32 query near a knot may fall in the interval beside the one its
+    f64 value falls in, which moves nothing where the output is
+    continuous across knots (F_d and P_d for d <= 2, Ft_0 and Ft_2) and
+    moves whole slot values where it is not (S''' in F_3 and P_3, the
+    +-1/h weights of Ft_1 and Ft_3)."""
+    return order <= 2 and (primitive != 'Ft' or order != 1)
+
+
+def f64_twin(device, grid, primitive, order, group, inputs):
+    """run(use_kernel) of the f64 kernel on an f32 case's inputs (cast up)
+    and its knots in f64: what the f32 kernel is reported against."""
+    from vega_tpu_torch.ops.spline_combine import KnotGrid
+    grid64 = KnotGrid.build(grid.values, device)
+    return kernel_call(primitive, order, grid64, group,
+                       *(t.double() for t in inputs))
+
+
+def vs_f64(out32, run64):
+    """max|f32 kernel - f64 kernel| / max|f64 kernel| on the same
+    inputs."""
+    out64 = run64(True)
+    return max(float((a.double() - b).abs().max()) for a, b in
+               zip(out32, out64)) / max(float(b.abs().max()) for b in out64)
 
 
 def check_launches(device, path, layouts):
@@ -525,23 +594,32 @@ def check_launches(device, path, layouts):
     for key in sorted(layouts, key=lambda k: (k[0], k[1], -k[2] * k[7])):
         primitive, order, *layout = key
         grid, launches = layouts[key].grid, layouts[key].launches
+        dtype = layout_dtype(layout)
         y, m, x, leg, g = random_case(rng, device, grid, layout)
         group = layout[3]
         run = kernel_call(primitive, order, grid, group, y, m, x, leg, g)
         label = f'{path} {layout_label(primitive, order, layout)}'
-        err, scale = hold(run, primitive, label)
+        err, scale = hold(run, primitive, label, F32_KERNEL_TOL
+                          if dtype == 'f32' else KERNEL_TOL)
+        twin = None if dtype == 'f64' or not twin_defined(
+            primitive, order) else vs_f64(
+            run(True), f64_twin(device, grid, primitive, order, group,
+                                (y, m, x, leg, g)))
         plain_ms = cuda_time_ms(lambda: run(False), 5)
         call_ms = cuda_time_ms(lambda: run(True), 20, CALL_REPEATS)
         ms = device_ms(lambda: run(True), 20)
         bound_ms, bound_by = launch_bound(primitive, order, *layout)
-        n_b, _, _, _, n_x, n_q, x_shared, leg_shared = layout
+        n_b, _, _, _, n_x, n_q, x_shared, leg_shared = layout[:8]
         log(f'kernel check {label}: max|diff| {err:.3e} (max|ref| '
             f'{scale:.3e}); kernel {ms:.4f} ms on the device (a call '
             f'{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
             f'{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%}), '
-            f'{launches} launches in the run')
+            f'{launches} launches in the run'
+            + ('' if twin is None else f'; against the f64 kernel on the '
+               f'same inputs {twin:.3e} of max|f64| (reported)'))
         records.append({'path': path, 'primitive': primitive,
-                        'order': order, 'B': n_b, 'G': group,
+                        'order': order, 'dtype': dtype, 'vs_f64': twin,
+                        'B': n_b, 'G': group,
                         'coordinate_rows': n_x, 'M': n_q,
                         'x_shared': x_shared, 'leg_shared': leg_shared,
                         'layout': list(layout),
@@ -591,8 +669,10 @@ def edge_cases(rng, device, grid, n_ell):
     for label, x_np in coords:
         n_b, n_q = x_np.shape
         layout = (n_b, n_ell, n_knots, 1, n_b, n_q, False, False)
+        if grid.dtype == torch.float32:
+            layout += ('f32',)
         y, m, _, leg, g = random_case(rng, device, grid, layout)
-        x = torch.as_tensor(x_np, dtype=torch.float64, device=device)
+        x = torch.as_tensor(x_np, dtype=grid.dtype, device=device)
         cases.append((label, layout, (y, m, x, leg, g)))
     return cases
 
@@ -610,28 +690,38 @@ def legacy_knot_grid(device, main_ini):
 
 
 def check_edge_layouts(device, grid, n_ell, grid_label='mcfit'):
-    """Every kernel (F_d, P_d, Ft_d, d = 0..3) against its plain version
-    at each of `edge_cases` on `grid` (named `grid_label`); the transpose
-    also bit for bit against a second launch. Returns one record per
-    kernel and case."""
+    """Every kernel (F_d, P_d, Ft_d, d = 0..3) of the grid's dtype
+    against its plain version at each of `edge_cases` on `grid` (named
+    `grid_label`); the transpose also bit for bit against a second
+    launch; an f32 kernel also against the f64 kernel where
+    `twin_defined` (reported). Returns one record per kernel and case."""
     rng = np.random.default_rng(1)
     records = []
+    dtype = 'f32' if grid.dtype == torch.float32 else 'f64'
     for label, layout, inputs in edge_cases(rng, device, grid, n_ell):
-        label = f'{label} ({grid_label} knots)'
-        worst = 0.0
+        label = f'{label} ({grid_label} knots{", f32" * (dtype == "f32")})'
+        worst = twin = 0.0
         for primitive in ('F', 'P', 'Ft'):
             for order in range(4):
                 run = kernel_call(primitive, order, grid, 1, *inputs)
                 err, scale = hold(run, primitive, f'edge layout {label}, '
-                                  f'{layout_label(primitive, order, layout)}')
+                                  f'{layout_label(primitive, order, layout)}',
+                                  F32_KERNEL_TOL if dtype == 'f32'
+                                  else KERNEL_TOL)
                 worst = max(worst, err / scale if scale else err)
+                if dtype == 'f32' and twin_defined(primitive, order):
+                    twin = max(twin, vs_f64(run(True), f64_twin(
+                        device, grid, primitive, order, 1, inputs)))
                 records.append({'path': 'edge', 'case': label,
                                 'primitive': primitive, 'order': order,
-                                'layout': list(layout), 'max_abs_err': err,
-                                'max_abs_ref': scale})
+                                'dtype': dtype, 'layout': list(layout),
+                                'max_abs_err': err, 'max_abs_ref': scale})
         log(f'edge layout {label} (B={layout[0]}, M={layout[5]}): F_d, P_d, '
             f'Ft_d (d = 0..3) agree with their plain versions, worst '
-            f'max|diff| / max|ref| {worst:.3e}; Ft_d bitwise reproducible')
+            f'max|diff| / max|ref| {worst:.3e}; Ft_d bitwise reproducible'
+            + (f'; against the f64 kernels {twin:.3e} (reported; those '
+               'continuous across knots, `twin_defined`)'
+               if dtype == 'f32' else ''))
     return records
 
 
@@ -1047,6 +1137,197 @@ def run_fit_path(device, work):
     return fit_ini, launches, (
         check_launches(device, 'fit_grid', grid_layouts)
         + check_launches(device, 'fit_dense', dense_layouts))
+
+
+# ----------------------------------------------------------------------
+# The f32 throughput mode (VEGA_TPU_X64=0) on synthetic-full
+# ----------------------------------------------------------------------
+def f32_ladder(label, got, want, enforce=True):
+    """|got - want| against vega_tpu's f32 ladder: |d chi2| <=
+    max(F32_CHI2_ABS, F32_CHI2_REL |chi2|) at every point; logged (the
+    largest |d chi2| of up to 8 points, max |d| and max |d| / |chi2|), and
+    failed when `enforce`. Returns (max |d|, max |d| / |want|)."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    d = np.abs(got - want)
+    worst_abs, worst_rel = float(d.max()), float(np.max(d / np.abs(want)))
+    within = bool(np.all(d <= np.maximum(F32_CHI2_ABS,
+                                         F32_CHI2_REL * np.abs(want))))
+    log(f'{label}: |d chi2| ' + ', '.join(f'{v:.4g}' for v in d[:8])
+        + (f' .. ({d.size} rows)' if d.size > 8 else '')
+        + f'; max {worst_abs:.4g} at chi2 {want[np.argmax(d)]:.6g}, '
+        f'relative {worst_rel:.3e} at chi2 '
+        f'{want[np.argmax(d / np.abs(want))]:.6g}; gate max('
+        f'{F32_CHI2_ABS:g}, {F32_CHI2_REL:g} |chi2|): '
+        + ('within' if within else 'OUTSIDE')
+        + ('' if enforce else ' (reported, not enforced)'))
+    if enforce and not within:
+        fail(f'{label}: outside vega_tpu\'s f32 ladder')
+    return worst_abs, worst_rel
+
+
+def f32_only(label, counts):
+    """Fail unless every launch of a run went to an f32 kernel and F_0
+    among them."""
+    f64 = {k: n for k, n in counts.items() if len(k) == 2 and n}
+    if f64 or not counts.get(('F', 0, 'f32')):
+        fail(f'{label}: launches {counts}: f64 kernels, or no f32 F_0')
+
+
+def run_f32_path(device, fit_ini, card):
+    """Phase f32 (see the module docstring); returns the kernel launches
+    of its paths and the kernel checks at their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(F32_GOLDENS.read_text())
+    names, points = goldens['names'], goldens['params']
+    t_phase = time.perf_counter()
+    launches, checks = {}, []
+    # the dense regime through VEGA_TPU_X64=0, as vega_tpu selects it,
+    # beside the f64 interface on the same files
+    with switch('VEGA_TPU_FACTORED', '0'):
+        with switch('VEGA_TPU_X64', '0'):
+            dense = VegaInterface(fit_ini, device=device)
+        dense64 = VegaInterface(fit_ini, device=device)
+    if dense.dtype != torch.float32 or dense64.dtype != torch.float64:
+        fail(f'f32: VEGA_TPU_X64=0 gave {dense.dtype}, unset {dense64.dtype}')
+    batches = draw_batch(BATCH)
+
+    # --- dense chi2_batch(8192): counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = dense.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches['f32_dense'] = dict(LAUNCHES)
+    f32_only('f32 dense', launches['f32_dense'])
+    chi2_np = chi2.cpu().numpy()
+    log(f'f32 dense chi2_batch({BATCH}): {chi2.dtype}, first call '
+        f'{first_s:.3f} s, peak device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, chi2 in '
+        f'[{chi2_np.min():.6g}, {chi2_np.max():.6g}], kernel launches '
+        f'{launches["f32_dense"]}')
+    if chi2.dtype != torch.float32 or not np.all(np.isfinite(chi2_np)):
+        fail('f32 dense chi2_batch is not a finite float32 batch')
+    checks += check_launches(device, 'f32_dense', layouts)
+    f32_ladder('f32 dense, kernel vs plain combine (8192 rows)', chi2_np,
+               dense.chi2_batch(batches, use_kernel=False).cpu().numpy())
+    f32_ladder('f32 dense vs the f64 interface (8192 rows)', chi2_np,
+               dense64.chi2_batch(batches).cpu().numpy(), enforce=False)
+    got = dense.chi2_batch(points).cpu().numpy()
+    f32_ladder('f32 dense vs vega_tpu\'s f32 dense goldens', got,
+               goldens['chi2_dense'])
+    f32_ladder('f32 dense vs vega_tpu\'s f64 dense', got,
+               goldens['chi2_dense_f64'], enforce=False)
+    # the two dtypes in turns: f64, f32, f32, f64
+    rates = {'f64': [], 'f32': []}
+    for label, vega in (('f64', dense64), ('f32', dense), ('f32', dense),
+                        ('f64', dense64)):
+        times = []
+        for _ in range(TIMED_ROUNDS):
+            for name in batches:
+                batches[name] = batches[name] + 1e-6
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            vega.chi2_batch(batches)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        rates[label].append(BATCH / float(np.median(times)))
+    log(f'f32 dense chi2_batch({BATCH}): f32 '
+        + ' / '.join(f'{r:.1f}' for r in rates['f32']) + ' evals/s, f64 '
+        + ' / '.join(f'{r:.1f}' for r in rates['f64']) + ' evals/s (turns '
+        f'f64, f32, f32, f64, each the median of {TIMED_ROUNDS}); f32 / f64 '
+        f'{np.median(rates["f32"]) / np.median(rates["f64"]):.3f}')
+    for label, vega in (('f32', dense), ('f64', dense64)):
+        profile_call(f'{label} dense chi2_batch({BATCH})',
+                     lambda: vega.chi2_batch(batches).cpu(), device)
+    del dense64
+
+    # --- the grid collapse in f32 (dtype=): counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid = VegaInterface(fit_ini, device=device, dtype=torch.float32)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        payload = grid.get_collapsed(frozenset(names))
+        torch.cuda.synchronize(device)
+        cold_s = time.perf_counter() - t0
+        chi2 = grid.chi2_batch(draw_batch(BATCH)).cpu().numpy()
+    launches['f32_grid'] = dict(LAUNCHES)
+    f32_only('f32 grid', launches['f32_grid'])
+    stats = grid.grid_stats
+    log(f'f32 grid collapse: {payload["__grid__"]}, {stats["nodes"]} nodes, '
+        f'cold {cold_s:.3f} s (device sweep {stats["sweep_s"]:.3f} s, host '
+        f'{stats["host_s"]:.3f} s), kernel launches {launches["f32_grid"]}; '
+        + '; '.join(f'{n}: T {p["cref"].shape[0]}, modes A '
+                    f'{p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+                    f'rank {p["B_A"].shape[1]} / {p["B_sy"].shape[1]} '
+                    f'(vega_tpu f32: {goldens["payload"][n]})'
+                    for n, p in payload.items() if n != '__grid__'))
+    if not np.all(np.isfinite(chi2)):
+        fail('f32 grid chi2_batch is not finite')
+    checks += check_launches(device, 'f32_grid', layouts)
+    got = grid.chi2_batch(points).cpu().numpy()
+    f32_ladder('f32 grid vs vega_tpu\'s f64 grid', got,
+               goldens['chi2_grid_f64'])
+    f32_ladder('f32 grid vs vega_tpu\'s f32 grid goldens', got,
+               goldens['chi2_grid'], enforce=False)
+    grid_rates = {}
+    for n_rows in GRID_BATCHES:
+        rows = draw_batch(n_rows)
+        grid.chi2_batch(rows).cpu()
+        per_round = []
+        for _ in range(GRID_ROUNDS):
+            for name in rows:
+                rows[name] = rows[name] + 1e-6     # as bench.py
+            t0 = time.perf_counter()
+            grid.chi2_batch(rows).cpu()
+            per_round.append(n_rows / (time.perf_counter() - t0))
+        grid_rates[n_rows] = float(np.median(per_round))
+        log(f'f32 grid chi2_batch({n_rows}): {grid_rates[n_rows]:.1f} '
+            f'evals/s (median of {GRID_ROUNDS}; per round '
+            f'{", ".join(f"{r:.1f}" for r in per_round)})')
+    log(json.dumps({
+        'metric': 'likelihood evals/sec/chip',
+        'value': round(grid_rates[BATCH], 3),
+        'unit': f'evals/s/chip (batch={BATCH}, f32, 1 chip(s), {card}, '
+                f'vega_tpu_torch, collapse={cold_s:.1f}s; batch '
+                f'{GRID_BATCHES[1]}: {grid_rates[GRID_BATCHES[1]]:.1f})'}))
+    rows = draw_batch(BATCH)
+    profile_call(f'f32 grid chi2_batch({BATCH})',
+                 lambda: grid.chi2_batch(rows).cpu(), device)
+
+    # --- the fits, dense then grid: counts from zero for each
+    for regime, vega in (('dense', dense), ('grid', grid)):
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            timed_fit(device, vega, f'f32 {regime}')
+        launches[f'f32_fit_{regime}'] = dict(LAUNCHES)
+        checks += check_launches(device, f'f32_fit_{regime}', layouts)
+        best, want = vega.bestfit, goldens[f'fit_{regime}']
+        d_sigma = max(abs(best.values[n] - v) / e for n, v, e in
+                      zip(names, want['values'], want['errors']))
+        log(f'f32 {regime} fit: values {[best.values[n] for n in names]} '
+            f'(vega_tpu f32 {want["values"]}), max |d value| / error '
+            f'{d_sigma:.3e} (gate {F32_FIT_SIGMA:g}), fval '
+            f'{best.fmin.fval!r} (vega_tpu f32 {want["fval"]!r}), valid '
+            f'{best.fmin.is_valid}, kernel launches '
+            f'{launches[f"f32_fit_{regime}"]}')
+        if not (best.fmin.is_valid and d_sigma <= F32_FIT_SIGMA):
+            fail(f'f32 {regime} fit is not valid or misses vega_tpu\'s f32 '
+                 'fit')
+    counts = launches['f32_fit_dense']
+    f32_only('f32 dense fit', counts)
+    if not (any(n for k, n in counts.items() if k[0] == 'Ft')
+            and any(n for k, n in counts.items() if k[1] >= 1)):
+        fail('the f32 dense fit launched no f32 Ft_d or no f32 kernel of '
+             'order d >= 1')
+    log(f'f32 phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
 
 
 def run_scan_path(device, fit_ini):
@@ -2440,59 +2721,6 @@ def run_desi_path(device, work, card):
 # eBOSS DR16's 13-name fit: the 4-dimension combination sweep, the payload
 # cache, the results file and the Monte-Carlo scripts
 # ----------------------------------------------------------------------
-def table6_localise(device, vega, dense_vega, main_ini, points, names):
-    """Where the 4-dimension payload's miss of the dense chi^2 comes from,
-    each against the dense chi^2 at the same points: (a) drp_QSO and
-    sigma_velo_disp_lorentz_QSO at the payload's reference values, the
-    4-dimension payload; (b) (ap, at) alone on the grid (the QSO
-    nuisances at their stored values) at 32 and at 64 nodes; (c) (ap, at,
-    sigma_velo_disp_lorentz_QSO) (drp_QSO at its stored value) through
-    the combination schedule and as the full 32 x 32 x 12 tensor; (d)
-    sigma_velo_disp_lorentz_QSO alone on the grid (ap, at, drp_QSO at
-    their stored values) at 12, 24 and 48 nodes. Logs each max |d chi2|
-    and returns them."""
-    from vega_tpu_torch.vega_interface import VegaInterface, parse_ini
-    spec = vega.get_collapsed(frozenset(names))['__grid__']
-    at_ref = dict(points)
-    for name, ref in zip(spec.names, spec.ref):
-        if name not in ('ap', 'at'):
-            at_ref[name] = [ref] * len(points['ap'])
-    out = {'4d_nuisances_at_ref': float(np.max(np.abs(
-        vega.chi2_batch(at_ref).cpu().numpy()
-        - dense_vega.chi2_batch(at_ref).cpu().numpy())))}
-    config = parse_ini(main_ini)
-    config['control']['grid-combination'] = 'never'
-    full_ini = Path(main_ini).parent / 'main_full_tensor.ini'
-    with open(full_ini, 'w') as fh:
-        config.write(fh)
-    cases = [('2d_32_nodes', main_ini, '32', ('drp_QSO',
-                                              'sigma_velo_disp_lorentz_QSO')),
-             ('2d_64_nodes', main_ini, '64', ('drp_QSO',
-                                              'sigma_velo_disp_lorentz_QSO')),
-             ('3d_combination', main_ini, None, ('drp_QSO',)),
-             ('3d_full_tensor', full_ini, None, ('drp_QSO',))] + [
-        (f'1d_sigma_velo_{nodes}_nodes', main_ini, str(nodes),
-         ('ap', 'at', 'drp_QSO')) for nodes in (12, 24, 48)]
-    for label, ini, nodes, fixed in cases:
-        sub = {n: points[n] for n in names if n not in fixed}
-        with switch('VEGA_TPU_GRID_CACHE', '0'), \
-                switch('VEGA_TPU_FACTORED', None), \
-                switch('VEGA_TPU_GRID_COLLAPSE', None), \
-                switch('VEGA_TPU_GRID_NODES', nodes):
-            grid = VegaInterface(ini, device=device)
-            got = grid.chi2_batch(sub).cpu().numpy()
-        out[label] = float(np.max(np.abs(
-            got - dense_vega.chi2_batch(sub).cpu().numpy())))
-        stats = grid.grid_stats
-        log(f'table6 localise {label}: {stats["nodes"]} nodes, sweep '
-            f'{stats["sweep_s"]:.2f} s, host {stats["host_s"]:.2f} s, max '
-            f'|grid - dense| {out[label]:.6g}')
-        del grid
-    log('table6 localise: max |grid - dense| ' + ', '.join(
-        f'{k} {v:.6g}' for k, v in out.items()))
-    return out
-
-
 def table6_results_file(vega, work):
     """Write the fit's results as run_vega does and read them back with
     the port's FitResults: values, errors, covariance and FVAL equal to
@@ -2731,8 +2959,7 @@ def run_table6_path(device, work, card, fit_ini):
     if not within:
         log('table6 STANDING DEPARTURE (node convergence on the synthetic '
             'data, ROADMAP.md section 3): the grid payload misses the '
-            'dense chi^2 by more than the gate; localising')
-        table6_localise(device, vega, dense_vega, main_ini, points, names)
+            'dense chi^2 by more than the gate')
 
     rng = np.random.default_rng(0)
     rates, batches = {}, {}
@@ -3044,8 +3271,6 @@ def run_dr16pub_path(device, work, card):
         f'{dense_vega.chi2(best.values)!r} (the JAX dense fit\'s '
         f'{want["fval"]!r}); max |d value| from the JAX dense fit '
         f'{d_sigma:.3e} errors; reported, not enforced')
-    timed_fit(device, dense_vega, 'dr16pub dense')
-    check_fit('dr16pub dense', 'published', dense_vega, names, want)
     log(f'dr16pub phase: {time.perf_counter() - t_phase:.1f} s')
     return launches, checks
 
@@ -3615,20 +3840,24 @@ def run_lyacolore_path(device, work, card):
     return launches, checks
 
 
-# (name, primitive, orders, the TPU code it replaces: file:line, and
-# which part of it)
+# (name, primitive, orders, dtype, the TPU code it replaces: file:line,
+# and which part of it); the f32 kernels (the Pallas kernels' own dtype)
+# are rows of their own
 FORWARD = ('vega_tpu/ops/pallas_spline.py:186',
            'spline_legendre_combine_batched (and :123)')
 BACKWARD = ('vega_tpu/ops/pallas_spline.py:233',
             'the backward of make_vmappable_combine (custom_vjp :278-290)')
-KERNELS = (
-    ('spline_legendre_combine F_0', 'F', (0,), FORWARD),
-    ('spline_legendre_combine F_d, d = 1..3', 'F', (1, 2, 3), BACKWARD),
-    ('spline_legendre_combine P_d (no-sum mode)', 'P', (0, 1, 2, 3),
-     BACKWARD),
-    ('spline_legendre_combine_transpose Ft_d', 'Ft', (0, 1, 2, 3),
-     BACKWARD),
-)
+KERNELS = tuple(
+    (name + (' (f32)' if dtype == 'f32' else ''), primitive, orders, dtype,
+     replaces)
+    for dtype in ('f64', 'f32')
+    for name, primitive, orders, replaces in (
+        ('spline_legendre_combine F_0', 'F', (0,), FORWARD),
+        ('spline_legendre_combine F_d, d = 1..3', 'F', (1, 2, 3), BACKWARD),
+        ('spline_legendre_combine P_d (no-sum mode)', 'P', (0, 1, 2, 3),
+         BACKWARD),
+        ('spline_legendre_combine_transpose Ft_d', 'Ft', (0, 1, 2, 3),
+         BACKWARD)))
 
 
 def kernel_records(launches, replays, checks, edge_checks):
@@ -3639,9 +3868,12 @@ def kernel_records(launches, replays, checks, edge_checks):
     (B x M) and every checked layout. No single PyTorch call computes
     the combine or its transpose: library_ms is null."""
     out = []
-    for name, primitive, orders, (replaces, part) in KERNELS:
+    for name, primitive, orders, dtype, (replaces, part) in KERNELS:
         def mine(key):
-            return key[0] == primitive and key[1] in orders
+            """key: (primitive, d) of an f64 launch, (primitive, d, 'f32')
+            of an f32 one."""
+            return (key[0] == primitive and key[1] in orders
+                    and (key[2] if len(key) > 2 else 'f64') == dtype)
         by_path = {path: sum(n for key, n in counts.items() if mine(key))
                    for path, counts in launches.items()}
         replayed_by_path = {
@@ -3653,22 +3885,25 @@ def kernel_records(launches, replays, checks, edge_checks):
                 if mine(key):
                     by_order[key[1]] = by_order.get(key[1], 0) + n
         records = [r for r in checks
-                   if mine((r['primitive'], r['order']))]
+                   if mine((r['primitive'], r['order'], r['dtype']))]
         edges = [r for r in edge_checks
-                 if mine((r['primitive'], r['order']))]
+                 if mine((r['primitive'], r['order'], r['dtype']))]
         if not sum(by_path.values()) or not records:
             fail(f'{name}: no launch in any path')
         largest = max(records, key=lambda r: r['B'] * r['M'])
         out.append({
             'name': name, 'route': 'cuda',
             'source': 'vega_tpu_torch/csrc/spline_legendre_combine.cu',
-            'replaces': replaces, 'replaces_part': part,
+            'replaces': replaces, 'replaces_part': part, 'dtype': dtype,
             'launches': sum(by_path.values()),
             'launches_by_path': by_path,
             'replayed_by_path': replayed_by_path,
             'launches_by_order': {str(k): v
                                   for k, v in sorted(by_order.items())},
             'max_abs_err': max(r['max_abs_err'] for r in records + edges),
+            'max_err_of_ref': max(r['max_abs_err'] / r['max_abs_ref']
+                                  for r in records + edges
+                                  if r['max_abs_ref']),
             'ms': largest['ms'], 'plain_ms': largest['plain_ms'],
             'bound_ms': largest['bound_ms'], 'bound_by': largest['bound_by'],
             'library_ms': None,
@@ -3682,6 +3917,7 @@ def main():
         fail('torch.cuda.is_available() is false: this smoke test needs '
              'a GPU')
     import vega_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from vega_tpu_torch.ops.spline_combine import KnotGrid
     device = torch.device('cuda', torch.cuda.current_device())
     card = card_line()
     log(f'card: {card}; torch {torch.__version__}, CUDA '
@@ -3722,6 +3958,11 @@ def main():
         mark('grid')
         fit_ini, fit_launches, fit_checks = run_fit_path(device, work)
         mark('fit')
+        f32_launches, f32_checks = run_f32_path(device, fit_ini, card)
+        edge_checks += check_edge_layouts(
+            device, KnotGrid.build(knot_grid.values, device, torch.float32),
+            n_ell, 'mcfit')
+        mark('f32')
         scan_launches, scan_checks = run_scan_path(device, fit_ini)
         mark('scan')
         mc_launches, mc_checks = run_mc_path(device, work)
@@ -3750,12 +3991,14 @@ def main():
         mark('run_vega')
     log(f'all phases: {time.perf_counter() - t_start:.1f} s')
 
-    checks = (dense_checks + grid_checks + fit_checks + scan_checks
+    checks = (dense_checks + grid_checks + fit_checks + f32_checks
+              + scan_checks
               + mc_checks + sampler_checks + dr16_checks + desi_checks
               + table6_checks + dr16pub_checks + desi_mock_checks
               + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
+         **f32_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **desi_launches, **table6_launches,
          **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,

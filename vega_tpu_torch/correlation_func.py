@@ -21,7 +21,7 @@ from scipy.interpolate import interp1d
 
 from .cosmo import growth_function
 from .factored import FactoredXi, RecordingParams, Sampling
-from .utils import col, find_file, not_ported, to_tensor
+from .utils import col, find_file, not_ported, refuse_f32, to_tensor
 
 # the instrumental systematics' amplitude when the parameters carry none
 # (vega_tpu/correlation_func.py:414)
@@ -58,12 +58,14 @@ class CorrelationFunction:
     """xi-space model (reference: correlation_func.py:10-115)."""
 
     def __init__(self, config, fiducial, coordinates, scale_params,
-                 tracer1, tracer2, device, metal_corr=False):
+                 tracer1, tracer2, device, metal_corr=False,
+                 dtype=torch.float64):
         self.device = torch.device(device)
+        self.dtype = dtype
         self._config = config
         self._z = coordinates.z_grid
-        self._r = to_tensor(coordinates.r_grid, self.device)
-        self._mu = to_tensor(coordinates.mu_grid, self.device)
+        self._r = to_tensor(coordinates.r_grid, self.device, dtype)
+        self._mu = to_tensor(coordinates.mu_grid, self.device, dtype)
         self._tracer1 = tracer1
         self._tracer2 = tracer2
         self._corr_name = f'{tracer1["name"]}x{tracer2["name"]}'
@@ -95,6 +97,14 @@ class CorrelationFunction:
                                  'cross (QSOxLya)')
         self._rescale_coords_systematics = config.getboolean(
             'rescale-coords-systematics', False)
+        for feature, on in (
+                ('QSO radiation', self.radiation_flag),
+                ('rescale-coords-systematics',
+                 self._rescale_coords_systematics),
+                ('old_growth_func',
+                 config.getboolean('old_growth_func', False))):
+            if on:
+                refuse_f32(dtype, feature)
 
         # delta rp only for the cross (reference: correlation_func.py:64-69)
         self._delta_rp_name = None
@@ -121,8 +131,8 @@ class CorrelationFunction:
 
     def set_constants(self, xi_growth, rel_z_evol):
         """Install the host growth and z-evolution arrays as tensors."""
-        self.xi_growth = to_tensor(xi_growth, self.device)
-        self._rel_z_evol = to_tensor(rel_z_evol, self.device)
+        self.xi_growth = to_tensor(xi_growth, self.device, self.dtype)
+        self._rel_z_evol = to_tensor(rel_z_evol, self.device, self.dtype)
 
     def _evol_model(self, tracer_name):
         handle_name = f'z evol {tracer_name}'

@@ -39,7 +39,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .utils import DTYPE
 
 # Sampled parameters that move basis rows instead of coefficients
 # (vega_tpu/gridcollapse.py:65-87).
@@ -172,9 +171,9 @@ def grid_corr_chi2(corr_payload, tvecs, coeffs):
             + torch.sum(dc * (a_mat @ dc[..., None])[..., 0], dim=-1))
 
 
-def device_payload(payload, device):
-    """The per-evaluation arrays of a host payload as device tensors
-    (f64; mode indices int64)."""
+def device_payload(payload, device, dtype=torch.float64):
+    """The per-evaluation arrays of a host payload (f64) as device
+    tensors in `dtype`, the interface's (mode indices int64)."""
     out = {'__grid__': payload['__grid__']}
     for name, corr in payload.items():
         if name == '__grid__':
@@ -182,7 +181,7 @@ def device_payload(payload, device):
         out[name] = {
             part: torch.as_tensor(
                 np.asarray(corr[part]),
-                dtype=torch.int64 if part.startswith('modes') else DTYPE,
+                dtype=torch.int64 if part.startswith('modes') else dtype,
                 device=device)
             for part in ('B_A', 'F_A', 'modes_A', 'B_sy', 'F_sy',
                          'modes_sy', 'cref')}
@@ -203,7 +202,9 @@ def payload_fingerprint(vega, sample_names, spec, mode_budget, svd_tol,
     fiducial arrays, the current data vectors and masked inverse
     covariances, the distortion and metal matrices and the metal
     coordinates, the new-metals weights files' content, every parameter
-    value, the dtype, the node spec, the truncation and compression
+    value, the interface's dtype (an f32 payload never serves an f64
+    interface: vega_tpu/gridcollapse.py:346-347 separates its x64 modes
+    so), the node spec, the truncation and compression
     knobs, the probe and draw counts, the components and `extra`
     (mutated sampling limits). The device is not hashed: a payload swept
     on the CPU serves the card. A matching fingerprint implies a
@@ -265,7 +266,7 @@ def payload_fingerprint(vega, sample_names, spec, mode_budget, svd_tol,
 
     for name in sorted(vega.params):
         h.update(f'{name}={vega.params[name]!r}'.encode())
-    h.update(f'dtype={DTYPE}'.encode())
+    h.update(f'dtype={vega.dtype}'.encode())
     h.update(repr((spec.names, spec.lo, spec.hi, spec.degrees,
                    spec.ref)).encode())
     h.update(repr((float(mode_budget), float(svd_tol),
@@ -566,7 +567,7 @@ def measure_dc_max(vega, sample_names, spec, c0s):
 
     out = {}
     for name, c0 in c0s.items():
-        c = coeffs[name].cpu().numpy()
+        c = _host(coeffs[name])
         measured = float(np.linalg.norm(c - c0[None, :], axis=1).max())
         out[name] = max(1.0, 1.25 * measured)
     note = (f'{corners.shape[0]} corners + {n_draws} uniform draws over '
@@ -587,11 +588,19 @@ def _read_part(path):
                 z['bad'])
 
 
+def _host(t):
+    """A device tensor as a host f64 array: the payload is built in f64
+    on the host whatever the sweep's dtype."""
+    return np.asarray(t.cpu().numpy(), dtype=np.float64)
+
+
 def _sweep(vega, sample_names, spec, nodes, sweep_chunk, checkpoint_dir=None):
-    """A(g), e(g) per node and c0 per correlation, on the device, in
-    chunks of `sweep_chunk` nodes (vega_tpu/gridcollapse.py:812-961).
-    Returns ({corr: {'A': (N, T, T), 'e': (N, T)}} host arrays,
-    {corr: c0 (T,)}, bad (N,) bool).
+    """A(g), e(g) per node and c0 per correlation, on the device in the
+    interface's dtype, in chunks of `sweep_chunk` nodes
+    (vega_tpu/gridcollapse.py:812-961). Returns ({corr: {'A': (N, T, T),
+    'e': (N, T)}} host f64 arrays, in f32 'y' (N, T) and 's' (N,) in
+    place of 'e' (VegaInterface._grid_collapse_node), {corr: c0 (T,)},
+    bad (N,) bool).
 
     The chunks run in groups of VEGA_TPU_GRID_SWEEP_GROUP (16), with the
     progress printed to stderr after each. With `checkpoint_dir` each
@@ -627,9 +636,9 @@ def _sweep(vega, sample_names, spec, nodes, sweep_chunk, checkpoint_dir=None):
                 for name, tensors in payload.items():
                     for piece, arr in tensors.items():
                         pieces.setdefault(name, {}).setdefault(
-                            piece, []).append(arr.cpu().numpy())
+                            piece, []).append(_host(arr))
                 for name, c0 in c0_chunk.items():
-                    c0_rows.setdefault(name, []).append(c0.cpu().numpy())
+                    c0_rows.setdefault(name, []).append(_host(c0))
                 bad_rows.append(bad_chunk.cpu().numpy())
             payload = {name: {piece: np.concatenate(arrs)
                               for piece, arrs in by_piece.items()}
@@ -743,19 +752,22 @@ def build_grid_payload(vega, sample_names, grid_names, spec,
         if name not in payload_nodes:
             continue
         a_nodes = payload_nodes[name]['A']
-        e_nodes = payload_nodes[name]['e']
         c0 = c0s[name]
         t = c0.shape[0]
 
-        d_masked = data_vecs[name]
-        inv_cov = np.asarray(vega.data[name].inv_masked_cov)
-        d_ci_d = float(d_masked @ (inv_cov @ d_masked))
-
-        # centered pieces, exact f64 on the host:
-        #   y_q = e_q - A_q c0 ;  s_q = chi2(c0, g_q)
-        y_nodes = e_nodes - np.einsum('qts,s->qt', a_nodes, c0)
-        s_nodes = (d_ci_d - 2.0 * e_nodes @ c0
-                   + np.einsum('t,qts,s->q', c0, a_nodes, c0))
+        if 'e' in payload_nodes[name]:
+            e_nodes = payload_nodes[name]['e']
+            d_masked = data_vecs[name]
+            inv_cov = np.asarray(vega.data[name].inv_masked_cov)
+            d_ci_d = float(d_masked @ (inv_cov @ d_masked))
+            # centered pieces, exact f64 on the host:
+            #   y_q = e_q - A_q c0 ;  s_q = chi2(c0, g_q)
+            y_nodes = e_nodes - np.einsum('qts,s->qt', a_nodes, c0)
+            s_nodes = (d_ci_d - 2.0 * e_nodes @ c0
+                       + np.einsum('t,qts,s->q', c0, a_nodes, c0))
+        else:       # an f32 sweep centres them on the device
+            y_nodes = payload_nodes[name]['y']
+            s_nodes = payload_nodes[name]['s']
 
         payload = np.concatenate(
             [a_nodes.reshape(n_nodes, t * t), y_nodes,

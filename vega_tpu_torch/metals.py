@@ -366,7 +366,7 @@ class Metals:
         FactoredXi, bad (B',))."""
         local_pars = self._local_pars(pars)
         pair_scalars = self._pair_weights_and_betas(local_pars)
-        xi_metals = torch.zeros((1, self.size), dtype=utils.DTYPE,
+        xi_metals = torch.zeros((1, self.size), dtype=torch.float64,
                                 device=self.device)
         bad = torch.zeros(1, dtype=torch.bool, device=self.device)
         # Factored accumulation (factored.py): with a sampled set only
@@ -609,7 +609,7 @@ class Metals:
         """The per-pair loop (vega_tpu/metals.py:553-603): the path of
         configurations the stacking plan refuses."""
         local_pars = self._local_pars(pars)
-        xi_metals = torch.zeros((1, self.size), dtype=utils.DTYPE,
+        xi_metals = torch.zeros((1, self.size), dtype=torch.float64,
                                 device=self.device)
         bad = torch.zeros(1, dtype=torch.bool, device=self.device)
         use_fast_bias = self.fast_metals or self.fast_metal_bias

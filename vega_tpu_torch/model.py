@@ -36,15 +36,16 @@ from . import correlation_func as corr_func
 from . import metals, pktoxi, power_spectrum
 from .broadband_poly import BroadbandPolynomials
 from .factored import FactoredXi, RecordingParams, densify, stack_coefficients
-from .utils import col, host_row, to_tensor
+from .utils import col, host_row, refuse_f32, to_tensor
 
 
 class Model:
     """Correlation model for one component (reference: model.py:8-77)."""
 
     def __init__(self, corr_item, fiducial, scale_params, data=None, *,
-                 device):
+                 device, dtype=torch.float64):
         self.device = torch.device(device)
+        self.dtype = dtype
         self._corr_item = corr_item
         if corr_item.model_coordinates is None:
             raise ValueError('CorrelationItem has no model coordinates')
@@ -54,6 +55,15 @@ class Model:
             str(corr_item.data_coordinates.rt_binsize)
 
         self.save_components = fiducial.get('save-components', False)
+        # the f32 mode carries synthetic-full's model alone (ROADMAP.md
+        # item 10 queues the rest)
+        config = corr_item.config['model']
+        for feature, on in (
+                ('save-components', self.save_components),
+                ('desi-instrumental-systematics', config.getboolean(
+                    'desi-instrumental-systematics', False))):
+            if on:
+                refuse_f32(dtype, feature)
         if self.save_components:
             self.pk = {'peak': {}, 'smooth': {}, 'full': {}}
             self.xi = {'peak': {}, 'smooth': {}, 'full': {}}
@@ -68,13 +78,14 @@ class Model:
 
         self.Pk_core = power_spectrum.PowerSpectrum(
             corr_item.config['model'], fiducial, corr_item.tracer1,
-            corr_item.tracer2, corr_item.name, device=self.device)
+            corr_item.tracer2, corr_item.name, device=self.device,
+            dtype=dtype)
         self.PktoXi = pktoxi.PktoXi.init_from_Pk(
             self.Pk_core, corr_item.config['model'])
         self.Xi_core = corr_func.CorrelationFunction(
             corr_item.config['model'], fiducial, corr_item.model_coordinates,
             scale_params, corr_item.tracer1, corr_item.tracer2,
-            device=self.device)
+            device=self.device, dtype=dtype)
 
         # DESI instrumental systematics: amplitude x a template built
         # once on the host (vega_tpu/model.py:84-86)
@@ -102,7 +113,7 @@ class Model:
                 and data.has_distortion):
             dist = np.asarray(data.distortion_mat, dtype=np.float64)
             if not np.array_equal(dist, np.eye(*dist.shape)):
-                self._dist_mat = to_tensor(dist, self.device)
+                self._dist_mat = to_tensor(dist, self.device, dtype)
 
     def _compute_model(self, pars, pk_model, use_kernel, sampling=None,
                        xi_metals=None, pk_lin=None, component=None):

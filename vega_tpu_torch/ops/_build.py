@@ -66,26 +66,29 @@ def _build_key():
 
 
 def _declare(lib):
-    ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_double)
-    signatures = {
-        # knots, y, m, x, leg, out, B, L, N, M, G, tiles, tile_q, x / leg
-        # row strides, step, order, stream
-        'vega_spline_legendre_combine_f64':
-            [ptr] * 6 + [i32] * 7 + [i64, i64, f64, i32, ptr],
-        # knots, y, m, x, out, B, L, N, M, G, tiles, tile_q, x row stride,
-        # step, order, stream
-        'vega_spline_legendre_points_f64':
-            [ptr] * 5 + [i32] * 7 + [i64, f64, i32, ptr],
-        # knots, g, x, leg, out_y, out_m, scratch, B, L, N, M, tiles,
-        # tile_q, x / leg row strides, step, order, stream
-        'vega_spline_legendre_transpose_f64':
-            [ptr] * 7 + [i32] * 6 + [i64, i64, f64, i32, ptr],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = i32
+    """Argument types of the C interface: each entry in f64 (double
+    tensors and step) and in f32 (float)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for suffix, scalar in (('f64', ctypes.c_double),
+                           ('f32', ctypes.c_float)):
+        signatures = {
+            # knots, y, m, x, leg, out, B, L, N, M, G, tiles, tile_q,
+            # x / leg row strides, step, order, stream
+            'vega_spline_legendre_combine':
+                [ptr] * 6 + [i32] * 7 + [i64, i64, scalar, i32, ptr],
+            # knots, y, m, x, out, B, L, N, M, G, tiles, tile_q, x row
+            # stride, step, order, stream
+            'vega_spline_legendre_points':
+                [ptr] * 5 + [i32] * 7 + [i64, scalar, i32, ptr],
+            # knots, g, x, leg, out_y, out_m, scratch, B, L, N, M, tiles,
+            # tile_q, x / leg row strides, step, order, stream
+            'vega_spline_legendre_transpose':
+                [ptr] * 7 + [i32] * 6 + [i64, i64, scalar, i32, ptr],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, f'{name}_{suffix}')
+            fn.argtypes = argtypes
+            fn.restype = i32
     lib.vega_cuda_error_string.argtypes = [i32]
     lib.vega_cuda_error_string.restype = ctypes.c_char_p
     return lib

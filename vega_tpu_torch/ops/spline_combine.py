@@ -16,8 +16,11 @@ with G > 1 runs group by group, `spline_legendre_combine`).
 Counterpart of vega_tpu/ops/pallas_spline.py: the Pallas kernels (F_0)
 and the backward of `make_vmappable_combine` (:233, the XLA VJP of
 `spline_eval`, which vega_tpu differentiates twice for its Hessian). The
-kernels are csrc/spline_legendre_combine.cu; the plain versions are built
-on the torch `spline_eval`. Each wrapper (`combine_forward`,
+kernels are csrc/spline_legendre_combine.cu, each in f64 (the parity
+mode) and in f32 (vega_tpu's throughput mode, VEGA_TPU_X64=0, the Pallas
+kernels' only dtype): the knot grid's dtype picks them, and every tensor
+of a call must have it. The plain versions are built on the torch
+`spline_eval` and compute in the tensors' dtype. Each wrapper (`combine_forward`,
 `combine_points`, `combine_transpose`) takes the plain version only for
 tensors on the CPU: on a CUDA tensor it launches its kernel or raises.
 The wrappers build no autograd graph and raise when handed a tensor that
@@ -50,10 +53,11 @@ from .spline import piece_weights, spline_eval, spline_pieces, uniform_step
 MAX_ORDER = 3       # S^(4) = 0
 MAX_MULTIPOLES = 8  # L a kernel launch takes (csrc kMaxL)
 
-# Kernel launches since the last reset, {(primitive, d): count}, primitive
-# 'F' (F_d), 'P' (P_d) or 'Ft' (Ft_d). Only launches count: the plain
-# version on CPU tensors launches nothing, and a launch captured into a
-# CUDA graph counts at each replay of the graph, not at the capture.
+# Kernel launches since the last reset, {(primitive, d): count} for the
+# f64 kernels and {(primitive, d, 'f32'): count} for the f32 ones,
+# primitive 'F' (F_d), 'P' (P_d) or 'Ft' (Ft_d). Only launches count: the
+# plain version on CPU tensors launches nothing, and a launch captured into
+# a CUDA graph counts at each replay of the graph, not at the capture.
 # REPLAYED holds the part of LAUNCHES that came from replays.
 LAUNCHES = Counter()
 REPLAYED = Counter()
@@ -61,21 +65,30 @@ _recorders = []
 _captures = []
 
 
+DTYPES = {torch.float64: 'f64', torch.float32: 'f32'}
+
+
 @dataclass(frozen=True)
 class KnotGrid:
-    """Uniform knot positions on the host and on the device, and the
-    step."""
+    """Uniform knot positions on the host (f64) and on the device in the
+    kernels' dtype (f64 or f32), and the step."""
     values: np.ndarray
     tensor: torch.Tensor
     step: float
 
     @classmethod
-    def build(cls, x_knots, device):
+    def build(cls, x_knots, device, dtype=torch.float64):
+        if dtype not in DTYPES:
+            raise TypeError(f'the kernels take float64 or float32, not '
+                            f'{dtype}')
         values = np.asarray(x_knots, dtype=np.float64)
         return cls(values,
-                   torch.as_tensor(values, dtype=torch.float64,
-                                   device=device),
+                   torch.as_tensor(values, dtype=dtype, device=device),
                    uniform_step(values))
+
+    @property
+    def dtype(self):
+        return self.tensor.dtype
 
     def __len__(self):
         return len(self.values)
@@ -93,7 +106,8 @@ class RecordedLayout:
 def recorded_launches():
     """While open, record every kernel launch as {(primitive, d, B, L, N,
     G, coordinate rows, M, x shared, leg shared): RecordedLayout}; x /
-    leg shared means a row stride of 0."""
+    leg shared means a row stride of 0. An f32 launch's key ends in one
+    more entry, 'f32'."""
     layouts = {}
     _recorders.append(layouts)
     try:
@@ -136,15 +150,18 @@ def captured_launches():
 
 
 def _count(key, grid, launches, replayed=False):
-    LAUNCHES[key[:2]] += launches
+    kernel = key[:2] + key[10:]         # (primitive, d[, 'f32'])
+    LAUNCHES[kernel] += launches
     if replayed:
-        REPLAYED[key[:2]] += launches
+        REPLAYED[kernel] += launches
     for layouts in _recorders:
         layouts.setdefault(key, RecordedLayout(grid)).launches += launches
 
 
 def _launched(primitive, order, layout, grid):
     key = (primitive, order, *layout)
+    if grid.dtype == torch.float32:
+        key += ('f32',)
     if _captures:
         for layouts in _captures:
             layouts.setdefault(key, RecordedLayout(grid)).launches += 1
@@ -168,7 +185,9 @@ THREADS = 256               # a block's threads (csrc kThreads)
 H100_SMS = 132
 BLOCK_TARGET = 2 * H100_SMS
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA's data sheet)
-F64_FLOPS_PER_S = 34e12     # H100 SXM, f64 outside the tensor cores
+# H100 SXM outside the tensor cores (NVIDIA's data sheet): f64 and f32
+FLOPS_PER_S = {'f64': 34e12, 'f32': 67e12}
+WORD_BYTES = {'f64': 8, 'f32': 4}
 # flops per query: the interval and weights, then per multipole the
 # gathered combination (F_d: times the Legendre weight; Ft_d: g * leg
 # times the four weights)
@@ -189,12 +208,13 @@ def launch_plan(n_b, n_q):
 
 
 def launch_bytes(primitive, order, n_b, n_ell, n_knots, group, n_x, n_q,
-                 x_shared, leg_shared):
+                 x_shared, leg_shared, dtype='f64'):
     """Bytes one launch must move (a recorded layout: B, L, N, G,
-    coordinate rows, M, x / leg shared), each input read once and each
-    output written once: the knots, the tables (m alone for d >= 2: S''
-    and S''' do not read y), x and leg per coordinate row (once when
-    shared), g and out per row. The transpose writes both tables."""
+    coordinate rows, M, x / leg shared, and 'f32' for an f32 launch),
+    each input read once and each output written once: the knots, the
+    tables (m alone for d >= 2: S'' and S''' do not read y), x and leg per
+    coordinate row (once when shared), g and out per row. The transpose
+    writes both tables. 8 bytes a word in f64, 4 in f32."""
     x_words = (1 if x_shared else n_x) * n_q
     leg_words = (1 if leg_shared else n_x) * n_ell * n_q
     table = n_ell * n_knots
@@ -204,17 +224,18 @@ def launch_bytes(primitive, order, n_b, n_ell, n_knots, group, n_x, n_q,
         words = (1 if order >= 2 else 2) * n_b * table + x_words
         words += leg_words + n_b * n_q if primitive == 'F' else (
             n_b * n_ell * n_q)
-    return 8 * (n_knots + words)         # f64
+    return WORD_BYTES[dtype] * (n_knots + words)
 
 
 def launch_bound(primitive, order, *layout):
     """(bound_ms, bound_by): the least time the card could take for one
     launch, the larger of its bytes over the HBM rate and its flops over
-    the f64 rate; layout as `launch_bytes` takes it."""
+    the rate of its dtype; layout as `launch_bytes` takes it."""
     n_b, n_ell, n_q = layout[0], layout[1], layout[5]
+    dtype = layout[8] if len(layout) > 8 else 'f64'
     bytes_s = launch_bytes(primitive, order, *layout) / HBM_BYTES_PER_S
     flops = n_b * n_q * (PIECE_FLOPS + n_ell * MULTIPOLE_FLOPS[primitive])
-    flops_s = flops / F64_FLOPS_PER_S
+    flops_s = flops / FLOPS_PER_S[dtype]
     return (1e3 * max(bytes_s, flops_s),
             'bytes' if bytes_s >= flops_s else 'operations')
 
@@ -273,8 +294,9 @@ def spline_legendre_transpose_reference(grid, g, x, leg, order=0):
 # ----------------------------------------------------------------------
 def _check_tensors(grid, **tensors):
     for name, t in tensors.items():
-        if t.dtype != torch.float64:
-            raise TypeError(f'{name} must be float64, got {t.dtype}')
+        if t.dtype != grid.dtype:
+            raise TypeError(f'{name} must be {grid.dtype} as the knot grid, '
+                            f'got {t.dtype}')
         if t.device != grid.tensor.device:
             raise ValueError(f'{name} is on {t.device}, the knot grid on '
                              f'{grid.tensor.device}')
@@ -385,9 +407,11 @@ def _check_multipoles(n_ell):
 # ----------------------------------------------------------------------
 # Kernel launches (ctypes; csrc/spline_legendre_combine.cu)
 # ----------------------------------------------------------------------
-def _launch(entry, device, *args):
+def _launch(entry, grid, device, *args):
+    """Launch `entry`'s f64 or f32 symbol, by the knot grid's dtype."""
     from ._build import load_library
     lib = load_library().lib
+    entry = f'{entry}_{DTYPES[grid.dtype]}'
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, entry)(*args, stream)
     if err != 0:
@@ -400,7 +424,7 @@ def _launch(entry, device, *args):
 def _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
                     plan):
     n_b, n_ell, n_knots = y.shape
-    _launch('vega_spline_legendre_combine_f64', y.device,
+    _launch('vega_spline_legendre_combine', grid, y.device,
             grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
             x.data_ptr(), leg.data_ptr(), out.data_ptr(), n_b, n_ell,
             n_knots, x.shape[1], group, *plan, x_rs, leg_rs, grid.step,
@@ -409,7 +433,7 @@ def _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
 
 def _points_kernel(grid, y, m, x, out, order, group, x_rs, plan):
     n_b, n_ell, n_knots = y.shape
-    _launch('vega_spline_legendre_points_f64', y.device,
+    _launch('vega_spline_legendre_points', grid, y.device,
             grid.tensor.data_ptr(), y.data_ptr(), m.data_ptr(),
             x.data_ptr(), out.data_ptr(), n_b, n_ell, n_knots, x.shape[1],
             group, *plan, x_rs, grid.step, order)
@@ -418,7 +442,7 @@ def _points_kernel(grid, y, m, x, out, order, group, x_rs, plan):
 def _transpose_kernel(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
                       leg_rs, plan):
     n_b, n_ell, n_knots = out_y.shape
-    _launch('vega_spline_legendre_transpose_f64', g.device,
+    _launch('vega_spline_legendre_transpose', grid, g.device,
             grid.tensor.data_ptr(), g.data_ptr(), x.data_ptr(),
             leg.data_ptr(), out_y.data_ptr(), out_m.data_ptr(),
             None if scratch is None else scratch.data_ptr(), n_b, n_ell,
@@ -430,13 +454,14 @@ def _transpose_kernel(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
 # ----------------------------------------------------------------------
 def combine_forward(grid, y, m, x, leg, *, order=0, group=1,
                     use_kernel=True):
-    """F_d for B rows, a new (B, M) f64 tensor.
+    """F_d for B rows, a new (B, M) tensor in the grid's dtype (f64 or
+    f32: the f64 or the f32 kernel).
 
     grid : KnotGrid of N knots (log r), on the tensors' device
-    y, m : (B, L, N) f64 contiguous knot values / second derivatives
-    x : (B / G, M) f64 queries, rows contiguous or one row broadcast
+    y, m : (B, L, N) contiguous knot values / second derivatives
+    x : (B / G, M) queries, rows contiguous or one row broadcast
         (row stride 0, e.g. `x.expand(B / G, M)`)
-    leg : (B / G, L, M) f64 Legendre weights, row stride L*M or 0
+    leg : (B / G, L, M) Legendre weights, row stride L*M or 0
     order : d, the x-derivative of the spline, 0..3
     group : G, the number of consecutive rows that share one row of x
         and leg (the grid sweep's T basis terms of one node)
@@ -452,7 +477,7 @@ def combine_forward(grid, y, m, x, leg, *, order=0, group=1,
         return spline_legendre_combine_reference(grid, y, m, x, leg, group,
                                                  order)
     _check_multipoles(n_ell)
-    out = torch.empty((n_b, n_q), dtype=torch.float64, device=y.device)
+    out = torch.empty((n_b, n_q), dtype=y.dtype, device=y.device)
     _forward_kernel(grid, y, m, x, leg, out, order, group, x_rs, leg_rs,
                     launch_plan(n_b, n_q))
     _launched('F', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
@@ -462,7 +487,7 @@ def combine_forward(grid, y, m, x, leg, *, order=0, group=1,
 
 
 def combine_points(grid, y, m, x, *, order=0, group=1, use_kernel=True):
-    """P_d, a new (B, L, M) f64 tensor; arguments as `combine_forward`
+    """P_d, a new (B, L, M) tensor; arguments as `combine_forward`
     without leg."""
     _check_order(order)
     n_b, n_ell, n_knots, n_q, x_rs, _ = _check(grid, y, m, x, None, group)
@@ -470,8 +495,7 @@ def combine_points(grid, y, m, x, *, order=0, group=1, use_kernel=True):
     if not _kernel_route(y.device, use_kernel):
         return spline_legendre_points_reference(grid, y, m, x, group, order)
     _check_multipoles(n_ell)
-    out = torch.empty((n_b, n_ell, n_q), dtype=torch.float64,
-                      device=y.device)
+    out = torch.empty((n_b, n_ell, n_q), dtype=y.dtype, device=y.device)
     _points_kernel(grid, y, m, x, out, order, group, x_rs,
                    launch_plan(n_b, n_q))
     _launched('P', order, (n_b, n_ell, n_knots, group, x.shape[0], n_q,
@@ -480,7 +504,7 @@ def combine_points(grid, y, m, x, *, order=0, group=1, use_kernel=True):
 
 
 def combine_transpose(grid, g, x, leg, *, order=0, use_kernel=True):
-    """Ft_d(g, x, leg): new (Ybar, Mbar), each (B, L, N) f64, with
+    """Ft_d(g, x, leg): new (Ybar, Mbar), each (B, L, N), with
     Ybar[b, l, i] = sum_q g[b, q] leg[b, l, q] dS^(d)_{b,l}(x_q)/dy[b, l, i]
     and Mbar the same for m. g (B, M) contiguous; x and leg as in
     `combine_forward` with G = 1. The kernel sums in a fixed order (no
@@ -494,11 +518,11 @@ def combine_transpose(grid, g, x, leg, *, order=0, use_kernel=True):
         return spline_legendre_transpose_reference(grid, g, x, leg, order)
     _check_multipoles(n_ell)
     shape = (n_b, n_ell, len(grid))
-    out_y = torch.empty(shape, dtype=torch.float64, device=g.device)
-    out_m = torch.empty(shape, dtype=torch.float64, device=g.device)
+    out_y = torch.empty(shape, dtype=g.dtype, device=g.device)
+    out_m = torch.empty(shape, dtype=g.dtype, device=g.device)
     plan = launch_plan(n_b, n_q)
     scratch = None if plan[0] == 1 else torch.empty(
-        (n_b, plan[0], 2, *shape[1:]), dtype=torch.float64, device=g.device)
+        (n_b, plan[0], 2, *shape[1:]), dtype=g.dtype, device=g.device)
     _transpose_kernel(grid, g, x, leg, out_y, out_m, scratch, order, x_rs,
                       leg_rs, plan)
     _launched('Ft', order, (n_b, n_ell, len(grid), 1, n_b, n_q,

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import mocks as mock_tools
-from ..utils import DTYPE
+from ..utils import refuse_f32
 
 
 class BatchedLikelihood:
@@ -46,7 +46,7 @@ class BatchedLikelihood:
         self.chunk_rows = None if chunk_rows is None else int(chunk_rows)
 
     def chi2(self, param_batches):
-        """(B,) f64 tensor on the interface's device."""
+        """(B,) tensor on the interface's device in its dtype."""
         return self.vega.chi2_batch(param_batches,
                                     chunk_rows=self.chunk_rows)
 
@@ -76,6 +76,7 @@ class TraceableLogLik:
     built again."""
 
     def __init__(self, vega, names):
+        refuse_f32(vega.dtype, 'the samplers')
         self.vega = vega
         self.names = tuple(names)
         self._key = frozenset(self.names)
@@ -261,11 +262,11 @@ def _newton_minimize_batched(derivatives, x0, lo, hi, batch_inputs,
     return out
 
 
-def _start_and_bounds(sample_params, names, device):
+def _start_and_bounds(sample_params, names, device, dtype):
     """x0, lo, hi (n,) tensors from a sample_params dict; None limits
     become +-inf."""
     def tensor(values):
-        return torch.tensor(values, dtype=DTYPE, device=device)
+        return torch.tensor(values, dtype=dtype, device=device)
 
     limits = sample_params['limits']
     return (tensor([float(sample_params['values'][n]) for n in names]),
@@ -288,6 +289,7 @@ def batched_chi2_scan(vega, grids, sample_params=None, max_iterations=100,
     fixed value, 'fval': chi^2}. The chi^2 is served by
     get_collapsed(free + scan names), with the data terms. stats as in
     _newton_minimize_batched."""
+    refuse_f32(vega.dtype, 'profile scans')
     if sample_params is None:
         sample_params = vega.sample_params
     scan_names = list(grids.keys())
@@ -298,7 +300,8 @@ def batched_chi2_scan(vega, grids, sample_params=None, max_iterations=100,
     mesh_axes = np.meshgrid(*[np.asarray(grids[n]) for n in scan_names],
                             indexing='ij')
     scan_vals = np.stack([ax.ravel() for ax in mesh_axes], axis=-1)
-    x0, lo, hi = _start_and_bounds(sample_params, free_names, vega.device)
+    x0, lo, hi = _start_and_bounds(sample_params, free_names, vega.device,
+                                   vega.dtype)
 
     def derivatives(x, chunk):
         point = chunk['point']
@@ -308,7 +311,7 @@ def batched_chi2_scan(vega, grids, sample_params=None, max_iterations=100,
 
     x, _, _, chi2, _ = _newton_minimize_batched(
         derivatives, x0, lo, hi,
-        {'point': torch.as_tensor(scan_vals, dtype=DTYPE,
+        {'point': torch.as_tensor(scan_vals, dtype=vega.dtype,
                                   device=vega.device)},
         max_iterations, stats=stats)
 
@@ -335,6 +338,7 @@ class MonteCarloEngine:
     packages are compared by fitting identical mocks."""
 
     def __init__(self, vega):
+        refuse_f32(vega.dtype, 'Monte-Carlo mock fits')
         if vega._use_global_cov:
             raise ValueError(
                 'MonteCarloEngine draws per-correlation mocks: under a '
@@ -343,7 +347,7 @@ class MonteCarloEngine:
         self.vega = vega
 
     def generate_mocks(self, fiducial_model, num_mocks, seed=0, scale=None):
-        """{name: (num_mocks, n_masked) f64 tensor on the device}, the
+        """{name: (num_mocks, n_masked) tensor on the device}, the
         correlations in order, each from the same generator."""
         vega = self.vega
         generator = torch.Generator(device=vega.device)
@@ -357,10 +361,10 @@ class MonteCarloEngine:
             fid = mock_tools.match_to_data_grid(fiducial_model[name],
                                                 data)[data.data_mask]
             noise = torch.randn((num_mocks, fid.size), generator=generator,
-                                dtype=DTYPE, device=vega.device)
-            out[name] = (torch.as_tensor(fid, dtype=DTYPE,
+                                dtype=vega.dtype, device=vega.device)
+            out[name] = (torch.as_tensor(fid, dtype=vega.dtype,
                                          device=vega.device)[None, :]
-                         + noise @ torch.as_tensor(chol, dtype=DTYPE,
+                         + noise @ torch.as_tensor(chol, dtype=vega.dtype,
                                                    device=vega.device).T)
         return out
 
@@ -381,8 +385,9 @@ class MonteCarloEngine:
                              if vega.mc_config is not None
                              else vega.sample_params)
         names = list(sample_params['limits'].keys())
-        x0, lo, hi = _start_and_bounds(sample_params, names, vega.device)
-        data_vecs = {name: torch.as_tensor(mocks[name], dtype=DTYPE,
+        x0, lo, hi = _start_and_bounds(sample_params, names, vega.device,
+                                       vega.dtype)
+        data_vecs = {name: torch.as_tensor(mocks[name], dtype=vega.dtype,
                                            device=vega.device)
                      for name in vega.corr_items}
         cov_scales = {name: 1.0 for name in vega.corr_items}

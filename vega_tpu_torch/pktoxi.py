@@ -43,7 +43,7 @@ from .ops.fftlog import FFTLogP2Xi
 from .ops.spline import notaknot_second_derivative_matrix
 from .ops.spline_combine import KnotGrid, spline_legendre_combine
 from .power_spectrum import FactoredPk
-from .utils import not_ported, to_tensor
+from .utils import not_ported, refuse_f32, to_tensor
 
 # scipy.special.legendre(ell) monomial coefficients (poly1d order,
 # highest power first); exact binary fractions, so Horner evaluation
@@ -113,8 +113,10 @@ def legendre(ell, x):
 class PktoXi:
     """Transform plan for one tracer pair on fixed (k, mu_k) grids."""
 
-    def __init__(self, k_grid, muk_grid, muk_weights, config, device):
+    def __init__(self, k_grid, muk_grid, muk_weights, config, device,
+                 dtype=torch.float64):
         self.device = torch.device(device)
+        self.dtype = dtype
         self.k_grid = np.asarray(k_grid, dtype=np.float64)
         self.muk_grid = np.asarray(muk_grid)
         self.muk_weights = np.asarray(muk_weights, dtype=np.float64)
@@ -123,6 +125,8 @@ class PktoXi:
         self.old_fftlog = config.getboolean('old_fftlog', False)
         if config.getboolean('fht_extrap', False) and not self.old_fftlog:
             raise not_ported('fht_extrap', 4)
+        if self.old_fftlog:
+            refuse_f32(dtype, 'old_fftlog')
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
                               np.arange(0, self.ell_max + 1, 2))
@@ -154,15 +158,18 @@ class PktoXi:
     @classmethod
     def init_from_Pk(cls, pk, config):
         return cls(pk.k_grid, pk.muk_grid, pk.muk_weights, config,
-                   device=pk.device)
+                   device=pk.device, dtype=pk.dtype)
 
     def set_constants(self, legendre_proj, fft_ops, fft_sd_ops, logr_knots):
-        """Install the host operators (numpy) as device tensors."""
-        self.legendre_proj = to_tensor(legendre_proj, self.device)
-        self.fft_ops = to_tensor(fft_ops, self.device)
-        self.fft_sd_ops = to_tensor(fft_sd_ops, self.device)
+        """Install the host operators (numpy, f64) as device tensors in
+        the model's dtype."""
+        self.legendre_proj = to_tensor(legendre_proj, self.device,
+                                       self.dtype)
+        self.fft_ops = to_tensor(fft_ops, self.device, self.dtype)
+        self.fft_sd_ops = to_tensor(fft_sd_ops, self.device, self.dtype)
         self.logr_knots = np.asarray(logr_knots, dtype=np.float64)
-        self.knot_grid = KnotGrid.build(self.logr_knots, self.device)
+        self.knot_grid = KnotGrid.build(self.logr_knots, self.device,
+                                        self.dtype)
 
     def factored_knots(self, pk):
         """Knot tables (xi, m) of a FactoredPk's basis grids, each

@@ -33,7 +33,7 @@ import torch
 
 from . import utils
 from .factored import RecordingParams
-from .utils import col, not_ported, to_tensor
+from .utils import col, not_ported, refuse_f32, to_tensor
 
 
 class FactoredPk:
@@ -94,8 +94,9 @@ class PowerSpectrum:
     power_spectrum.py:18-196)."""
 
     def __init__(self, config, fiducial, tracer1, tracer2, dataset_name=None,
-                 *, device):
+                 *, device, dtype=torch.float64):
         self.device = torch.device(device)
+        self.dtype = dtype
         self.tracer1_name = tracer1['name']
         self.tracer2_name = tracer2['name']
         self._corr_name = f'{self.tracer1_name}x{self.tracer2_name}'
@@ -132,6 +133,20 @@ class PowerSpectrum:
                 kind in self.small_scale_nl
                 for kind in ('arinyo', 'mcdonald')):
             raise ValueError("Incorrect 'small scale nl' specified")
+        # the f32 mode carries synthetic-full's model alone: Kaiser, the
+        # BAO peak's broadening, G(k) and the Lorentzian velocity
+        # dispersion (ROADMAP.md item 10 queues the rest)
+        for feature, on in (
+                ('an HCD model', self.hcd_model is not None),
+                ('small scale nl', self.small_scale_nl is not None),
+                ('fullshape smoothing', self.fullshape_smoothing is not None),
+                ('mock binning', self.mock_bin_size is not None
+                 or self.mock_los_smoothing is not None),
+                ('Pk damping', self.pk_damping_scale is not None),
+                (f'velocity dispersion = {self.velocity_dispersion}',
+                 self.velocity_dispersion not in (None, 'lorentz'))):
+            if on:
+                refuse_f32(dtype, feature)
 
         # Fvoigt HCD profile table (vega_tpu/power_spectrum.py:145-155),
         # read from the JAX package's models directory by path
@@ -143,16 +158,16 @@ class PowerSpectrum:
             path = (fvoigt_model if '/' in fvoigt_model else utils.find_file(
                 f'fvoigt_models/Fvoigt_{fvoigt_model}.txt'))
             table = np.loadtxt(path)
-            self._fvoigt = (to_tensor(table[:, 0], self.device),
-                            to_tensor(table[:, 1], self.device))
+            self._fvoigt = (to_tensor(table[:, 0], self.device, dtype),
+                            to_tensor(table[:, 1], self.device, dtype))
 
         # Delta^2(k) of the fiducial Pk rescaled to z_eff, for the Arinyo
         # term (vega_tpu/power_spectrum.py:157-160,640)
         pk_fid = np.asarray(fiducial['pk_full']) * (
             (1 + fiducial['z_fiducial']) / (1. + fiducial['z_eff'])) ** 2
-        self._k_t = to_tensor(self.k_grid, self.device)
+        self._k_t = to_tensor(self.k_grid, self.device, dtype)
         self._delta_sq = to_tensor(
-            self.k_grid ** 3 * pk_fid / (2 * np.pi ** 2), self.device)
+            self.k_grid ** 3 * pk_fid / (2 * np.pi ** 2), self.device, dtype)
         # Pk damping exp(-s^2 k^p / 2), a (k,) factor that reads no
         # parameter (vega_tpu/power_spectrum.py:219-222)
         self._pk_damping = None
@@ -168,22 +183,23 @@ class PowerSpectrum:
                                self._bin_size_rp, self._bin_size_rt,
                                self.use_Gk)
         self.muk_grid = muk_grid                      # host (mu_k, 1)
-        self._muk_t = to_tensor(muk_grid, self.device)
+        self._muk_t = to_tensor(muk_grid, self.device, dtype)
         # mu_k^0, mu_k^2, mu_k^4 basis grids of the factored Kaiser term,
         # built as vega_tpu/power_spectrum.py:407-419 builds them
         muk2 = muk_grid ** 2 * np.ones_like(self.k_grid)
         self._mu_pow_grids = {
             0: to_tensor(np.ones_like(muk_grid) * np.ones_like(self.k_grid),
-                         self.device),
-            2: to_tensor(muk2, self.device),
-            4: to_tensor(muk2 * muk2, self.device)}
+                         self.device, dtype),
+            2: to_tensor(muk2, self.device, dtype),
+            4: to_tensor(muk2 * muk2, self.device, dtype)}
         self.set_constants(k_par_grid, k_trans_grid, pk_Gk)
 
     def set_constants(self, k_par_grid, k_trans_grid, pk_Gk):
         """Install the host (mu_k, k) grids as device tensors."""
-        self.k_par_grid = to_tensor(k_par_grid, self.device)
-        self.k_trans_grid = to_tensor(k_trans_grid, self.device)
-        self.pk_Gk = None if pk_Gk is None else to_tensor(pk_Gk, self.device)
+        self.k_par_grid = to_tensor(k_par_grid, self.device, self.dtype)
+        self.k_trans_grid = to_tensor(k_trans_grid, self.device, self.dtype)
+        self.pk_Gk = (None if pk_Gk is None
+                      else to_tensor(pk_Gk, self.device, self.dtype))
 
     # ------------------------------------------------------------------
     def compute_peak_smooth(self, params, pk_peak_lin, pk_smooth_lin,

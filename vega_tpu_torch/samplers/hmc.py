@@ -36,8 +36,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.graphs import CapturedGraph
-from ..utils import DTYPE
 from .sampler_interface import Sampler
+
+# the samplers run in f64 alone: an f32 interface is refused
+# (sampler_interface.Sampler)
+DTYPE = torch.float64
 
 
 def make_hmc_step(pot_vg, n_leap):

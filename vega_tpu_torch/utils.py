@@ -18,8 +18,6 @@ import torch
 REPO_ROOT = Path(__file__).resolve().parents[1]
 JAX_PACKAGE_DIR = REPO_ROOT / 'vega_tpu'
 
-DTYPE = torch.float64
-
 
 class VegaModelError(Exception):
     """Model-domain failure (reference: utils.py:444-453). Per-evaluation
@@ -34,10 +32,30 @@ def not_ported(feature, item):
         f'(ROADMAP.md, "Modules still to port", item {item})')
 
 
-def to_tensor(x, device):
-    """f64 copy of `x` on `device` (explicit dtype: torch's default is
-    f32)."""
-    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=DTYPE,
+def resolve_dtype(dtype=None):
+    """The interface's dtype: `dtype` when given (torch.float64 or
+    torch.float32), else read from VEGA_TPU_X64 as vega_tpu/__init__.py:22
+    reads it: '0' is vega_tpu's f32 throughput mode, anything else f64."""
+    if dtype is None:
+        return (torch.float32 if os.environ.get('VEGA_TPU_X64', '1') == '0'
+                else torch.float64)
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f'the port runs in float64 or float32, not {dtype}')
+    return dtype
+
+
+def refuse_f32(dtype, feature):
+    """Raise `not_ported` for a feature the f32 mode does not carry yet
+    (ROADMAP.md item 10): it never runs in f64 instead."""
+    if dtype == torch.float32:
+        raise not_ported(f'{feature} in the f32 mode', 10)
+
+
+def to_tensor(x, device, dtype=torch.float64):
+    """Copy of the host array `x`, taken as f64, on `device` in `dtype`
+    (explicit: torch's default is f32): host arrays stay f64 and are cast
+    once."""
+    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
                         device=device)
 
 

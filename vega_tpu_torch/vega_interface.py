@@ -89,9 +89,16 @@ from .model import Model
 from .output import Output
 from .parameters.param_utils import get_default_values
 from .scale_parameters import ScaleParameters
-from .utils import DTYPE, not_ported, to_tensor
+from .utils import not_ported, refuse_f32, resolve_dtype, to_tensor
 
 PENALTY_CHI2 = 1e100
+
+
+def penalty_chi2(dtype):
+    """The chi^2 of a penalised row in `dtype`: 1e100, which is inf in
+    f32, as vega_tpu's jnp.where(bad, 1e100, chi2) gives it under
+    VEGA_TPU_X64=0 (torch refuses to round 1e100 to f32 itself)."""
+    return PENALTY_CHI2 if dtype == torch.float64 else float('inf')
 
 # chi2_batch evaluates at most this many rows at a time. Each row holds,
 # per correlation, up to three (1000 mu_k x 814 k) f64 grids at once
@@ -141,12 +148,23 @@ def resolve_device(device):
 class VegaInterface:
     """Main interface (reference: vega_interface.py:22-206).
 
-    `device` is required: 'cpu', 'cuda' or 'cuda:N'.
+    `device` is required: 'cpu', 'cuda' or 'cuda:N'. `dtype` is the
+    device dtype of every model and chi^2 tensor: torch.float64 (the
+    parity mode) or torch.float32 (vega_tpu's f32 throughput mode); None
+    reads VEGA_TPU_X64 as vega_tpu does ('0': f32, else f64). Host numpy
+    stays f64 in both: the inverse covariances, FFTLog and spline
+    operators are built in f64 and cast once onto the device. The f32
+    mode covers synthetic-full's model (Kaiser, the peak's broadening,
+    G(k), the Lorentzian velocity dispersion), dense and through the grid
+    collapse, and the fit; every other feature raises `not_ported` at
+    construction (ROADMAP.md item 10), never running in f64 instead.
     """
 
-    def __init__(self, main_path, device):
+    def __init__(self, main_path, device, dtype=None):
         self.device = resolve_device(device)
-        # f64 throughout; state the TF32 policy explicitly all the same
+        self.dtype = resolve_dtype(dtype)
+        # TF32 off: f32 products are true f32 and f64 ones are untouched
+        # by it (stated explicitly all the same)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -174,6 +192,13 @@ class VegaInterface:
             raise not_ported('model_pk', 5)
         if control and control.getboolean('marginalize-in-fit', False):
             raise not_ported('marginalize-in-fit', 5)
+        for feature, on in (
+                ('a global covariance', global_cov_file is not None),
+                ('the samplers', bool(control)
+                 and control.getboolean('run_sampler', False)),
+                ('Monte-Carlo', 'monte carlo' in self.main_config)):
+            if on:
+                refuse_f32(self.dtype, feature)
 
         self.corr_items = {}
         for path in ini_files:
@@ -181,6 +206,10 @@ class VegaInterface:
             name = config['data'].get('name')
             self.corr_items[name] = CorrelationItem(config)
             self.corr_items[name].low_mem_mode = self.low_mem_mode
+            # before the data layer reads their files
+            for feature in ('metals', 'broadband'):
+                if feature in config:
+                    refuse_f32(self.dtype, feature)
 
         self.params = self._read_parameters(self.corr_items,
                                             self.main_config['parameters'])
@@ -321,15 +350,16 @@ class VegaInterface:
     def _build_models(self):
         """One Model per correlation, under the current fiducial."""
         self.models = {name: Model(item, self.fiducial, self.scale_params,
-                                   self.data[name], device=self.device)
+                                   self.data[name], device=self.device,
+                                   dtype=self.dtype)
                        for name, item in self.corr_items.items()}
 
     def set_fiducial_pk(self, pk_full, pk_smooth):
         """Install the fiducial linear spectra (host arrays)."""
         self.fiducial['pk_full'] = np.asarray(pk_full, dtype=np.float64)
         self.fiducial['pk_smooth'] = np.asarray(pk_smooth, dtype=np.float64)
-        self._pk_full = to_tensor(pk_full, self.device)
-        self._pk_smooth = to_tensor(pk_smooth, self.device)
+        self._pk_full = to_tensor(pk_full, self.device, self.dtype)
+        self._pk_smooth = to_tensor(pk_smooth, self.device, self.dtype)
 
     def set_chi2_constants(self):
         """Copy the chi^2-side host arrays (masked inverse covariance,
@@ -339,7 +369,8 @@ class VegaInterface:
         with Monte-Carlo mocks: `_device_data_vecs` copies those."""
         if self._use_global_cov:
             self._chi2_data = {'_global': {
-                'inv_cov': to_tensor(self.masked_global_invcov, self.device),
+                'inv_cov': to_tensor(self.masked_global_invcov,
+                                     self.device, self.dtype),
                 'model_index': torch.as_tensor(
                     np.flatnonzero(self.full_model_mask), dtype=torch.int64,
                     device=self.device)}}
@@ -347,7 +378,8 @@ class VegaInterface:
         self._chi2_data = {}
         for name, d in self.data.items():
             self._chi2_data[name] = {
-                'inv_cov': to_tensor(d.inv_masked_cov, self.device),
+                'inv_cov': to_tensor(d.inv_masked_cov, self.device,
+                                     self.dtype),
                 'model_index': torch.as_tensor(
                     np.flatnonzero(d.model_mask), dtype=torch.int64,
                     device=self.device),
@@ -392,7 +424,8 @@ class VegaInterface:
         if self._data_vec_cache[0] != key:
             vecs = self._current_data_vecs()
             self._data_vec_cache = (key, {
-                name: to_tensor(v, self.device) for name, v in vecs.items()},
+                name: to_tensor(v, self.device, self.dtype)
+                for name, v in vecs.items()},
                 tuple(vecs.values()))
         return self._data_vec_cache[1]
 
@@ -414,10 +447,10 @@ class VegaInterface:
     # ------------------------------------------------------------------
     def _batch_params(self, params):
         """Local parameter dict: the stored floats, overridden by `params`
-        as (B,) f64 tensors on the device. Returns (dict, B)."""
+        as (B,) tensors on the device in its dtype. Returns (dict, B)."""
         local = copy.copy(self.params)
         for name, value in (params or {}).items():
-            local[name] = torch.as_tensor(value, dtype=DTYPE,
+            local[name] = torch.as_tensor(value, dtype=self.dtype,
                                           device=self.device).reshape(-1)
         sizes = {local[name].shape[0] for name in (params or {})}
         n_b = max(sizes, default=1)
@@ -469,7 +502,7 @@ class VegaInterface:
             # the coefficient program at the grid reference values
             coeff_params = dict(local_params)
             coeff_params.update(zip(spec.names, spec.ref))
-        chi2 = torch.zeros(n_b, dtype=DTYPE, device=self.device)
+        chi2 = torch.zeros(n_b, dtype=self.dtype, device=self.device)
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         if self._use_global_cov:
             # the joint quadratic form over the concatenated masked model
@@ -532,7 +565,7 @@ class VegaInterface:
         if spec is not None:
             # smooth wall outside the node domain (GRID_WALL_CHI2)
             chi2 = chi2 + gridcollapse.GRID_WALL_CHI2 * excess
-        return torch.where(bad, PENALTY_CHI2, chi2)
+        return torch.where(bad, penalty_chi2(self.dtype), chi2)
 
     def compute_prior_chi2(self, params=None):
         """chi^2 of the Gaussian priors at one point: the stored values
@@ -557,11 +590,11 @@ class VegaInterface:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def chi2_batch(self, param_batches, use_kernel=True, chunk_rows=None):
-        """chi^2 for a batch: {name: (B,) values} -> (B,) f64 tensor on
-        the interface's device, dispatched by the names as vega_tpu does
-        (`get_collapsed`). Runs in chunks of `chunk_rows` rows (default
-        CHUNK_ROWS, or COLLAPSED_CHUNK_ROWS when every correlation is
-        served by a collapse).
+        """chi^2 for a batch: {name: (B,) values} -> (B,) tensor of the
+        interface's dtype on its device, dispatched by the names as
+        vega_tpu does (`get_collapsed`). Runs in chunks of `chunk_rows`
+        rows (default CHUNK_ROWS, or COLLAPSED_CHUNK_ROWS when every
+        correlation is served by a collapse).
 
         use_kernel=False takes the plain PyTorch spline/Legendre combine
         on a CUDA device for the dense path (for comparing it with the
@@ -573,7 +606,7 @@ class VegaInterface:
             chunk_rows = (COLLAPSED_CHUNK_ROWS
                           if all(n in collapsed for n in self.corr_items)
                           else CHUNK_ROWS)
-        out = torch.empty(n_b, dtype=DTYPE, device=self.device)
+        out = torch.empty(n_b, dtype=self.dtype, device=self.device)
         for start in range(0, n_b, chunk_rows):
             stop = min(start + chunk_rows, n_b)
             chunk = {k: (v[start:stop] if isinstance(v, torch.Tensor)
@@ -625,13 +658,13 @@ class VegaInterface:
         """(chi^2, {name: d chi^2 / d name}) over every key of `params`,
         exact (torch autograd, reverse mode): the minimizer's hot path.
         Dispatched by the names of `params` as chi2_batch dispatches
-        them, each a 0-d f64 leaf on the device; `_chi2_rows` on a batch
-        of one. use_kernel=False takes the plain PyTorch combine on a CUDA
-        device (for comparing it with the kernels)."""
+        them, each a 0-d leaf on the device in its dtype; `_chi2_rows` on
+        a batch of one. use_kernel=False takes the plain PyTorch combine
+        on a CUDA device (for comparing it with the kernels)."""
         names = frozenset(params)
         collapsed = self.get_collapsed(names)
         with torch.enable_grad():
-            leaves = {name: torch.tensor(float(value), dtype=DTYPE,
+            leaves = {name: torch.tensor(float(value), dtype=self.dtype,
                                          device=self.device,
                                          requires_grad=True)
                       for name, value in params.items()}
@@ -664,9 +697,10 @@ class VegaInterface:
                                data_vecs=None, cov_scales=None,
                                use_kernel=True, hessian=True):
         """Exact chi^2 (B,), gradient (B, n) and Hessian (B, n, n) over
-        the n `free_names` for B independent rows, as f64 tensors on the
-        device: the batched Newton's derivatives (what vega_tpu takes with
-        jax.grad / jax.hessian under jax.vmap, parallel/batch.py:313-314).
+        the n `free_names` for B independent rows, as tensors of the
+        interface's dtype on the device: the batched Newton's derivatives
+        (what vega_tpu takes with jax.grad / jax.hessian under jax.vmap,
+        parallel/batch.py:313-314).
 
         values: (B, n) free values; fixed: {name: float or (B,) values}
         for other parameters (a scan's fixed grid values); the rest keep
@@ -690,7 +724,8 @@ class VegaInterface:
         names = frozenset(free_names) | frozenset(fixed)
         collapsed = self.get_collapsed(names,
                                        with_data_terms=data_vecs is None)
-        values = torch.as_tensor(values, dtype=DTYPE, device=self.device)
+        values = torch.as_tensor(values, dtype=self.dtype,
+                                 device=self.device)
         with torch.enable_grad():
             leaves = [values[:, i].detach().clone().requires_grad_(True)
                       for i in range(len(free_names))]
@@ -706,7 +741,7 @@ class VegaInterface:
                 grads = torch.autograd.grad(chi2.sum(), leaves,
                                             materialize_grads=True)
                 return chi2.detach(), torch.stack(grads, dim=-1), None
-            hess = torch.zeros((n_b, n_free, n_free), dtype=DTYPE,
+            hess = torch.zeros((n_b, n_free, n_free), dtype=self.dtype,
                                device=self.device)
             if not n_free:
                 return chi2.detach(), hess.new_zeros((n_b, 0)), hess
@@ -849,7 +884,7 @@ class VegaInterface:
         transpose and derivative kernels, ops/spline_combine.py)."""
         n_free = len(free)
         with torch.enable_grad():
-            leaves = [torch.full((n_free,), float(values[p]), dtype=DTYPE,
+            leaves = [torch.full((n_free,), float(values[p]), dtype=self.dtype,
                                  device=self.device, requires_grad=True)
                       for p in free]
             local = dict(values)
@@ -858,7 +893,7 @@ class VegaInterface:
             shape = (n_free,) + comps.shape[1:]
             if not comps.requires_grad:
                 return comps.new_zeros(shape)
-            probe = torch.zeros(shape, dtype=DTYPE, device=self.device,
+            probe = torch.zeros(shape, dtype=self.dtype, device=self.device,
                                 requires_grad=True)
             grads = torch.autograd.grad((probe * comps).sum(), leaves,
                                         create_graph=True,
@@ -1174,17 +1209,19 @@ class VegaInterface:
         memo = self._device_memo.get(id(collapsed))
         if memo is None or memo[0] is not collapsed:
             if '__grid__' in collapsed:
-                tensors = gridcollapse.device_payload(collapsed, self.device)
+                tensors = gridcollapse.device_payload(collapsed, self.device,
+                                                      self.dtype)
             else:
                 # with the host data terms (y, s), or without them (W, m0:
                 # the data vector enters per evaluation, _chi2_rows)
                 parts = (('y', 's') if 'y' in next(iter(collapsed.values()))
                          else ('W', 'm0'))
                 tensors = {name: {
-                    'A': to_tensor(t['A'], self.device),
-                    'cref': to_tensor(t['c0'], self.device),
+                    'A': to_tensor(t['A'], self.device, self.dtype),
+                    'cref': to_tensor(t['c0'], self.device, self.dtype),
                     **{part: (float(t[part]) if part == 's'
-                              else to_tensor(t[part], self.device))
+                              else to_tensor(t[part], self.device,
+                                             self.dtype))
                        for part in parts}}
                     for name, t in collapsed.items()}
             memo = self._device_memo[id(collapsed)] = (collapsed, tensors)
@@ -1209,7 +1246,14 @@ class VegaInterface:
         e(g) = W d with W = V_m Ci as one (C T, n_m) x (n_m, n_m) GEMM,
         and c0. Returns ({name: {'A': (C, T, T), 'e': (C, T)}},
         {name: c0 (T,)}, bad (C,)) on the device. pk_caches keeps each
-        model's node-independent power spectra between chunks."""
+        model's node-independent power spectra between chunks.
+
+        In f32 the data terms come centred from the device instead of e:
+        y(g) = W r and s(g) = r' Ci r with r = d - c0 V_m(g), the residual
+        at the reference coefficients ({'A', 'y', 's'}). vega_tpu centres
+        e on the host (s = d' Ci d - 2 e.c0 + c0' A c0), exact in f64, but
+        in f32 its terms are ~1e5 each on synthetic-full where s is ~1e3:
+        the residual keeps the cancellation out of f32."""
         if self._chi2_data is None:
             self.set_chi2_constants()
         data_vecs = self._device_data_vecs()
@@ -1235,9 +1279,15 @@ class VegaInterface:
             v_mat = fxi.V.expand(n_c, n_t, n_m)
             w_mat = (v_mat.reshape(n_c * n_t, n_m)
                      @ arrays['inv_cov']).reshape(n_c, n_t, n_m)
-            payload[name] = {'A': w_mat @ v_mat.transpose(1, 2),
-                             'e': w_mat @ data_vecs[name]}
-            c0s[name] = fxi.coeff_vector()
+            payload[name] = {'A': w_mat @ v_mat.transpose(1, 2)}
+            c0 = fxi.coeff_vector()
+            if self.dtype == torch.float64:
+                payload[name]['e'] = w_mat @ data_vecs[name]
+            else:
+                r = data_vecs[name] - c0 @ v_mat                  # (C, n_m)
+                payload[name]['y'] = (w_mat @ r[..., None])[..., 0]
+                payload[name]['s'] = quadratic_rows(r, arrays['inv_cov'])
+            c0s[name] = c0
         return payload, c0s, bad
 
     def _control_get(self, option, default=None):
