@@ -94,6 +94,27 @@ configuration, with no JAX:
      the JAX errors, derivatives 1e-6 / 1e-8);
    it fails unless the metal stack launched F_0 on the dense and the
    grid path and Ft_d in the dense fit.
+8b. the reference's own model terms (phase uv), configuration
+   synthetic-dr16-uv-full (testing.make_dr16_uv_dataset): the DR16-shaped
+   model with UV fluctuations and shotnoise in both correlations and the
+   relativistic, asymmetry and Croom terms on the cross, twelve names
+   sampled, against tests/data/torch_port_uv_goldens.json:
+   - dense regime: chi2_batch(8192) (finite; kernel vs plain route
+     1e-10), the JAX dense chi^2 at 8 points (1e-8), evals/s;
+   - vega_tpu's route: the auto from the 32 x 32 payload with the UV
+     terms in its basis, the cross dense; the payload's correlations and
+     terms against the JAX payload's, chi^2 within 2e-4 + 1e-9 |chi2|,
+     evals/s;
+   - value and gradient at 2 points on both (1e-6 / 1e-8) and
+     minimize() on the dense path against the JAX dense fit;
+   - one dense chi^2 of each variant (HeII, the split bias evolution with
+     OMEGAM, single_multipole = 0, fht_extrap on the auto without
+     metals) against its golden (1e-8);
+   - every launch layout held as below, and the edge layouts on the
+     legacy knot grid with two tables and on fht_extrap's grid;
+   it fails unless the relativistic and asymmetry terms launched F_0 of
+   two tables, the dense fit Ft_d of two tables, and single_multipole
+   F_0 of one.
 9. the DESI DR1 baseline model (phase desi), configuration
    synthetic-desi-full: the same dataset with the DR16 model's HCD and
    NL, the QSO radiation on the cross, the DESI instrumental systematics
@@ -292,6 +313,7 @@ TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
 DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
+UV_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_uv_goldens.json'
 F32_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_f32_goldens.json'
 # the f32 mode against vega_tpu's f32 ladder (tests/test_f32_mode.py:
 # 106-109: |d chi2| <= 0.3 and <= 3e-4 |chi2|, both held there on chi^2
@@ -326,7 +348,7 @@ KERNEL_TOL = 1e-12      # max|kernel - plain| <= KERNEL_TOL * max|plain|
 # in other orders (tests/test_torch_f32_kernels.py holds the plain
 # version to the Pallas kernels at 1e-5 of max|ref|)
 F32_KERNEL_TOL = 1e-5
-CALL_REPEATS = 7        # a wrapper call's time: median of 7 means of 20
+CALL_REPEATS = 3        # a wrapper call's time: median of 3 means of 20
 PLAIN_RTOL = 1e-10      # chi2_batch, kernel path vs plain path
 GOLDEN_RTOL = 1e-8      # chi2_batch vs the JAX package's dense chi^2
 DEFAULT_CHI2_MAX = 1e-6
@@ -2169,10 +2191,18 @@ def watch_metals(vega):
     """Record the kernel launches made inside each model's metal stack
     (`Metals.compute`) apart from the rest: returns the {layout:
     RecordedLayout} dict they accumulate in."""
+    return watch_calls([(model.metals, 'compute')
+                        for model in vega.models.values()])
+
+
+def watch_calls(targets):
+    """Record the kernel launches made inside each (owner, attribute)
+    method of `targets` apart from the rest: returns the {layout:
+    RecordedLayout} dict they accumulate in."""
     from vega_tpu_torch.ops.spline_combine import recorded_launches
     seen = {}
-    for model in vega.models.values():
-        def compute(*args, _inner=model.metals.compute, **kwargs):
+    for owner, name in targets:
+        def call(*args, _inner=getattr(owner, name), **kwargs):
             with recorded_launches() as layouts:
                 out = _inner(*args, **kwargs)
             for key, record in layouts.items():
@@ -2181,7 +2211,7 @@ def watch_metals(vega):
                 else:
                     seen[key] = record
             return out
-        model.metals.compute = compute
+        setattr(owner, name, call)
     return seen
 
 
@@ -2452,6 +2482,232 @@ def run_dr16_path(device, work, card):
         fail('the dr16 dense fit launched no F_d or no Ft_d from metals.py')
     log(f'dr16 phase: {time.perf_counter() - t_phase:.1f} s')
     return launches, checks
+
+
+# ----------------------------------------------------------------------
+# The reference's own model terms: UV fluctuations and shotnoise, the
+# relativistic and asymmetry terms, Croom's evolution, and the variants
+# ----------------------------------------------------------------------
+UV_ROUNDS = 2
+
+
+def legacy_targets(vega):
+    return [(m.PktoXi, f'pk_to_xi_{term}') for m in vega.models.values()
+            for term in ('relativistic', 'asymmetry')]
+
+
+def timed_rows(device, vega, batches, rounds):
+    """evals/s of chi2_batch(batches): the median of `rounds` calls, the
+    rows moved by 1e-9 before each, and the s per call."""
+    times = []
+    n_rows = len(next(iter(batches.values())))
+    for _ in range(rounds):
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        vega.chi2_batch(batches).cpu()
+        times.append(time.perf_counter() - t0)
+    return n_rows / float(np.median(times)), times
+
+
+def value_gradients(device, vega, points, names, label):
+    """chi^2 and gradient at each point, laid out as the goldens keep
+    them, with the wall time of each call."""
+    out = {'chi2': [], 'gradient': []}
+    times = []
+    for point in points:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        value, grad = vega.chi2_value_and_gradient(point)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        out['chi2'].append(value)
+        out['gradient'].append([grad[n] for n in names])
+    log(f'{label}: value and gradient at {len(points)} points, s per call '
+        + ', '.join(f'{t:.4f}' for t in times))
+    return out
+
+
+def run_uv_path(device, work, card):
+    """Phase uv (see the module docstring); returns the kernel launches
+    of its paths, the kernel checks at their layouts and the edge checks
+    on its two new knot grids."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import dataset_variant, make_dr16_uv_dataset
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(UV_GOLDENS.read_text())
+    names = goldens['names']
+    t_phase = time.perf_counter()
+    main_ini = make_dr16_uv_dataset(Path(work) / 'uv', size='full',
+                                    device=device, sample=goldens['sample'])
+    log(f'uv: configuration synthetic-dr16-uv-full in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    rng = np.random.default_rng(0)
+    spread = {n: 0.01 * abs(v) for n, v in dense_vega.params.items()}
+    spread['uv_shotnoise_amp'] = 1e-4
+    batches = {n: dense_vega.params[n] + spread[n] * rng.normal(size=BATCH)
+               for n in names}
+    launches, checks = {}, []
+
+    # --- the dense regime: counts from zero
+    legacy = watch_calls(legacy_targets(dense_vega))
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = dense_vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    launches['uv_dense'] = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    checks += check_launches(device, 'uv_dense', layouts)
+    chi2_np = chi2.cpu().numpy()
+    if chi2_np.shape != (BATCH,) or not np.all(np.isfinite(chi2_np)) \
+            or np.any(chi2_np >= 1e100):
+        fail(f'uv dense chi2_batch is not finite of shape ({BATCH},) '
+             'without a penalty')
+    n_legacy = metal_launches(legacy, 'F')
+    log(f'uv dense chi2_batch({BATCH}): first call {first_s:.3f} s, peak '
+        f'device memory {peak_gb:.2f} GB, chi2 in [{chi2_np.min():.6g}, '
+        f'{chi2_np.max():.6g}], kernel launches {launches["uv_dense"]}, '
+        f'{n_legacy} of F_0 from the relativistic and asymmetry terms at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in legacy))
+    if not n_legacy or any(k[3] != 2 for k in legacy):
+        fail('the uv dense path launched no F_0 of two tables from the '
+             'relativistic and asymmetry terms')
+    plain = dense_vega.chi2_batch(batches, use_kernel=False).cpu().numpy()
+    rel = float(np.max(np.abs(plain - chi2_np) / np.abs(plain)))
+    log(f'uv dense kernel path vs plain path: max relative diff {rel:.3e}')
+    if not rel <= PLAIN_RTOL:
+        fail(f'uv kernel path vs plain path differ by {rel:.3e}')
+    got = dense_vega.chi2_batch(goldens['params']).cpu().numpy()
+    want = np.asarray(goldens['chi2_dense'])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f'uv dense vs JAX goldens ({len(want)} points): max relative diff '
+        f'{rel:.3e}')
+    if not rel <= GOLDEN_RTOL:
+        fail(f'uv dense chi2 vs the JAX goldens differ by {rel:.3e} > '
+             f'{GOLDEN_RTOL}')
+    rate, times = timed_rows(device, dense_vega, batches, UV_ROUNDS)
+    log(f'uv dense chi2_batch({BATCH}): {rate:.1f} evals/s (median of '
+        f'{UV_ROUNDS}, s per call {", ".join(f"{t:.4f}" for t in times)}; '
+        f'{card})')
+
+    # --- vega_tpu's route: the auto from the payload, the cross dense
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        route_vega = VegaInterface(main_ini, device=device)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        payload = route_vega.get_collapsed(frozenset(names))
+        torch.cuda.synchronize(device)
+        collapse_s = time.perf_counter() - t0
+        chi2 = route_vega.chi2_batch(batches).cpu().numpy()
+    launches['uv_route'] = dict(LAUNCHES)
+    checks += check_launches(device, 'uv_route', layouts)
+    stats = route_vega.grid_stats
+    log(f'uv route collapse: {payload.get("__grid__")}, {stats["nodes"]} '
+        f'nodes, sweep {stats["sweep_s"]:.3f} s, host payload build '
+        f'{stats["host_s"]:.3f} s, total {collapse_s:.3f} s; served from '
+        f'the payload {sorted(payload)} (JAX package: '
+        f'{goldens["route_keys"]}); kernel launches {launches["uv_route"]}')
+    if sorted(payload) != goldens['route_keys']:
+        fail(f'uv route serves {sorted(payload)} from the payload, the JAX '
+             f'package {goldens["route_keys"]}')
+    for name, want in goldens['payload'].items():
+        if payload[name]['cref'].shape[0] != want['terms']:
+            fail(f'uv: {name} has {payload[name]["cref"].shape[0]} terms, '
+                 f'the JAX package {want["terms"]}')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('uv route chi2_batch is not finite without a penalty')
+    got = route_vega.chi2_batch(goldens['params']).cpu().numpy()
+    want = np.asarray(goldens['chi2_route'])
+    d_route = np.abs(got - want)
+    bound = GRID_ABS_TOL + GRID_REL_TOL * np.abs(want)
+    log(f'uv route vs JAX route goldens ({len(got)} points): max |d chi2| '
+        f'{d_route.max():.3e} (bound {bound.min():.3e} .. '
+        f'{bound.max():.3e})')
+    if not np.all(d_route <= bound):
+        fail(f'uv route chi2 vs the JAX route chi2: |d| {d_route.max():.3e} '
+             'over the bound')
+    rate, times = timed_rows(device, route_vega, batches, UV_ROUNDS)
+    log(f'uv route chi2_batch({BATCH}): {rate:.1f} evals/s (median of '
+        f'{UV_ROUNDS}, s per call {", ".join(f"{t:.4f}" for t in times)}; '
+        f'{card})')
+
+    # --- value and gradient in both, and the dense fit: counts from zero
+    legacy.clear()
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        points = goldens['derivative_points']
+        compare_derivatives(
+            'uv route value and gradient vs JAX goldens',
+            value_gradients(device, route_vega, points, names, 'uv route'),
+            goldens['route'], {'chi2': FIT_GRID_RTOL,
+                               'gradient': FIT_GRID_RTOL})
+        compare_derivatives(
+            'uv dense value and gradient vs JAX goldens',
+            value_gradients(device, dense_vega, points, names, 'uv dense'),
+            goldens['dense'], {'chi2': FIT_DENSE_RTOL,
+                               'gradient': FIT_DENSE_RTOL})
+        timed_fit(device, dense_vega, 'uv dense')
+        check_fit('uv dense', 'dense', dense_vega, names,
+                  goldens['fit_dense'])
+    launches['uv_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'uv_fit', layouts)
+    legacy_ft = sum(r.launches for key, r in layouts.items()
+                    if key[0] == 'Ft' and key[3] == 2)
+    log(f'uv fit kernel launches: {launches["uv_fit"]}; Ft_d of two tables '
+        f'(the relativistic and asymmetry terms\' backward): {legacy_ft}')
+    if not legacy_ft:
+        fail('the uv dense fit launched no Ft_d of the legacy terms')
+
+    # --- the variants, one dense evaluation each: counts from zero
+    variant_grids = {}
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        point = {k: np.asarray([v])
+                 for k, v in goldens['variant_point'].items()}
+        for label, entry in goldens['variants'].items():
+            t0 = time.perf_counter()
+            with switch('VEGA_TPU_FACTORED', '0'):
+                vega = VegaInterface(dataset_variant(
+                    main_ini, Path(work) / f'uv_{label}',
+                    **entry['changes']), device=device)
+            value = float(vega.chi2_batch(point).cpu().numpy()[0])
+            rel = abs(value - entry['chi2_dense']) / abs(entry['chi2_dense'])
+            log(f'uv variant {label}: dense chi2 {value!r} (JAX '
+                f'{entry["chi2_dense"]!r}, relative diff {rel:.3e}) in '
+                f'{time.perf_counter() - t0:.2f} s')
+            if not rel <= GOLDEN_RTOL:
+                fail(f'uv variant {label}: dense chi2 differs from the JAX '
+                     f'golden by {rel:.3e}')
+            if label == 'fht_extrap':
+                variant_grids['fht_extrap'] = \
+                    vega.models['lyaxlya'].PktoXi.knot_grid
+    launches['uv_variants'] = dict(LAUNCHES)
+    checks += check_launches(device, 'uv_variants', layouts)
+    single = sum(r.launches for key, r in layouts.items()
+                 if key[0] == 'F' and key[3] == 1)
+    if not single:
+        fail('the single_multipole variant launched no F_0 of one table')
+
+    # --- edge layouts on the new knot grids
+    legacy_grid = dense_vega.models['qsoxlya'].PktoXi.legacy_operators(
+        (1, 3), 1)[0]
+    edge = check_edge_layouts(device, legacy_grid, 2,
+                              'legacy, relativistic pair')
+    edge += check_edge_layouts(device, variant_grids['fht_extrap'], 4,
+                               'fht_extrap')
+    log(f'uv phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks, edge
 
 
 # ----------------------------------------------------------------------
@@ -3972,6 +4228,9 @@ def main():
         mark('samplers')
         dr16_launches, dr16_checks = run_dr16_path(device, work, card)
         mark('dr16')
+        uv_launches, uv_checks, uv_edges = run_uv_path(device, work, card)
+        edge_checks += uv_edges
+        mark('uv')
         desi_launches, desi_checks = run_desi_path(device, work, card)
         mark('desi')
         table6_launches, table6_checks = run_table6_path(device, work, card,
@@ -3993,14 +4252,16 @@ def main():
 
     checks = (dense_checks + grid_checks + fit_checks + f32_checks
               + scan_checks
-              + mc_checks + sampler_checks + dr16_checks + desi_checks
+              + mc_checks + sampler_checks + dr16_checks + uv_checks
+              + desi_checks
               + table6_checks + dr16pub_checks + desi_mock_checks
               + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          **f32_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
-         **dr16_launches, **desi_launches, **table6_launches,
+         **dr16_launches, **uv_launches, **desi_launches,
+         **table6_launches,
          **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,
          **run_vega_launches},
         sampler_replays, checks, edge_checks)

@@ -9,6 +9,7 @@ contractions (ds-matmul = False) and a [monte carlo] section sampling
 (bias_LYA, beta_LYA), made by vega_tpu; no payload disk cache.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import copy
 
 import jax

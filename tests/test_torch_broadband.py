@@ -11,6 +11,7 @@ evaluated densely). Both packages read the same files, made by
 vega_tpu.testing.make_synthetic_dataset. Each tolerance stands beside its
 use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 
 import jax

@@ -6,6 +6,7 @@ metal stacking guard, the refusals of fast_metals and of the metals'
 fast bias, components saved by compute_model alone, and the PK_ / Xi_
 HDUs read by either package. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 import sys
 from pathlib import Path

@@ -20,6 +20,7 @@ package (vega_tpu), on the CPU.
    dense path.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import jax
 import jax.numpy as jnp

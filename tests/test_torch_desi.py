@@ -10,6 +10,7 @@ per-correlation covariances. The JAX side of the dataset is
 tests/tools/jax_metal_dataset.py. Each tolerance stands beside its
 use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import re
 import sys
 from pathlib import Path

@@ -9,6 +9,7 @@ whole). The JAX side of the dataset is tests/tools/jax_dr16pub_dataset.py
 (BuildConfig on make_configs.py's dictionaries). Each tolerance stands
 beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 import shutil
 import sys

@@ -16,6 +16,7 @@ run in interpret mode on the CPU as tests/test_pallas_spline.py runs them:
 The knot grid is the transform's: N = 814 knots uniform in log r.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

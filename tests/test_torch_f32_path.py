@@ -24,6 +24,7 @@ the card (chip_smoke.py's f32 phase): the 1,024-node sweep alone takes
 minutes on the CPU.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import json
 import sys
 from pathlib import Path

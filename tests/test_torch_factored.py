@@ -3,6 +3,7 @@ FactoredPk branch of power_spectrum, the FactoredXi branches of pktoxi,
 correlation_func and model, the nuisance-only collapse) against the JAX
 package's, on the tiny synthetic auto+cross dataset."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ parallel.BatchedLikelihood) against the JAX package's, on the tiny
 synthetic auto+cross dataset with 8 x 8 Chebyshev nodes and the JAX
 package's exact f64 payload contractions (ds-matmul = False)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import jax
 import numpy as np
 import pytest

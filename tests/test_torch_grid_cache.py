@@ -8,6 +8,7 @@ two packages, and an interrupted sweep that resumes from its parts. Each
 test has a cache directory of its own; each tolerance stands beside its
 use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import os
 
 import numpy as np

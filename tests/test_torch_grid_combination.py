@@ -10,6 +10,7 @@ ranks, tensors, held-out probe errors and the served chi^2; the served
 chi^2 against vega_tpu's dense chi^2 on narrowed domains; and the node
 limit's dense fallback. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import sys
 from pathlib import Path
 

@@ -9,6 +9,7 @@ hand-fed random numbers (vega_tpu's draws patched to return them), whole
 runs on their diagnostics.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 
 import jax

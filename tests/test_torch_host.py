@@ -2,6 +2,7 @@
 init-time constants, the synthetic dataset files, the data-file lookup
 and the rule that the port never imports JAX."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import inspect
 import subprocess
 import sys

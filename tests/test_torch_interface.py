@@ -4,6 +4,7 @@ and against the JAX goldens of the full configuration
 (tests/data/torch_port_goldens.json, made by
 tests/tools/make_torch_port_goldens.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import json
 from pathlib import Path
 

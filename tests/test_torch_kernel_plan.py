@@ -4,6 +4,7 @@ use, and the edge layouts chip_smoke.py holds the kernels to: pure
 Python, checked here without a card. The kernels themselves run only on
 the card (chip_smoke.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import importlib.util
 from pathlib import Path
 

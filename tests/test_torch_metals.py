@@ -7,7 +7,9 @@ whole (chi2_batch, gradient, Hessian, nuisance collapse, grid chi^2).
 The JAX side of the dataset is tests/tools/jax_metal_dataset.py. Each
 tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
+import json
 import sys
 from pathlib import Path
 
@@ -60,6 +62,8 @@ POINTS = [
      'bias_SiIII(1207)': -0.0045},
 ]
 CONTROL = 'grid-nodes-ap = 8\ngrid-nodes-at = 8\nds-matmul = False'
+TINY_GOLDENS = Path(__file__).resolve().parent / 'data' / \
+    'torch_port_tiny_goldens.json'
 
 
 def max_rel(got, want):
@@ -611,33 +615,79 @@ def test_plain_combine_matches_pallas_at_a_metal_layout():
 
 
 # ----------------------------------------------------------------------
-# 5. What still raises
+# 5. The reference's own model terms on this configuration, and what
+#    still raises
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize('section,line,match', [
-    ('model', 'relativistic correction = True', 'Relativistic correction'),
-    ('model', 'UVB-fluctuations = True', 'UV fluctuations'),
-    ('model', 'HeII-reionization = True', 'HeII reionization'),
-    ('model', 'standard asymmetry = True', 'Standard asymmetry'),
-    ('model', 'UVB-shotnoise = True', 'UV shotnoise'),
-    ('model', 'single_multipole = 2', 'single_multipole'),
-    ('model', 'fht_extrap = True', 'fht_extrap'),
-    ('model', 'marginalize-below-rtmax = 20.',
-     'Small-scale marginalization'),
-])
-def test_unported_options_still_raise(variants, tmp_path, section, line,
-                                      match):
-    """A config with [metals], model-hcd and small scale nl constructs;
-    each of these options on top of it raises not_ported."""
-    _, _, main = variants['dr16']
+# the parameters the options read (vega_tpu/templates/
+# parameter_defaults.ini; uv_shotnoise_amp away from its default of 0)
+TERM_PARAMETERS = ('bias_gamma = 0.1125\nbias_gamma_e = 0.01\n'
+                   'bias_prim = -0.66\nlambda_uv = 300.\n'
+                   'lambda_HeII = 30.\nuv_shotnoise_amp = 0.001\n'
+                   'Arel1 = -13.5\nArel3 = 1.\nAasy0 = 1.\nAasy2 = 1.\n'
+                   'Aasy3 = 1.\n')
+
+
+def with_option(main, tmp_path, corr, line, drop_metals=False):
+    """A copy of `main` whose correlation `corr` carries `line` in its
+    [model] section (and TERM_PARAMETERS in its [parameters]), without
+    its [metals] section when asked."""
     source = Path(main).parent
-    text = (source / 'lyaxlya.ini').read_text()
-    if section == 'model':
-        text = text.replace('[model]\n', f'[model]\n{line}\n')
-    else:
-        text += f'\n[{section}]\n{line}\n'
-    (tmp_path / 'lyaxlya.ini').write_text(text)
+    text = (source / f'{corr}.ini').read_text()
+    text = text.replace('[model]\n', f'[model]\n{line}\n', 1)
+    text = text.replace('[parameters]\n', '[parameters]\n' + TERM_PARAMETERS,
+                        1)
+    if drop_metals:
+        start = text.index('[metals]')
+        end = text.find('\n[', start + 1)
+        text = text[:start] + ('' if end < 0 else text[end + 1:])
+    (tmp_path / f'{corr}.ini').write_text(text)
     main_text = Path(main).read_text().replace(
-        str(source / 'lyaxlya.ini'), str(tmp_path / 'lyaxlya.ini'))
+        str(source / f'{corr}.ini'), str(tmp_path / f'{corr}.ini'))
     (tmp_path / 'main.ini').write_text(main_text)
-    with pytest.raises(NotImplementedError, match=match):
-        VegaInterface(tmp_path / 'main.ini', device='cpu')
+    return tmp_path / 'main.ini'
+
+
+# seven options of ROADMAP.md item 4c, each on the correlation that takes
+# it (the relativistic and asymmetry terms are the cross's); fht_extrap on
+# the auto without its metals, whose extrapolated multipoles diverge in
+# the reference itself (tests/tools/variant_configs.py:436-446)
+TERM_CASES = {
+    'relativistic': ('qsoxlya', 'relativistic correction = True'),
+    'uv_fluctuations': ('lyaxlya', 'UVB-fluctuations = True'),
+    'heii': ('lyaxlya', 'HeII-reionization = True'),
+    'asymmetry': ('qsoxlya', 'standard asymmetry = True'),
+    'uv_shotnoise': ('lyaxlya', 'UVB-shotnoise = True'),
+    'single_multipole': ('lyaxlya', 'single_multipole = 2'),
+    'fht_extrap': ('lyaxlya', 'fht_extrap = True'),
+}
+
+
+@pytest.mark.parametrize('case', list(TERM_CASES))
+def test_model_terms_match_jax(variants, tmp_path, monkeypatch, case):
+    """Each option on top of the DR16-shaped configuration constructs,
+    and the dense chi^2 of two rows agrees (CHI2_RTOL) with vega_tpu's
+    on the same files (tests/data/torch_port_tiny_goldens.json,
+    'dr16_terms', made by tests/tools/make_torch_port_tiny_goldens.py
+    from this module's TERM_CASES, rows and configuration)."""
+    _, _, main = variants['dr16']
+    corr, line = TERM_CASES[case]
+    main = with_option(main, tmp_path, corr, line,
+                       drop_metals=case == 'fht_extrap')
+    monkeypatch.setenv('VEGA_TPU_FACTORED', '0')
+    golden = json.loads(TINY_GOLDENS.read_text())['dr16_terms']
+    rows = {k: np.asarray(v) for k, v in golden['rows'].items()}
+    got = VegaInterface(main, device='cpu').chi2_batch(rows).numpy()
+    want = np.asarray(golden['chi2'][case])
+    assert np.all(got < 1e99)
+    assert np.max(np.abs(got - want) / np.abs(want)) <= CHI2_RTOL
+
+
+def test_unported_options_still_raise(variants, tmp_path):
+    """A config with [metals], model-hcd and small scale nl constructs;
+    small-scale marginalization on top of it raises not_ported."""
+    _, _, main = variants['dr16']
+    main = with_option(main, tmp_path, 'lyaxlya',
+                       'marginalize-below-rtmax = 20.')
+    with pytest.raises(NotImplementedError,
+                       match='Small-scale marginalization'):
+        VegaInterface(main, device='cpu')

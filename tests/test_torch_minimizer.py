@@ -6,6 +6,7 @@ Cases: those of tests/test_minimizer_newton.py, the bias-only first
 stage, a non-quadratic chi^2 with limits, finite differences, and fixed
 parameters."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import subprocess
 import sys
 from pathlib import Path

@@ -12,7 +12,9 @@ and against vega_tpu's own. tests/test_torch_mocks_fit.py holds each
 configuration as a whole. The JAX side of the datasets is
 tests/tools/jax_mocks_dataset.py. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
+import json
 import sys
 from pathlib import Path
 
@@ -49,6 +51,8 @@ CHI2_RTOL = 1e-12       # chi^2, relative
 COEFF_RTOL = 1e-12      # a factored coefficient vector, of its largest
 GRID_ABS, GRID_REL = 2e-4, 1e-9     # vega_tpu's default mode budget
 CONTROL = 'grid-nodes-ap = 8\ngrid-nodes-at = 8\nds-matmul = False\n'
+TINY_GOLDENS = Path(__file__).resolve().parent / 'data' / \
+    'torch_port_tiny_goldens.json'
 # the published configuration's small node grid (its test modules')
 DR16PUB_CONTROL = {'grid-nodes-ap': '6', 'grid-nodes-at': '6',
                    'grid-nodes-drp_QSO': '4',
@@ -369,7 +373,8 @@ def test_metal_stack_with_section_options_matches_jax(metal_variants,
 def fht_extrap(env, tmp_path_factory):
     """The tiny published configuration written by vega_tpu (BuildConfig)
     with `fht_extrap = True` in every correlation's [model]: (vega_tpu,
-    port) interfaces built with VEGA_TPU_FACTORED=0."""
+    port) interfaces built with VEGA_TPU_FACTORED=0, vega_tpu's for its
+    objects, not evaluated."""
     main = make_jax_dr16_published_dataset(
         tmp_path_factory.mktemp('fht_extrap'), size='tiny',
         extra_control=DR16PUB_CONTROL)
@@ -386,16 +391,21 @@ def test_fht_extrap_beside_old_fftlog_matches_jax(fht_extrap):
     """With fht_extrap beside old_fftlog both packages unroll the metals
     (vega_tpu/metals.py:160-164): every model to XI_RTOL of its largest
     entry and chi^2 to CHI2_RTOL at the defaults (vega_tpu 2,645.59; the
-    port stacked them before and read 2.6375)."""
+    port stacked them before and read 2.6375), against vega_tpu's models
+    and chi^2 on the same files (tests/data/torch_port_tiny_goldens.json,
+    'fht_extrap_published', made by
+    tests/tools/make_torch_port_tiny_goldens.py with this fixture's
+    configuration)."""
     ref, vega = fht_extrap
+    golden = json.loads(TINY_GOLDENS.read_text())['fht_extrap_published']
     for name in ref.corr_items:
         assert ref.models[name].metals._stacked_plans is None
         assert vega.models[name].metals._stacked_plans is None
-    want = ref.compute_model(run_init=False)
     got = vega.compute_model(run_init=False)
-    for name in ref.corr_items:
-        assert max_rel(got[name], want[name]) <= XI_RTOL
-    chi2, want_chi2 = vega.chi2(), float(ref.chi2())
+    assert sorted(got) == sorted(golden['models']) == sorted(ref.corr_items)
+    for name, want in golden['models'].items():
+        assert max_rel(got[name], want) <= XI_RTOL
+    chi2, want_chi2 = vega.chi2(), golden['chi2']
     assert want_chi2 == pytest.approx(2645.59, abs=0.01)
     assert abs(chi2 - want_chi2) <= CHI2_RTOL * want_chi2
 

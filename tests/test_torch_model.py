@@ -3,6 +3,7 @@ package's, on the tiny synthetic auto+cross dataset, at the default and
 perturbed (ap, at); the port runs on the JAX package's host constants
 (vega_tpu_torch.state.load_constants), unbatched and batched."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

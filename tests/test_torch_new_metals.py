@@ -5,6 +5,7 @@ route, the port's C++ pair histograms against the port's numpy route and
 against the pair algebra written out, the rp-only form, and a g++ build
 that fails. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 
 import numpy as np

@@ -6,6 +6,7 @@ mirroring tests/test_output_roundtrip.py, test_monte_carlo_modes.py:90
 and test_scripts.py:32, on the CPU at size='tiny'. Each package's file is
 read with the other's reader; each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 
 import numpy as np

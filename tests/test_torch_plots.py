@@ -5,6 +5,7 @@ lines the panel plots draw from the same model (`ax.lines[i].
 get_xydata()`), each read off its own package's interface. The plots are
 host numpy copies, so everything is held bit for bit."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import matplotlib
 
 matplotlib.use('Agg')

@@ -7,6 +7,7 @@ and shell plots, `cli fit` against run_vega, the fit and its file with
 matplotlib blocked, the card as the entry points' default device, and
 the cli's dispatch. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 import sys
 

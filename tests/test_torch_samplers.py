@@ -10,6 +10,7 @@ and is held to a numpy transcription of vega_tpu's loop bodies on hand-fed
 random numbers, and to the host loops statistically.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import configparser
 import shutil
 

@@ -7,6 +7,7 @@ other, the exact partials through the kernel route, the sky-residual
 names' exact partials that vega_tpu's component graph leaves at 0, and
 set_fast_metals. Each tolerance stands beside its use."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import sys
 from pathlib import Path
 

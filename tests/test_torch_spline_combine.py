@@ -4,6 +4,7 @@ vega_tpu.ops.spline.spline_eval + the Legendre sum in f64, and the Pallas
 kernel in interpret mode (f32). Also the wrapper's checks and routing on
 tensors that are not on a GPU."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -45,7 +45,7 @@ def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
                            sample=None, seed=0, noise=0.0, extra_control='',
                            with_distortion=False, extra_model='',
                            new_metals=False, global_cov=False,
-                           extra_metals=''):
+                           extra_metals='', qso_z_evol=None):
     """main.ini of a synthetic dataset with `metals` in every LYA tracer,
     written and given its data vectors by vega_tpu alone (the arguments
     are the port's make_synthetic_dataset's)."""
@@ -54,7 +54,8 @@ def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
     from vega_tpu.models.eisenstein_hu import make_fiducial_template
     from vega_tpu.vega_interface import VegaInterface
     from vega_tpu_torch.testing import (OMEGA_M, metals_section,
-                                        new_metals_lines, new_metals_weights)
+                                        new_metals_lines, new_metals_weights,
+                                        with_qso_z_evol)
 
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
@@ -114,7 +115,8 @@ def make_jax_metal_dataset(workdir, metals, cross=True, size='full',
         line = f'filename = {data_file}\n'
         assert text.count(line) == 1
         ini_files.append(workdir / ini_name)
-        ini_files[-1].write_text(text.replace(line, line + extra_data))
+        ini_files[-1].write_text(with_qso_z_evol(
+            text.replace(line, line + extra_data), qso_z_evol))
 
     main_path = workdir / 'main.ini'
     main_path.write_text(jt._main_ini(

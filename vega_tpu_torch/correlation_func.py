@@ -1,16 +1,21 @@
 """Correlation-function (xi-space) model for one tracer pair.
 
 Counterpart of vega_tpu/correlation_func.py: the AP coordinate rescaling
-and Hankel transform (`compute_core`, `_rescale_coords`, :175-221), the
-standard bias redshift evolution (:250-276, the mean evolution), the
-growth factor (:290-307, or the legacy 100-point integration of
-old_growth_func, :309-331), dense and factored (`compute`, :97-120), the
-QSO radiation of the cross (`compute_qso_radiation`, :336-364; factored
-as one term whose coefficient is its strength) and the template of the
-DESI instrumental systematics (:389-415), which model.py adds. Host
-quantities are computed at init with numpy and kept as device tensors;
-the relativistic, asymmetry and UV shotnoise terms, single multipoles,
-the split ("new") and Croom bias evolutions are not ported yet.
+and Hankel transform (`compute_core`, `_rescale_coords`, :175-221;
+single_multipole transforms one multipole alone), the bias redshift
+evolution (:225-290: the mean power law, the split ("new") evolution of
+a cross with the data file's cosmology, Croom's QSO model), the growth
+factor (:290-307, or the legacy 100-point integration of
+old_growth_func, :309-331), dense and factored (`compute`, :97-171),
+the QSO radiation of the cross (`compute_qso_radiation`, :336-364;
+factored as one term whose coefficient is its strength), the
+relativistic and standard-asymmetry terms of the cross (:365-390, through
+PktoXi's legacy combine; either densifies the model, as there), the UV
+shotnoise (:148-171,413-454; factored as one term whose coefficient is
+bias_gamma^2 uv_shotnoise_amp, unless lambda_uv is sampled) and the
+template of the DESI instrumental systematics (:389-415), which model.py
+adds. Host quantities are computed at init with numpy and kept as device
+tensors.
 """
 
 from __future__ import annotations
@@ -18,14 +23,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 from scipy.interpolate import interp1d
+from scipy.special import expn
 
 from .cosmo import growth_function
-from .factored import FactoredXi, RecordingParams, Sampling
-from .utils import col, find_file, not_ported, refuse_f32, to_tensor
+from .factored import FactoredXi, RecordingParams, Sampling, densify
+from .utils import col, find_file, interp, refuse_f32, to_tensor
 
 # the instrumental systematics' amplitude when the parameters carry none
 # (vega_tpu/correlation_func.py:414)
 DESI_INST_SYS_AMP = 0.0003189935987295203
+
+
+def compute_shotnoise_A(ntau=100, nrho=10000):
+    """A(tau) of the UV shotnoise, Eq. 19 of Gontcho A Gontcho et al.
+    (1404.7425), on the host (vega_tpu/correlation_func.py:419-433):
+    (tau, A) on 100 points of [0.01, 5]."""
+    tau = np.linspace(0.01, 5, ntau)
+    rho = np.linspace(0.0001, 10, nrho)
+    drho = rho[1] - rho[0]
+    a_vals = np.zeros(tau.size)
+    for i, t in enumerate(tau):
+        a_vals[i] = -np.sum(
+            drho * np.exp(-rho) / rho * (
+                expn(1, rho * np.sqrt(1 + (t / rho) ** 2))
+                - expn(1, rho * np.abs(1 - t / rho))))
+    return tau, a_vals
 
 
 def compute_growth_old(z_grid, z_fid, Omega_m, Omega_de):
@@ -59,7 +81,7 @@ class CorrelationFunction:
 
     def __init__(self, config, fiducial, coordinates, scale_params,
                  tracer1, tracer2, device, metal_corr=False,
-                 dtype=torch.float64):
+                 dtype=torch.float64, cosmo=None):
         self.device = torch.device(device)
         self.dtype = dtype
         self._config = config
@@ -72,21 +94,37 @@ class CorrelationFunction:
         self._scale_params = scale_params
         # a metal correlation: ap = at = 1 unless metal-scaling
         self._metal_corr = metal_corr
+        self._multipole = config.getint('single_multipole', -1)
 
-        for option, feature in (
-                ('relativistic correction', 'Relativistic correction'),
-                ('standard asymmetry', 'Standard asymmetry'),
-                ('UVB-shotnoise', 'UV shotnoise')):
-            if config.getboolean(option, False):
-                raise not_ported(feature, 4)
-        if config.getint('single_multipole', -1) >= 0:
-            raise not_ported('single_multipole', 4)
-        if (config.getboolean('new-bias-evolution', False)
-                and tracer1['type'] != tracer2['type']):
-            raise not_ported('new-bias-evolution', 4)
-        for name in (tracer1['name'], tracer2['name']):
-            if 'croom' in self._evol_model(name):
-                raise not_ported('Croom bias evolution', 4)
+        # relativistic effects and standard asymmetry
+        # (vega_tpu/correlation_func.py:73-81)
+        self.relativistic_flag = config.getboolean('relativistic correction',
+                                                   False)
+        self.asymmetry_flag = config.getboolean('standard asymmetry', False)
+        if self.relativistic_flag or self.asymmetry_flag:
+            types = [tracer1['type'], tracer2['type']]
+            if ('continuous' not in types) or (types[0] == types[1]):
+                raise ValueError('Relativistic effects and standard '
+                                 'asymmetry only work for the cross')
+        # the UV shotnoise's A(tau) table (vega_tpu/correlation_func.py:
+        # 83-89), interpolated on the device
+        self.uv_shotnoise_flag = config.getboolean('UVB-shotnoise', False)
+        self._uv_table = None
+        if self.uv_shotnoise_flag:
+            self._uv_table = tuple(to_tensor(a, self.device, dtype)
+                                   for a in compute_shotnoise_A())
+        self._croom = {name: 'croom' in self._evol_model(name)
+                       for name in (tracer1['name'], tracer2['name'])}
+        for feature, on in (
+                ('relativistic correction', self.relativistic_flag),
+                ('standard asymmetry', self.asymmetry_flag),
+                ('UVB-shotnoise', self.uv_shotnoise_flag),
+                ('single_multipole', self._multipole >= 0),
+                ('new-bias-evolution',
+                 config.getboolean('new-bias-evolution', False)),
+                ('Croom bias evolution', any(self._croom.values()))):
+            if on:
+                refuse_f32(dtype, feature)
 
         # QSO radiation (vega_tpu/correlation_func.py:66-71)
         self.radiation_flag = config.getboolean('radiation effects', False)
@@ -126,13 +164,41 @@ class CorrelationFunction:
             growth = (growth_function(self._z, omega_m, omega_de)
                       / growth_function(z_fid, omega_m, omega_de)) ** 2
         # mean relative z-evolution (vega_tpu/correlation_func.py:229)
-        rel_z_evol = (1. + np.asarray(self._z)) / (1 + fiducial['z_eff'])
+        self._z_eff = fiducial['z_eff']
+        self._z_t = to_tensor(self._z, self.device, dtype)
+        rel_z_evol = (1. + np.asarray(self._z)) / (1 + self._z_eff)
         self.set_constants(xi_growth=growth, rel_z_evol=rel_z_evol)
+        self._init_split_evol(config, cosmo)
 
     def set_constants(self, xi_growth, rel_z_evol):
         """Install the host growth and z-evolution arrays as tensors."""
         self.xi_growth = to_tensor(xi_growth, self.device, self.dtype)
         self._rel_z_evol = to_tensor(rel_z_evol, self.device, self.dtype)
+
+    def _init_split_evol(self, config, cosmo):
+        """The split ("new") bias evolution of a cross
+        (vega_tpu/correlation_func.py:226-248): the quasar's and the
+        forest's redshifts z -/+ rp / (2 D_H(z)) in the data file's
+        cosmology, each tracer's relative evolution at its own. Without a
+        cosmology the mean evolution serves, with vega_tpu's warning."""
+        self._split_evol = None
+        kinds = (self._tracer1['type'], self._tracer2['type'])
+        if (not config.getboolean('new-bias-evolution', False)
+                or kinds[0] == kinds[1]):
+            return
+        if cosmo is None:
+            print('Warning: No cosmology found in xcf files, '
+                  'using mean redshift evolution.')
+            return
+        z = np.asarray(self._z)
+        rp = self._r.cpu().numpy() * self._mu.cpu().numpy()
+        dist_hubble = cosmo.get_dist_hubble(z)
+        z_q = z - rp / (2 * dist_hubble)
+        z_f = z + rp / (2 * dist_hubble)
+        self._split_evol = tuple(
+            to_tensor((1. + (z_q if kind == 'discrete' else z_f))
+                      / (1 + self._z_eff), self.device, self.dtype)
+            for kind in kinds)
 
     def _evol_model(self, tracer_name):
         handle_name = f'z evol {tracer_name}'
@@ -142,13 +208,17 @@ class CorrelationFunction:
 
     # ------------------------------------------------------------------
     def compute(self, pk, pktoxi_obj, params, use_kernel=True,
-                sampling=None):
+                sampling=None, pk_lin=None):
         """xi model for the input P(k); returns (xi, bad_flag)
-        (vega_tpu/correlation_func.py:97-151). A FactoredXi from the
+        (vega_tpu/correlation_func.py:97-171). A FactoredXi from the
         transform stays factored unless the z-evolution read a sampled
         name (`sampling`), which densifies it first. The QSO radiation
         (smooth component only) is a term of its own whose coefficient
-        is its strength, unless its shape read a sampled name."""
+        is its strength, unless its shape read a sampled name. The
+        relativistic and asymmetry terms read the (n_k,) linear spectrum
+        `pk_lin` and densify the model; the UV shotnoise (both
+        components) is a term whose coefficient is b_gamma^2 times its
+        amplitude unless lambda_uv is sampled."""
         xi, rescaled_r, rescaled_mu, bad = self.compute_core(
             pk, pktoxi_obj, params, use_kernel, sampling)
         rec = RecordingParams(params, sampling)
@@ -180,7 +250,76 @@ class CorrelationFunction:
             else:
                 xi = xi + self.compute_qso_radiation(params, rescaled_r,
                                                      rescaled_mu)
+
+        for on, term in ((self.relativistic_flag,
+                          pktoxi_obj.pk_to_xi_relativistic),
+                         (self.asymmetry_flag, pktoxi_obj.pk_to_xi_asymmetry)):
+            if on:
+                xi = densify(xi) + self._legacy_term(term, pk_lin, params,
+                                                     use_kernel)
+
+        if self.uv_shotnoise_flag:
+            if isinstance(xi, FactoredXi) and not sampling.traced(
+                    'lambda_uv'):
+                lam = params['lambda_uv']
+                xi = xi.add_vec(self._uv_shotnoise_shape(
+                    lam, rescaled_r, rescaled_mu),
+                    coeff=self._uv_shotnoise_amp(params))
+            else:
+                xi = densify(xi) + self.compute_uv_shotnoise(
+                    params, rescaled_r, rescaled_mu)
         return xi, bad
+
+    def _legacy_term(self, term, pk_lin, params, use_kernel):
+        """The relativistic or asymmetry term at the coordinates rescaled
+        without the correlation's own ap / at names
+        (vega_tpu/correlation_func.py:365-390 call get_ap_at without
+        corr_name)."""
+        delta_rp = params.get(self._delta_rp_name, 0.)
+        ap, at = self._scale_params.get_ap_at(params,
+                                              metal_corr=self._metal_corr)
+        rescaled_r, rescaled_mu = self._rescale_coords(
+            self._r, self._mu, col(ap, 1), col(at, 1), col(delta_rp, 1))
+        return term(rescaled_r, rescaled_mu, pk_lin, params, use_kernel)
+
+    def shotnoise_coefficients(self, params):
+        """The coefficient of the term `compute` appends to each
+        component's factored transform for the UV shotnoise: [b_gamma^2
+        uv_shotnoise_amp], or []."""
+        return ([self._uv_shotnoise_amp(params)] if self.uv_shotnoise_flag
+                else [])
+
+    @staticmethod
+    def _uv_shotnoise_amp(params):
+        """bias_gamma^2 (or bias_gamma_e^2) x uv_shotnoise_amp."""
+        if 'bias_gamma' in params:
+            bias_gamma = params['bias_gamma']
+        elif 'bias_gamma_e' in params:
+            bias_gamma = params['bias_gamma_e']
+        else:
+            raise ValueError('UV shotnoise requested but bias_gamma or '
+                             'bias_gamma_e is not in the parameters.')
+        return bias_gamma ** 2 * params['uv_shotnoise_amp']
+
+    def _uv_shotnoise_shape(self, lam, rescaled_r, rescaled_mu):
+        """lambda / r A(r / lambda) at the data's r, or with
+        rescale-coords-systematics at sqrt(r'^2 + mu'^2) of the rescaled
+        coordinates (vega_tpu/correlation_func.py:437-454); A read
+        linearly off its table, A[0] below it and 0 above."""
+        if self._rescale_coords_systematics:
+            r = torch.sqrt(rescaled_r ** 2 + rescaled_mu ** 2)
+        else:
+            r = self._r
+        lam = col(lam, 1)
+        tau, a_vals = self._uv_table
+        return lam / r * interp(r / lam, tau, a_vals, left=a_vals[0],
+                                right=0.)
+
+    def compute_uv_shotnoise(self, params, rescaled_r, rescaled_mu):
+        """The UV shotnoise term (vega_tpu/correlation_func.py:437-454)."""
+        return col(self._uv_shotnoise_amp(params), 1) * \
+            self._uv_shotnoise_shape(params['lambda_uv'], rescaled_r,
+                                     rescaled_mu)
 
     def radiation_coefficients(self, params):
         """The coefficient of the term `compute` appends to the smooth
@@ -203,7 +342,8 @@ class CorrelationFunction:
             self._r, self._mu, col(ap, 1), col(at, 1), col(delta_rp, 1))
         xi, bad = pktoxi_obj.compute(rescaled_r, rescaled_mu, pk,
                                      use_kernel=use_kernel,
-                                     coords_param_free=not rec.traced())
+                                     coords_param_free=not rec.traced(),
+                                     single_ell=self._multipole)
         return xi, rescaled_r, rescaled_mu, bad
 
     @staticmethod
@@ -223,11 +363,34 @@ class CorrelationFunction:
         return torch.where(pos, rescaled_r, 0.0), rescaled_mu
 
     def compute_bias_evol(self, params):
-        """(1+z)^alpha power laws of both tracers
-        (vega_tpu/correlation_func.py:250-276)."""
-        rel = self._rel_z_evol
-        evol = rel ** col(params[f'alpha_{self._tracer1["name"]}'], 1)
-        return evol * rel ** col(params[f'alpha_{self._tracer2["name"]}'], 1)
+        """The product of both tracers' bias evolutions
+        (vega_tpu/correlation_func.py:250-290): Croom's QSO model where
+        the tracer's `z evol` names it, else the (1+z)^alpha power law of
+        the mean redshift, or of each tracer's own with the split
+        evolution."""
+        rels = self._split_evol or (self._rel_z_evol, self._rel_z_evol)
+        evol = None
+        for tracer, rel in zip((self._tracer1, self._tracer2), rels):
+            name = tracer['name']
+            if self._croom[name]:
+                if self._split_evol is not None:
+                    raise AssertionError(
+                        'Croom model is not supported with new bias evol')
+                factor = self._bias_evol_croom(params, name)
+            else:
+                factor = rel ** col(params[f'alpha_{name}'], 1)
+            evol = factor if evol is None else evol * factor
+        return evol
+
+    def _bias_evol_croom(self, params, tracer_name):
+        """Croom et al. 2005's QSO bias evolution
+        (vega_tpu/correlation_func.py:280-288)."""
+        if tracer_name != 'QSO':
+            raise AssertionError('the Croom model is a QSO model')
+        p0 = col(params['croom_par0'], 1)
+        p1 = col(params['croom_par1'], 1)
+        return ((p0 + p1 * (1. + self._z_t) ** 2)
+                / (p0 + p1 * (1 + self._z_eff) ** 2))
 
     # ------------------------------------------------------------------
     # Additive terms

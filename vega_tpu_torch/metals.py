@@ -168,7 +168,8 @@ class Metals:
             self.PktoXi[corr_hash] = shared_pktoxi
             self.Xi_metal[corr_hash] = corr_func.CorrelationFunction(
                 config['metals'], fiducial, metal_coordinates, scale_params,
-                tracer1, tracer2, metal_corr=True, device=self.device)
+                tracer1, tracer2, metal_corr=True, device=self.device,
+                cosmo=self.cosmo)
 
         if self.new_metals:
             print(f'INFO: {corr_item.name}: {len(self._metal_mats)} '
@@ -208,6 +209,10 @@ class Metals:
         # parameters)
         if (self.save_components or self._scale_params.metal_scaling
                 or self.rp_only_metal_mats):
+            return None
+        # Croom's evolution is a per-tracer branch (:170-172)
+        if any(key.startswith('z evol') and 'croom' in metals_config[key]
+               for key in metals_config):
             return None
 
         has_arinyo = ('small scale nl' in metals_config
@@ -580,7 +585,7 @@ class Metals:
         pk, bad_pk = self.Pk_metal[corr_hash].compute(
             pk_lin, pars, fast_metals=fast_metals)
         xi, bad_xi = self.Xi_metal[corr_hash].compute(
-            pk, self.PktoXi[corr_hash], pars, use_kernel)
+            pk, self.PktoXi[corr_hash], pars, use_kernel, pk_lin=pk_lin)
         # Cross-metal symmetry in autos (reference: metals.py:237-239)
         if self.is_auto_correlation and corr_hash[0] != corr_hash[1]:
             xi = xi * 2

@@ -85,7 +85,7 @@ class Model:
         self.Xi_core = corr_func.CorrelationFunction(
             corr_item.config['model'], fiducial, corr_item.model_coordinates,
             scale_params, corr_item.tracer1, corr_item.tracer2,
-            device=self.device, dtype=dtype)
+            device=self.device, dtype=dtype, cosmo=corr_item.cosmo)
 
         # DESI instrumental systematics: amplitude x a template built
         # once on the host (vega_tpu/model.py:84-86)
@@ -123,7 +123,7 @@ class Model:
         this component's linear spectrum `pk_lin`. With `component`
         ('peak' or 'smooth') its components are saved."""
         xi_model, bad = self.Xi_core.compute(pk_model, self.PktoXi, pars,
-                                             use_kernel, sampling)
+                                             use_kernel, sampling, pk_lin)
         if component is not None:
             self.pk[component]['core'] = host_row(pk_model, 2)
             self.xi[component]['core'] = host_row(xi_model, 1)
@@ -270,18 +270,22 @@ class Model:
     def coefficients(self, pars, n_rows):
         """The coefficient part of the factored model: (n_rows, T), the
         peak's terms times bao_amp, then the smooth's, as `compute`
-        orders them: each component's HCD-merged Kaiser coefficients,
-        the QSO radiation's strength (smooth), the metals' weight x (1,
+        orders them: each component's HCD- and UV-merged Kaiser
+        coefficients, the QSO radiation's strength (smooth), the UV
+        shotnoise's b_gamma^2 amplitude, the metals' weight x (1,
         b1 + b2, b1 b2) per pair (the smooth's alone with
         no-metal-decomp, both without), the instrumental systematics'
         amplitude (smooth), each component's additive broadband
         coefficients before, then after, the distortion. Reads only
         scalars and (B,) tensors."""
         kaiser = self.Pk_core.kaiser_coefficients(pars)
+        shotnoise = self.Xi_core.shotnoise_coefficients(pars)
         metal = [] if self.metals is None else self.metals.coefficients(pars)
-        peak = kaiser if self.metals is None or self.no_metal_decomp \
-            else kaiser + metal
-        smooth = kaiser + self.Xi_core.radiation_coefficients(pars) + metal
+        peak = kaiser + shotnoise
+        if self.metals is not None and not self.no_metal_decomp:
+            peak = peak + metal
+        smooth = (kaiser + self.Xi_core.radiation_coefficients(pars)
+                  + shotnoise + metal)
         if self._inst_sys_template is not None:
             smooth.append(self._inst_sys_term(pars)[0])
         if self.broadband is not None:

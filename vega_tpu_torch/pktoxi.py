@@ -20,6 +20,17 @@ ones (`hamilton_operators`, vega_tpu/pktoxi.py:68-110) on their own knot
 grid, log r - dr/2 with the last knot's row zero, and their own spline
 operators; step 3 is the same kernel on that grid.
 
+With fht_extrap (mcfit's extrap=True) the operators act on the k grid
+continued into mcfit's padding and each multipole is continued as a
+power law before step 2 (`extrap_operators`, `extrap_pad`), on that
+transform's own knot grid. With single_multipole step 3 combines that
+multipole's table alone with a weight of 1. The relativistic and
+standard-asymmetry terms of the cross (`pk_to_xi_relativistic`,
+`pk_to_xi_asymmetry`, vega_tpu/pktoxi.py:367-418) transform the raw
+linear spectrum with the legacy operators at ell = (1, 3) and (0, 2)
+and run step 3 as one combine of two tables on the legacy knot grid,
+their amplitudes folded into the tables.
+
 A FactoredPk (vega_tpu/pktoxi.py:295-324) takes steps 1-2 once for its T
 basis grids, whatever the coordinates: (T, n_muk, n_k) -> (T, L, n_k)
 knot tables, kept on the FactoredPk. When the rescaled coordinates do
@@ -39,11 +50,11 @@ from numpy import fft as npfft
 from scipy.special import loggamma
 
 from .factored import FactoredXi, stack_coefficients
-from .ops.fftlog import FFTLogP2Xi
+from .ops.fftlog import FFTLogP2Xi, default_pad_size
 from .ops.spline import notaknot_second_derivative_matrix
 from .ops.spline_combine import KnotGrid, spline_legendre_combine
 from .power_spectrum import FactoredPk
-from .utils import not_ported, refuse_f32, to_tensor
+from .utils import col, refuse_f32, to_tensor
 
 # scipy.special.legendre(ell) monomial coefficients (poly1d order,
 # highest power first); exact binary fractions, so Horner evaluation
@@ -101,6 +112,56 @@ def hamilton_operators(k, ell_vals, n_exp, project_scale):
     return np.stack(ops), np.log(r_sorted) - dr / 2
 
 
+def extrap_operators(k, ell_vals, lowring):
+    """The transform of fht_extrap (mcfit's extrap=True;
+    vega_tpu/pktoxi.py:205-236): each multipole's FFTLog operator on the
+    k grid continued geometrically into mcfit's padding (n_fft, the same
+    centred split as the zero-padded transform), its rows sliced back to
+    the r grid of the unpadded one. Returns (ops (n_ell, n, n_fft),
+    logr_knots (n,), (pad_l, pad_r))."""
+    k = np.asarray(k, dtype=np.float64)
+    n = len(k)
+    n_fft = default_pad_size(n)
+    delta = np.log(k[-1] / k[0]) / (n - 1)
+    pad_l = (n_fft - n) // 2
+    pad_r = n_fft - n - pad_l
+    k_full = np.concatenate([
+        k[0] * np.exp(-delta * np.arange(pad_l, 0, -1)),
+        k,
+        k[-1] * np.exp(delta * np.arange(1, pad_r + 1)),
+    ])
+    ops = []
+    logr = None
+    for ell in ell_vals:
+        tr = FFTLogP2Xi(k_full, ell, lowring=lowring, pad_to=0)
+        # r_i = e^lnxy / k[n - 1 - i] sits at extended index pad_r + i
+        ops.append(tr.operator()[pad_r:pad_r + n, :])
+        if logr is None:
+            logr = np.log(tr.r_grid[pad_r:pad_r + n])
+    return np.stack(ops), logr, (pad_l, pad_r)
+
+
+def extrap_pad(pk_ells, pad_l, pad_r):
+    """Power-law continuation of each multipole (..., n) into the
+    padding, (..., pad_l + n + pad_r) (vega_tpu/pktoxi.py:238-262): f_edge
+    rho^step with rho = |f_edge / f_inward| outward from each end; an end
+    that is zero or changes sign pads with zeros."""
+    def continuation(f_edge, f_inward, steps):
+        safe = f_edge * f_inward > 0
+        rho = torch.where(safe, torch.abs(f_edge / torch.where(
+            f_inward == 0, 1.0, f_inward)), 1.0)
+        vals = f_edge[..., None] * rho[..., None] ** steps
+        return torch.where(safe[..., None], vals, 0.0)
+
+    steps = torch.arange(pad_l + pad_r + 1, dtype=pk_ells.dtype,
+                         device=pk_ells.device)
+    left = continuation(pk_ells[..., 0], pk_ells[..., 1],
+                        steps[1:pad_l + 1].flip(0))
+    right = continuation(pk_ells[..., -1], pk_ells[..., -2],
+                         steps[1:pad_r + 1])
+    return torch.cat([left, pk_ells, right], dim=-1)
+
+
 def legendre(ell, x):
     """P_ell(x) by Horner's rule on the monomial coefficients."""
     coeffs = LEGENDRE_COEFFS[ell]
@@ -123,10 +184,14 @@ class PktoXi:
 
         self.ell_max = config.getint('ell_max', 6)
         self.old_fftlog = config.getboolean('old_fftlog', False)
-        if config.getboolean('fht_extrap', False) and not self.old_fftlog:
-            raise not_ported('fht_extrap', 4)
-        if self.old_fftlog:
-            refuse_f32(dtype, 'old_fftlog')
+        # mcfit's extrap=True: operators on the extended k grid and a
+        # power-law continuation of each multipole (old_fftlog wins)
+        extrap = (config.getboolean('fht_extrap', False)
+                  and not self.old_fftlog)
+        for feature, on in (('old_fftlog', self.old_fftlog),
+                            ('fht_extrap', extrap)):
+            if on:
+                refuse_f32(dtype, feature)
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
                               np.arange(0, self.ell_max + 1, 2))
@@ -139,9 +204,13 @@ class PktoXi:
             for ell in self.ell_vals
         ])                                                  # (n_ell, n_muk)
 
+        self._extrap_geom = None
         if self.old_fftlog:
             ops, logr = hamilton_operators(self.k_grid, self.ell_vals,
                                            n_exp=2, project_scale=True)
+        elif extrap:
+            ops, logr, self._extrap_geom = extrap_operators(
+                self.k_grid, self.ell_vals, lowring)
         else:
             fftlogs = [FFTLogP2Xi(self.k_grid, ell, lowring=lowring)
                        for ell in self.ell_vals]
@@ -154,6 +223,9 @@ class PktoXi:
         sd_ops = np.matmul(s_mat, ops)
         self.set_constants(legendre_proj=legendre_proj, fft_ops=ops,
                            fft_sd_ops=sd_ops, logr_knots=logr)
+        # the legacy operators of the relativistic and asymmetry terms,
+        # built at their first use (vega_tpu/pktoxi.py:399-409)
+        self._legacy = {}
 
     @classmethod
     def init_from_Pk(cls, pk, config):
@@ -184,9 +256,15 @@ class PktoXi:
         return pk.knots
 
     def compute(self, r_grid, mu_grid, pk, use_kernel=True,
-                coords_param_free=False):
+                coords_param_free=False, single_ell=-1):
         """Transform to xi on the rescaled (r, mu) grids; returns
-        (xi, oob_flag) (vega_tpu/pktoxi.py:271-363).
+        (xi, oob_flag) (vega_tpu/pktoxi.py:271-363). With `single_ell` >= 0
+        (single_multipole) xi is that multipole alone, without its
+        Legendre weight: the combine of its one table with a weight of 1,
+        and a FactoredPk is contracted first (vega_tpu/pktoxi.py:308,
+        338-343). fht_extrap densifies a FactoredPk (its continuation is
+        not linear in P) and continues each multipole into the padding
+        before the transform.
 
         pk : (n_muk, n_k), (B, n_muk, n_k) or a FactoredPk
         r_grid, mu_grid : (M,) or (B, M)
@@ -197,11 +275,18 @@ class PktoXi:
         """
         mask = r_grid != 0
         log_r = torch.log(torch.where(mask, r_grid, 1.0))
-        legendre_mu = torch.stack([legendre(ell, mu_grid)
-                                   for ell in self.ell_vals], dim=-2)
+        if isinstance(pk, FactoredPk) and self._extrap_geom is not None:
+            pk = pk.dense()
+        if single_ell < 0:
+            legendre_mu = torch.stack([legendre(ell, mu_grid)
+                                       for ell in self.ell_vals], dim=-2)
+        else:
+            li = list(self.ell_vals).index(int(single_ell))
+            legendre_mu = torch.ones((1, 1, log_r.shape[-1]),
+                                     dtype=log_r.dtype, device=log_r.device)
         if isinstance(pk, FactoredPk):
             knots_t, mknots_t = self.factored_knots(pk)
-            if coords_param_free:
+            if coords_param_free and single_ell < 0:
                 return self._factored_rows(pk, knots_t, mknots_t, log_r,
                                            legendre_mu, mask, use_kernel)
             theta = stack_coefficients(pk.coeffs, knots_t).reshape(
@@ -212,10 +297,15 @@ class PktoXi:
             pk_ells = torch.matmul(self.legendre_proj, pk)   # (.., L, n_k)
             if pk_ells.dim() == 2:
                 pk_ells = pk_ells[None]
+            if self._extrap_geom is not None:
+                pk_ells = extrap_pad(pk_ells, *self._extrap_geom)
             # FFTLog and spline solve: one f64 GEMM per multipole
             xi_knots = torch.einsum('lij,blj->bli', self.fft_ops, pk_ells)
             m_knots = torch.einsum('lij,blj->bli', self.fft_sd_ops, pk_ells)
 
+        if single_ell >= 0:
+            xi_knots = xi_knots[:, li:li + 1]
+            m_knots = m_knots[:, li:li + 1]
         n_b = max(xi_knots.shape[0],
                   log_r.shape[0] if log_r.dim() == 2 else 1)
         n_q = log_r.shape[-1]
@@ -227,6 +317,78 @@ class PktoXi:
             use_kernel=use_kernel)
         xi = torch.where(mask, xi, 0.0)
         return xi, self._oob(log_r, mask).expand(n_b)
+
+    # ------------------------------------------------------------------
+    # The relativistic and standard-asymmetry terms of the cross
+    # (vega_tpu/pktoxi.py:367-418): legacy Hamilton operators on the raw
+    # linear spectrum, each term one combine of two tables on the legacy
+    # knot grid, the amplitudes folded into the tables
+    # ------------------------------------------------------------------
+    def legacy_operators(self, ell_vals, n_exp):
+        """(knot grid, ops, sd_ops) of the legacy transform of the raw
+        spectrum at `ell_vals` with k^n_exp, built once
+        (vega_tpu/pktoxi.py:399-409)."""
+        key = (ell_vals, n_exp)
+        if key not in self._legacy:
+            ops, logr = hamilton_operators(self.k_grid, ell_vals, n_exp,
+                                           project_scale=False)
+            sd_ops = np.matmul(notaknot_second_derivative_matrix(logr), ops)
+            self._legacy[key] = (
+                KnotGrid.build(logr, self.device, self.dtype),
+                to_tensor(ops, self.device, self.dtype),
+                to_tensor(sd_ops, self.device, self.dtype))
+        return self._legacy[key]
+
+    def _legacy_combine(self, pk, ell_vals, n_exp, rows, r_grid, leg,
+                        use_kernel):
+        """sum_j S_j(log r) leg[j] with the tables y_j = sum c K_i over the
+        (c, i) of rows[j], K = ops @ pk the legacy multipoles of the (n_k,)
+        spectrum, c a float or a (B,) tensor; leg (2, M) or (B, 2, M).
+        r = 0 reads log 1, unmasked, as vega_tpu's `_legacy_eval`
+        (:380-386)."""
+        grid, ops, sd_ops = self.legacy_operators(ell_vals, n_exp)
+
+        def tables(k):                                   # (B', 2, N)
+            out = []
+            for row in rows:
+                t = None
+                for c, i in row:
+                    term = col(c, 1) * k[i]
+                    t = term if t is None else t + term
+                out.append(t.reshape(-1, k.shape[-1]))
+            return torch.stack(torch.broadcast_tensors(*out), dim=-2)
+
+        y, m = tables(ops @ pk), tables(sd_ops @ pk)
+        log_r = torch.log(torch.where(r_grid != 0, r_grid, 1.0))
+        n_b = max(y.shape[0], log_r.shape[0] if log_r.dim() == 2 else 1)
+        n_q = log_r.shape[-1]
+        return spline_legendre_combine(
+            grid, y.expand(n_b, -1, -1).contiguous(),
+            m.expand(n_b, -1, -1).contiguous(), log_r.expand(n_b, n_q),
+            leg.expand(n_b, -1, n_q), use_kernel=use_kernel)
+
+    def pk_to_xi_relativistic(self, r_grid, mu_grid, pk, params,
+                              use_kernel=True):
+        """Relativistic dipole and octupole (Bonvin et al. 2014;
+        vega_tpu/pktoxi.py:388-395): Arel1 S_1(log r) P_1(mu) + Arel3
+        S_3(log r) P_3(mu), S_l the legacy l-transform of pk with k^1."""
+        leg = torch.stack([legendre(1, mu_grid), legendre(3, mu_grid)],
+                          dim=-2)
+        return self._legacy_combine(
+            pk, (1, 3), 1, ([(params['Arel1'], 0)], [(params['Arel3'], 1)]),
+            r_grid, leg, use_kernel)
+
+    def pk_to_xi_asymmetry(self, r_grid, mu_grid, pk, params,
+                           use_kernel=True):
+        """Standard asymmetry (Bonvin et al. 2014;
+        vega_tpu/pktoxi.py:397-405): (Aasy0 S_0 - Aasy2 S_2) r P_1(mu) +
+        Aasy3 S_2 r P_3(mu), S_l the legacy l-transform of pk with k^2."""
+        leg = torch.stack([r_grid * legendre(1, mu_grid),
+                           r_grid * legendre(3, mu_grid)], dim=-2)
+        return self._legacy_combine(
+            pk, (0, 2), 2, ([(params['Aasy0'], 0), (-params['Aasy2'], 1)],
+                            [(params['Aasy3'], 1)]),
+            r_grid, leg, use_kernel)
 
     def _oob(self, log_r, mask):
         """(B',) out-of-range flag of (M,) or (B', M) coordinates."""

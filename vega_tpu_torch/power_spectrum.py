@@ -11,8 +11,9 @@ velocity dispersion, the BAO peak broadening, the HCD effective biases
 (Rogers, fvoigt, sinc), the small-scale non-linear terms (Arinyo,
 McDonald), the full-shape smoothing (gauss, gauss_iso, exp; left out of
 the peak with the NL term under `skip-nl-model-in-peak`) and the
-division-free Kaiser polynomial. UV fluctuations and HeII reionization
-raise NotImplementedError naming their ROADMAP.md item.
+division-free Kaiser polynomial with the UV background fluctuations and
+HeII reionization shifts of the LYA bias (`UVB-fluctuations`,
+`HeII-reionization`).
 
 Parameters arrive as a dict of Python floats and (B,) tensors; a factor
 that reads only floats stays an unbatched (mu_k, k) grid, and a factor
@@ -33,7 +34,7 @@ import torch
 
 from . import utils
 from .factored import RecordingParams
-from .utils import col, not_ported, refuse_f32, to_tensor
+from .utils import col, refuse_f32, to_tensor
 
 
 class FactoredPk:
@@ -113,10 +114,8 @@ class PowerSpectrum:
             'skip-nl-model-in-peak', False)
         self.pk_damping_scale = config.getfloat('pk-damping-scale', None)
         self.pk_damping_power = config.getint('pk-damping-power', 2)
-        for option, feature in (('UVB-fluctuations', 'UV fluctuations'),
-                                ('HeII-reionization', 'HeII reionization')):
-            if config.getboolean(option, False):
-                raise not_ported(feature, 4)
+        self._add_uvb = config.getboolean('UVB-fluctuations', False)
+        self._add_heii = config.getboolean('HeII-reionization', False)
         self.fullshape_smoothing = config.get('fullshape smoothing', None)
         self.velocity_dispersion = config.get('velocity dispersion', None)
         self.mock_bin_size = config.getfloat('mock-bin-size', None)
@@ -144,7 +143,9 @@ class PowerSpectrum:
                  or self.mock_los_smoothing is not None),
                 ('Pk damping', self.pk_damping_scale is not None),
                 (f'velocity dispersion = {self.velocity_dispersion}',
-                 self.velocity_dispersion not in (None, 'lorentz'))):
+                 self.velocity_dispersion not in (None, 'lorentz')),
+                ('UVB-fluctuations', self._add_uvb),
+                ('HeII-reionization', self._add_heii)):
             if on:
                 refuse_f32(dtype, feature)
 
@@ -321,13 +322,21 @@ class PowerSpectrum:
         correlations' unrolled path), the factors in `_shared_factor`'s
         order: Kaiser, small-scale NL, G(k), mock binning, full-shape
         smoothing, velocity dispersion, Pk damping, then the peak
-        broadening. fast_metals leaves the bias product out of the
-        Kaiser term; skip-nl-model-in-peak leaves the NL term and the
+        broadening; the UV / HeII and then the HCD effective biases of a
+        LYA tracer enter the Kaiser term. fast_metals leaves the bias
+        product out of the Kaiser term; skip-nl-model-in-peak leaves the NL term and the
         smoothing out of the peak component."""
         peak = bool(params['peak'])
         skip_nl = self.skip_nl_model_in_peak and peak
         bias1, beta1, bias2, beta2 = utils.bias_beta(
             params, self.tracer1_name, self.tracer2_name)
+        if self._add_uvb or self._add_heii:
+            if self.tracer1_name == 'LYA':
+                bias1, beta1 = self.compute_bias_beta_uv_heii(bias1, beta1,
+                                                              params)
+            if self.tracer2_name == 'LYA':
+                bias2, beta2 = self.compute_bias_beta_uv_heii(bias2, beta2,
+                                                              params)
         if self.hcd_model is not None:
             if self.tracer1_name == 'LYA':
                 bias1, beta1 = self.compute_bias_beta_hcd(bias1, beta1,
@@ -405,12 +414,26 @@ class PowerSpectrum:
 
     def _tracer_poly_terms(self, params, name, bias, beta, sampling=None):
         """One tracer's Kaiser polynomial b_eff + bb_eff mu_k^2 as
-        [(coeff, key, mupow)], key 'one' or 'hcd' naming a grid that no
-        sampled parameter shapes (vega_tpu/power_spectrum.py:325-362; the
-        UV keys are not ported, those models raise at init). None when a
-        parameter that shapes the HCD profile is sampled."""
+        [(coeff, key, mupow)], key 'one', 'hcd' or ('uv', lambda, b_prim)
+        naming a grid that no sampled parameter shapes
+        (vega_tpu/power_spectrum.py:325-362): the UV and HeII terms shift
+        b_eff alone, with coefficients bias_gamma and bias_gamma_e. None
+        when a parameter that shapes the HCD profile or a UV / HeII grid
+        is sampled (a grid parameter among them)."""
         b_terms = [(bias, 'one')]
         bb_terms = [(bias * beta, 'one')]
+        if name == 'LYA':
+            for on, lam_name, gamma_name in (
+                    (self._add_uvb, 'lambda_uv', 'bias_gamma'),
+                    (self._add_heii, 'lambda_HeII', 'bias_gamma_e')):
+                if not on:
+                    continue
+                if sampling is not None and (
+                        lam_name in sampling.sampled
+                        or 'bias_prim' in sampling.sampled):
+                    return None
+                b_terms.append((params[gamma_name],
+                                ('uv', params[lam_name], params['bias_prim'])))
         if self.hcd_model is not None and name == 'LYA':
             if sampling is not None and any(
                     key in sampling.sampled for key in self.HCD_SHAPE_PARAMS):
@@ -456,10 +479,22 @@ class PowerSpectrum:
         for k1, k2, mupow in keys:
             grid = self._mu_pow_grids[mupow] if mupow else None
             for k in (k1, k2):
-                if k == 'hcd':
-                    grid = hcd if grid is None else grid * hcd
+                g = hcd if k == 'hcd' else (
+                    self._uv_basis_grid(*k[1:]) if isinstance(k, tuple)
+                    else None)
+                if g is not None:
+                    grid = g if grid is None else grid * g
             grids.append(self._mu_pow_grids[0] if grid is None else grid)
         return grids
+
+    def _uv_basis_grid(self, lam, b_prim):
+        """w / (1 + b_prim w) with w(k) = arctan(k lambda) / (k lambda)
+        on the (mu_k, k) grid, built on the host in f64 as
+        vega_tpu/power_spectrum.py:370-374 builds it."""
+        w_k = np.arctan(self.k_grid * lam) / (self.k_grid * lam)
+        return to_tensor(w_k / (1 + b_prim * w_k)
+                         * np.ones_like(self.muk_grid), self.device,
+                         self.dtype)
 
     def kaiser_coefficients(self, params):
         """The coefficient part of the factored Kaiser term: floats or
@@ -485,7 +520,12 @@ class PowerSpectrum:
             if polys and name == self.tracer1_name:
                 polys.append(polys[0])
                 continue
-            u = col(bias, 2) + col(bias * beta, 2) * muk2
+            b_eff = col(bias, 2)
+            if (self._add_uvb or self._add_heii) and name == 'LYA':
+                # UV / HeII shift the bias alone: bias * beta is invariant
+                # (vega_tpu/power_spectrum.py:439-442)
+                b_eff = self._uv_heii_bias(bias, params)
+            u = b_eff + col(bias * beta, 2) * muk2
             v = None
             if self.hcd_model is not None and name == 'LYA':
                 bias_hcd, beta_hcd = self._hcd_bias_beta(params)
@@ -513,6 +553,31 @@ class PowerSpectrum:
         if not fast_metals:
             pk = pk * col(bias1 * bias2, 2)
         return pk
+
+    def _uv_heii_bias(self, bias, params):
+        """bias + b_gamma w / (1 + b_prim w), w(k) = arctan(k lambda) /
+        (k lambda), of the UV fluctuations, then + the same term of HeII
+        reionization (b_gamma_e, lambda_HeII), added in
+        vega_tpu/power_spectrum.py:548-563's order: (1, k), or (B, 1, k)
+        for a batched parameter or bias."""
+        k = self._k_t[None, :]
+        bias_eff = col(bias, 2)
+        for on, lam_name, gamma_name in (
+                (self._add_uvb, 'lambda_uv', 'bias_gamma'),
+                (self._add_heii, 'lambda_HeII', 'bias_gamma_e')):
+            if on:
+                lam = col(params[lam_name], 2)
+                w_k = torch.atan(k * lam) / (k * lam)
+                bias_eff = bias_eff + col(params[gamma_name], 2) * w_k / (
+                    1 + col(params['bias_prim'], 2) * w_k)
+        return bias_eff
+
+    def compute_bias_beta_uv_heii(self, bias, beta, params):
+        """UV fluctuations and HeII reionization effective biases
+        (vega_tpu/power_spectrum.py:548-565): `_uv_heii_bias` and
+        beta_eff = beta bias / bias_eff, each (1, k) or (B, 1, k)."""
+        bias_eff = self._uv_heii_bias(bias, params)
+        return bias_eff, col(beta, 2) * col(bias, 2) / bias_eff
 
     def compute_bias_beta_hcd(self, bias, beta, params):
         """HCD effective biases as (mu_k, k) grids

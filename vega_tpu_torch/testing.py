@@ -27,6 +27,7 @@ template).
 from __future__ import annotations
 
 import configparser
+import re
 from pathlib import Path
 
 import numpy as np
@@ -261,6 +262,114 @@ def make_desi_mock_dataset(workdir, size='full', device='cuda', seed=0,
         extra_metals=DESI_MOCK_SMOOTHING_OPTION,
         extra_control=extra_control + priors_section(
             {k: v for k, v in DESI_MOCK_PRIORS.items() if k in sample}))
+
+
+# The reference's own model terms on the DR16-shaped model
+# (synthetic-dr16-uv): the DR16 model of `dr16_extra_model` with the UV
+# background's fluctuations and shot noise in both correlations' [model]
+# sections (the reference's base main.ini turns UVB-fluctuations on in
+# every correlation, tests/tools/variant_configs.py:256-257), and on the
+# cross the relativistic correction, the standard asymmetry and Croom's
+# QSO bias evolution (`qso_z_evol='croom'` of make_synthetic_dataset);
+# the [metals] sections do not set them, so the metals stay stacked.
+# Parameters of vega_tpu/templates/parameter_defaults.ini. Sampled: the
+# DR16 model's eight names and one of each new term's.
+DR16_UV_PARAMETERS = {
+    **DR16_PARAMETERS,
+    'bias_gamma': 0.1125, 'bias_prim': -0.66, 'lambda_uv': 300.,
+    'uv_shotnoise_amp': 0., 'Arel1': -13.5, 'Arel3': 1., 'Aasy0': 1.,
+    'Aasy2': 1., 'Aasy3': 1., 'croom_par0': 0.53, 'croom_par1': 0.289,
+}
+DR16_UV_SAMPLED = ('ap', 'at', 'bias_LYA', 'beta_LYA', 'bias_hcd',
+                   'beta_hcd', 'bias_SiII(1260)', 'bias_SiIII(1207)',
+                   'bias_gamma', 'uv_shotnoise_amp', 'Arel1', 'Aasy0')
+# [sample] entries (lower, upper, start, error): the DR16 names' of
+# tests/tools/make_torch_port_dr16_goldens.py, bias_gamma at
+# default_values.txt's limits, and limits around parameter_defaults.ini's
+# value for the shotnoise amplitude (its default, 0, would be a bound)
+# and the two amplitudes default_values.txt lacks; the starts lie off the
+# truth, for a fit from them
+DR16_UV_SAMPLE = {
+    'ap': '0.5 1.5 1.02 0.02', 'at': '0.5 1.5 0.98 0.03',
+    'bias_LYA': '-1.0 0.0 -0.12 0.01', 'beta_LYA': '0.0 3.0 1.6 0.1',
+    'bias_hcd': '-0.5 0.0 -0.05 0.01', 'beta_hcd': '0.0 5.0 0.7 0.1',
+    'bias_SiII(1260)': '-0.5 0.0 -0.0025 0.001',
+    'bias_SiIII(1207)': '-0.5 0.0 -0.0035 0.001',
+    'bias_gamma': '-1.0 1.0 0.1 0.01',
+    'uv_shotnoise_amp': '-1.0 1.0 0.0005 0.001',
+    'Arel1': '-40.0 20.0 -13.0 1.0', 'Aasy0': '-10.0 10.0 1.2 0.5'}
+
+
+def dr16_uv_extra_model(parameters=None):
+    """The `extra_model` of synthetic-dr16-uv, {'auto', 'cross'}: the
+    DR16 model's options, the UV lines, on the cross the relativistic
+    and asymmetry lines, then the [parameters]
+    (`DR16_UV_PARAMETERS` unless given)."""
+    parameters = DR16_UV_PARAMETERS if parameters is None else parameters
+    uv = 'UVB-fluctuations = True\nUVB-shotnoise = True\n'
+    cross = 'relativistic correction = True\nstandard asymmetry = True\n'
+    return {'auto': uv + dr16_extra_model(parameters),
+            'cross': uv + cross + dr16_extra_model(parameters)}
+
+
+def make_dr16_uv_dataset(workdir, size='full', device='cuda', seed=0,
+                         sample=None, extra_control=''):
+    """synthetic-dr16-uv: `make_synthetic_dataset` with DR16_METALS,
+    `dr16_uv_extra_model()` and Croom's QSO evolution on the cross;
+    `sample` ({name: [sample] entry}) defaults to DR16_UV_SAMPLE.
+    Returns the main ini's path."""
+    sample = DR16_UV_SAMPLE if sample is None else sample
+    return make_synthetic_dataset(
+        workdir, cross=True, size=size, device=device, sample=sample,
+        seed=seed, extra_control=extra_control, metals=DR16_METALS,
+        extra_model=dr16_uv_extra_model(), qso_z_evol='croom')
+
+
+def with_omega_m(path, omega_m):
+    """Rewrite a correlation data file with OMEGAM in its first table's
+    header, the cosmology the split bias evolution and the new-metals
+    matrices read (the header keys the data layer reads are kept)."""
+    from .io.fits import read_fits
+    hdul = read_fits(path)
+    hdus = []
+    for i, hdu in enumerate(hdul[1:]):
+        header = {k: v for k, v in hdu.header.items()
+                  if k in ('RPMIN', 'RPMAX', 'RTMAX', 'NP', 'NT', 'BLINDING')}
+        if i == 0:
+            header['OMEGAM'] = omega_m
+        hdus.append({'name': hdu.name, 'header': header,
+                     'columns': dict(hdu.columns)})
+    write_fits(path, hdus)
+
+
+def dataset_variant(main, workdir, auto='', cross='', parameters='',
+                    auto_metals=True, omega_m=None, qso_z_evol=None):
+    """A copy of a synthetic dataset's files in `workdir` with lines
+    added at the top of each correlation's [model] (`auto`, `cross`) and
+    [parameters] (`parameters`, both), the auto's [metals] section
+    removed (`auto_metals=False`; it must be the ini's last section),
+    OMEGAM written to the cross's data file, or the cross's `z evol QSO`
+    model replaced. Returns the copy's main ini."""
+    import shutil
+    source, workdir = Path(main).parent, Path(workdir)
+    shutil.copytree(source, workdir)
+    for path in workdir.iterdir():
+        if path.suffix != '.ini':
+            continue
+        text = path.read_text().replace(str(source), str(workdir))
+        line = {'lyaxlya': auto, 'qsoxlya': cross}.get(path.stem)
+        if line is not None:
+            text = text.replace('[model]\n', f'[model]\n{line}', 1)
+            text = text.replace('[parameters]\n',
+                                f'[parameters]\n{parameters}', 1)
+            if path.stem == 'lyaxlya' and not auto_metals:
+                text = text[:text.index('[metals]')]
+            if path.stem == 'qsoxlya':
+                text = with_qso_z_evol(text, qso_z_evol)
+        path.write_text(text)
+    if omega_m is not None:
+        with_omega_m(workdir / 'xcf_synthetic.fits', omega_m)
+    return workdir / 'main.ini'
 
 
 def priors_section(priors):
@@ -519,11 +628,20 @@ def metals_section(metal_file, metals, is_cross, extra=''):
     return '\n'.join(lines) + '\n' + extra
 
 
+def with_qso_z_evol(text, qso_z_evol):
+    """An ini's text with its `z evol QSO` model replaced (unchanged for
+    None or an ini without the line)."""
+    if qso_z_evol is None:
+        return text
+    return re.sub(r'z evol QSO = \S+', f'z evol QSO = {qso_z_evol}', text,
+                  count=1)
+
+
 def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                            sample=None, seed=0, noise=0.0, extra_control='',
                            with_distortion=False, extra_model='',
                            metals=None, new_metals=False, global_cov=False,
-                           extra_metals=''):
+                           extra_metals='', qso_z_evol=None):
     """Create a complete synthetic fit setup; returns the main.ini path.
 
     The files equal vega_tpu.testing.make_synthetic_dataset's, given the
@@ -551,7 +669,8 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     files `delta_stack.fits` and `qso_catalog.fits`
     (`new_metals_weights(seed)`), the lines of `new_metals_lines` and
     OMEGAM in the data files' headers. `extra_metals` (text) ends each
-    [metals] section.
+    [metals] section. `qso_z_evol` (e.g. 'croom') replaces the cross's
+    `z evol QSO = bias_vs_z_std` line of [model].
 
     `device` is where the second pass evaluates the model: the card
     unless the caller asks for 'cpu'; asking for CUDA without a GPU
@@ -614,8 +733,9 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
                                             extra_metals)
             extra_data = 'test = True\n'
         ini_files.append(workdir / ini_name)
-        ini_files[-1].write_text(ini_text(data_file, extra_model=lines,
-                                          extra_data=extra_data))
+        ini_files[-1].write_text(with_qso_z_evol(
+            ini_text(data_file, extra_model=lines, extra_data=extra_data),
+            qso_z_evol))
 
     main_path = workdir / 'main.ini'
     main_path.write_text(_main_ini(

@@ -856,11 +856,14 @@ class VegaInterface:
         smooth, n) for (B,) parameters."""
         pars = dict(pars)
         pars['peak'] = True
+        pk_peak_lin = self._pk_full - self._pk_smooth
         pk_peak, pk_smooth, _ = model.Pk_core.compute_peak_smooth(
-            pars, self._pk_full - self._pk_smooth, self._pk_smooth)
-        xi_peak, _ = model.Xi_core.compute(pk_peak, model.PktoXi, pars)
+            pars, pk_peak_lin, self._pk_smooth)
+        xi_peak, _ = model.Xi_core.compute(pk_peak, model.PktoXi, pars,
+                                           pk_lin=pk_peak_lin)
         pars['peak'] = False
-        xi_smooth, _ = model.Xi_core.compute(pk_smooth, model.PktoXi, pars)
+        xi_smooth, _ = model.Xi_core.compute(pk_smooth, model.PktoXi, pars,
+                                             pk_lin=self._pk_smooth)
         if model.metals is not None:
             xi_metals, _ = model.metals.compute(pars, self._pk_full)
             xi_smooth = xi_smooth + densify(xi_metals)
