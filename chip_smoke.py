@@ -141,6 +141,29 @@ configuration, with no JAX:
      initial fit is the fit before) and a fit on it against the JAX one;
    it fails unless the metal stack launched F_0 on the dense and the
    grid path and Ft_d in the dense fit.
+9b. small-scale marginalization (phase marg), configuration
+   synthetic-desi-marg-full: the DESI DR1 baseline model of phase desi on
+   the same full dataset with a distortion matrix (the cross's 5,000 x
+   5,000), noise of 1 sigma (seed 0), per-correlation covariances, and in
+   both [model]s BuildConfig's
+   marginalization (testing.MARG_MODEL: all-rmin, prior 10,
+   fit-marginalized-scales, marginalize-match-data-bins), DESI_MARG_SAMPLE's
+   five names, against tests/data/torch_port_marg_goldens.json:
+   - the templates in the covariance: templates, retained modes and
+     effective sizes per correlation (equal to the JAX package's); the
+     dense regime as desi_mock's (chi2_batch(8192), kernel vs plain route,
+     the JAX chi^2 and value and gradient 1e-8, evals/s, device shares);
+     the template coefficients at a point (1e-8 of max|ref|); vega_tpu's
+     grid route (32 x 32 nodes over (ap, at), the linear names in the
+     coefficient program) on the updated inverse covariance, cold build,
+     T against the JAX payload's, chi^2 within 2e-4 + 1e-9 |chi2|,
+     evals/s; minimize() dense against the JAX fit (1e-3 of the JAX
+     errors) and bestfit_marg_coeff at the JAX best fit (1e-8);
+   - a second interface on the same files with marginalize-in-fit = True
+     (no collapse, every call dense): chi2_batch(8192), evals/s, the JAX
+     chi^2 and value and gradient (1e-8), the coefficients (1e-8), a fit
+     and its bestfit_marg_coeff as above;
+   it fails unless both fits launched Ft_d.
 10. eBOSS DR16's 13-name combined fit (phase table6), configuration
    synthetic-dr16-table6-full: the DR16-shaped dataset with
    testing.TABLE6_SAMPLE sampled (ap, at, drp_QSO,
@@ -240,7 +263,8 @@ configuration, with no JAX:
    synthetic-dr16-published-full with the components written
    (make_dr16_published_dataset(..., components=True): [output] write_pk
    and write_cf, fast_metals and fast_metal_bias off, which both packages
-   require), against tests/data/torch_port_run_vega_goldens.json:
+   require) on phase dr16pub's template, data and metal files
+   (files_from), against tests/data/torch_port_run_vega_goldens.json:
    - `vega_tpu_torch.cli fit main.ini --device cuda` (run_vega: the
      interface, vega_tpu's route for the 18 names, which sweeps and finds
      nothing factored once the metals run unrolled, the fit, the results
@@ -274,7 +298,8 @@ transpose also bit for bit
 against a second launch. Each layout is timed: the kernel's device time
 (launches queued behind a spin kernel), one wrapper call and the plain
 version (CUDA events), beside the layout's bytes and bound (HBM bytes at
-3.35 TB/s) and its launches in the path's run. After the dense path,
+3.35 TB/s) and its launches in the path's run; a layout an earlier path
+held on the same knot grid keeps that check. After the dense path,
 every kernel (d = 0..3) is held the same way at edge layouts: every
 query on a knot, every query in one interval, M not a multiple of the
 tile, B = 1 with M = 1, a row with every query out of range. Any failure
@@ -314,6 +339,10 @@ DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
 UV_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_uv_goldens.json'
+MARG_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_marg_goldens.json'
+# the marg phase's template coefficients against the JAX package's, of
+# their largest entry (PERF.md section 2)
+MARG_COEFF_RTOL = 1e-8
 F32_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_f32_goldens.json'
 # the f32 mode against vega_tpu's f32 ladder (tests/test_f32_mode.py:
 # 106-109: |d chi2| <= 0.3 and <= 3e-4 |chi2|, both held there on chi^2
@@ -597,6 +626,13 @@ def vs_f64(out32, run64):
                zip(out32, out64)) / max(float(b.abs().max()) for b in out64)
 
 
+# every (kernel, layout, knot grid) held and timed so far in this run:
+# {key: (path, record)}; a later path that launches the same layout takes
+# the earlier check (most layouts recur from phase to phase: 231 of the
+# 407 layout records of a whole run repeat an earlier path's)
+CHECKED = {}
+
+
 def check_launches(device, path, layouts):
     """Hold each kernel against its plain version at every launch layout
     a path recorded, on the path's knot grid (random inputs,
@@ -606,9 +642,11 @@ def check_launches(device, path, layouts):
     `plain_ms` the plain version (a mean of 5 calls). Beside them
     the layout's launches in the path's run, its bytes and bound
     (spline_combine.launch_bound: HBM bytes at 3.35 TB/s bound every
-    layout) and the share of the bound the kernel reaches. Returns one
-    record per layout, largest B * M first, with its knot range (the grid
-    is uniform: first and last knot and N give it)."""
+    layout) and the share of the bound the kernel reaches. A layout an
+    earlier path of the run already held on the same knot grid keeps
+    that check (`held_in` names the path) with this path's launches.
+    Returns one record per layout, largest B * M first, with its knot
+    range (the grid is uniform: first and last knot and N give it)."""
     from vega_tpu_torch.ops.spline_combine import launch_bound, launch_bytes
 
     rng = np.random.default_rng(0)
@@ -616,6 +654,18 @@ def check_launches(device, path, layouts):
     for key in sorted(layouts, key=lambda k: (k[0], k[1], -k[2] * k[7])):
         primitive, order, *layout = key
         grid, launches = layouts[key].grid, layouts[key].launches
+        grid_key = (key, len(grid.values), float(grid.values[0]),
+                    float(grid.values[-1]))
+        if grid_key in CHECKED:
+            held_in, held = CHECKED[grid_key]
+            log(f'kernel check {path} '
+                f'{layout_label(primitive, order, layout)}: as held in '
+                f'{held_in} (max|diff| {held["max_abs_err"]:.3e}, kernel '
+                f'{held["ms"]:.4f} ms on the device), {launches} launches '
+                'in the run')
+            records.append({**held, 'path': path, 'launches': launches,
+                            'held_in': held_in})
+            continue
         dtype = layout_dtype(layout)
         y, m, x, leg, g = random_case(rng, device, grid, layout)
         group = layout[3]
@@ -654,6 +704,7 @@ def check_launches(device, path, layouts):
                         'bytes': launch_bytes(primitive, order, *layout),
                         'bound_ms': bound_ms, 'bound_by': bound_by,
                         'share_of_bound': bound_ms / ms})
+        CHECKED[grid_key] = (path, records[-1])
     return records
 
 
@@ -1866,8 +1917,6 @@ def run_ns_paths(device, fit_ini, out, goldens, fit_goldens):
         float(np.percentile(live_logl, 25)), 2.0, chol, 5, 1)
     log(f'NS device loop: {per_iteration / replayed_s:.1f} evals/s '
         f'replayed, {per_iteration / eager_s:.1f} eager')
-    profile_call('NS evolution, eager (one iteration)',
-                 lambda: evolve.run(False), device)
     profile_call('NS evolution, replayed (one iteration)',
                  lambda: evolve.run(True), device)
     checks = check_launches(device, 'ns', layouts)
@@ -3061,6 +3110,253 @@ def table6_mc_scripts(work, fit_ini):
              f'{MC_TABLE_RTOL:g}')
 
 
+def marg_coefficients(label, vega, point, want):
+    """The template coefficients of the model at `point` against the JAX
+    package's ({name: list}), MARG_COEFF_RTOL of their largest entry."""
+    _, got = vega.chi2(point, return_marg_coeff=True)
+    if sorted(got) != sorted(want):
+        fail(f'{label}: coefficients of {sorted(got)}, the JAX package '
+             f'{sorted(want)}')
+    worst = max(rel_err(got[n], w) for n, w in want.items())
+    log(f'{label}: template coefficients vs JAX ('
+        + ', '.join(f'{n} {len(w)}' for n, w in want.items())
+        + f'): max relative diff {worst:.3e} (bound {MARG_COEFF_RTOL:g})')
+    if not worst <= MARG_COEFF_RTOL:
+        fail(f'{label}: coefficients differ by {worst:.3e}')
+
+
+def check_bestfit_coefficients(label, vega, names, want):
+    """After minimize(): the best-fit coefficients in bestfit_corr_stats
+    against those of the model at the JAX best fit (MARG_COEFF_RTOL at
+    the JAX package's point; the port's own best fit reported), and the
+    effective sizes."""
+    stats = vega.bestfit_corr_stats
+    at_jax = vega.compute_marg_coeff(vega.compute_model(
+        dict(zip(names, want['values'])), run_init=False))
+    worst = max(rel_err(at_jax[n], w)
+                for n, w in want['bestfit_marg_coeff'].items())
+    own = max(rel_err(stats[n]['bestfit_marg_coeff'], w)
+              for n, w in want['bestfit_marg_coeff'].items())
+    sizes = {n: s['masked_size'] for n, s in stats.items()}
+    log(f'{label}: bestfit_marg_coeff at the JAX best fit vs JAX: max '
+        f'relative diff {worst:.3e} (bound {MARG_COEFF_RTOL:g}); at the '
+        f'port\'s own best fit {own:.3e}; effective sizes {sizes} (JAX '
+        f'{want["masked_size"]})')
+    if not worst <= MARG_COEFF_RTOL:
+        fail(f'{label}: best-fit coefficients differ by {worst:.3e}')
+    if sizes != want['masked_size']:
+        fail(f'{label}: effective sizes {sizes}, the JAX package '
+             f'{want["masked_size"]}')
+
+
+def run_marg_path(device, work, card):
+    """Phase marg (see the module docstring); returns the kernel launches
+    of its paths and the kernel checks at their layouts."""
+    import vega_tpu_torch.metals as metals_mod
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (DESI_METALS, desi_extra_model,
+                                        make_synthetic_dataset,
+                                        marg_extra_model, with_control)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(MARG_GOLDENS.read_text())
+    names = goldens['names']
+    cov_goldens, in_fit_goldens = goldens['cov'], goldens['in_fit']
+    t_phase = time.perf_counter()
+    main_ini = make_synthetic_dataset(
+        Path(work) / 'marg', cross=True, size='full', device=device,
+        sample=goldens['sample'],
+        extra_model=marg_extra_model(desi_extra_model()),
+        metals=list(DESI_METALS), new_metals=True, with_distortion=True,
+        noise=goldens['noise'])
+    log(f'marg: configuration synthetic-desi-marg-full (the cross\'s '
+        f'5,000 x 5,000 distortion matrix written twice) in '
+        f'{time.perf_counter() - t_phase:.2f} s')
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense_vega = VegaInterface(main_ini, device=device)
+    templates = {n: d.marg_templates.shape[1]
+                 for n, d in dense_vega.data.items()}
+    modes = dict(dense_vega.corr_num_marg_modes)
+    log(f'marg dense: interface in {time.perf_counter() - t0:.2f} s; '
+        'templates / retained modes / effective size per correlation: '
+        + ', '.join(f'{n} {templates[n]} / {modes[n]} / '
+                    f'{dense_vega.data[n].effective_data_size}'
+                    for n in templates)
+        + f' (JAX {cov_goldens["templates"]} / {cov_goldens["modes"]})')
+    if templates != cov_goldens['templates'] \
+            or modes != cov_goldens['modes']:
+        fail('marg: the templates or modes differ from the JAX package\'s')
+    launches, checks = {}, []
+    models = list(dense_vega.models.values())
+
+    # --- the templates in the covariance, dense: counts from zero
+    mock_dense_regime(device, 'marg', dense_vega, cov_goldens, launches,
+                      checks, hooks={
+                          'metal matrices': [(m.metals, 'apply_metal_matrix')
+                                             for m in models],
+                          'metal combine': [(metals_mod,
+                                             'spline_legendre_combine')],
+                          'power-spectrum grids': [
+                              (m.Pk_core, 'compute_peak_smooth')
+                              for m in models]})
+    marg_coefficients('marg dense', dense_vega,
+                      cov_goldens['derivative_points'][0],
+                      cov_goldens['coeff'])
+
+    # --- the grid route on the updated covariance: counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid_vega = VegaInterface(main_ini, device=device)
+    seen_grid = watch_metals(grid_vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        payload = grid_vega.get_collapsed(frozenset(names))
+        torch.cuda.synchronize(device)
+        collapse_s = time.perf_counter() - t0
+        rng = np.random.default_rng(1)
+        grid_batches = desi_rows(grid_vega.params, names, BATCH, rng)
+        chi2 = grid_vega.chi2_batch(grid_batches).cpu().numpy()
+    launches['marg_grid'] = dict(LAUNCHES)
+    checks += check_launches(device, 'marg_grid', layouts)
+    stats = grid_vega.grid_stats
+    log(f'marg grid cold build ({len(names)} names): {payload["__grid__"]}, '
+        f'{stats["nodes"]} nodes; chi^2 constants {stats["constants_s"]:.3f} '
+        f's, device sweep {stats["sweep_s"]:.3f} s, host payload build '
+        f'{stats["host_s"]:.3f} s, total {collapse_s:.3f} s; kernel launches '
+        f'{launches["marg_grid"]}, {metal_launches(seen_grid, "F")} of F_0 '
+        'from the metal stacks')
+    for name in grid_vega.corr_items:
+        if name not in payload:
+            fail(f'marg: {name} is not served by the grid payload')
+        p, want = payload[name], cov_goldens['payload'][name]
+        log(f'  {name}: T = {p["cref"].shape[0]}, retained modes '
+            f'A {p["modes_A"].shape[1]} / sy {p["modes_sy"].shape[1]}, '
+            f'SVD rank A {p["B_A"].shape[1]} / sy {p["B_sy"].shape[1]} '
+            f'(JAX package: T = {want["terms"]}, modes {want["modes_A"]} / '
+            f'{want["modes_sy"]}, rank {want["rank_A"]} / '
+            f'{want["rank_sy"]})')
+        if p['cref'].shape[0] != want['terms']:
+            fail(f'marg: {name} has {p["cref"].shape[0]} terms, the JAX '
+                 f'package {want["terms"]}')
+    if not metal_launches(seen_grid, 'F'):
+        fail('the marg grid sweep launched no F_0 from metals.py')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('marg grid chi2_batch is not finite without a penalty')
+    got = grid_vega.chi2_batch(cov_goldens['params']).cpu().numpy()
+    want_grid = np.asarray(cov_goldens['chi2_grid'])
+    d_grid = np.abs(got - want_grid)
+    bound = GRID_ABS_TOL + GRID_REL_TOL * np.abs(want_grid)
+    log(f'marg grid vs JAX grid goldens ({len(got)} points): max |d chi2| '
+        f'{d_grid.max():.3e} (bound {bound.min():.3e} .. {bound.max():.3e}); '
+        f'vs the JAX dense chi2 '
+        f'{np.abs(got - cov_goldens["chi2_grid_dense"]).max():.6g} (the JAX '
+        f'grid path\'s own {cov_goldens["max_abs_grid_minus_dense"]:.6g})')
+    if not np.all(d_grid <= bound):
+        fail(f'marg grid chi2 vs the JAX grid chi2: |d| {d_grid.max():.3e} '
+             'over the bound')
+    rate, times = timed_rows(device, grid_vega, grid_batches, GRID_ROUNDS)
+    log(f'marg grid chi2_batch({BATCH}): {rate:.1f} evals/s (median of '
+        f'{GRID_ROUNDS}, s per call {", ".join(f"{t:.4f}" for t in times)})')
+    del grid_vega
+
+    # --- the dense fit on the updated covariance: counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        timed_fit(device, dense_vega, 'marg dense')
+    launches['marg_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'marg_fit', layouts)
+    check_fit('marg dense', 'dense', dense_vega, names,
+              cov_goldens['fit_dense'])
+    check_bestfit_coefficients('marg dense', dense_vega, names,
+                               cov_goldens['fit_dense'])
+    del dense_vega
+
+    # --- marginalize-in-fit: the templates fitted per row; every call
+    # dense (no collapse), counts from zero
+    in_fit_ini = with_control(main_ini, 'marginalize-in-fit = True',
+                              Path(main_ini).parent / 'main_in_fit.ini')
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        t0 = time.perf_counter()
+        fit_vega = VegaInterface(in_fit_ini, device=device)
+    log(f'marg in-fit: interface in {time.perf_counter() - t0:.2f} s')
+    if fit_vega.get_collapsed(frozenset(names)) != {}:
+        fail('marg in-fit: a collapse serves marginalize-in-fit')
+    rng = np.random.default_rng(2)
+    batches = desi_rows(fit_vega.params, names, BATCH, rng)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = fit_vega.chi2_batch(batches).cpu().numpy()
+        first_s = time.perf_counter() - t0
+    launches['marg_in_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'marg_in_fit', layouts)
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('marg in-fit chi2_batch is not finite without a penalty')
+    rate, times = timed_rows(device, fit_vega, batches, DESI_TIMED_ROUNDS)
+    log(f'marg in-fit chi2_batch({BATCH}): first call {first_s:.3f} s, '
+        f'peak device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, '
+        f'{rate:.1f} evals/s (median of {DESI_TIMED_ROUNDS}, s per call '
+        f'{", ".join(f"{t:.4f}" for t in times)}); kernel launches '
+        f'{launches["marg_in_fit"]}')
+    in_fit_models = list(fit_vega.models.values())
+    total_ms, parts = device_shares(device, fit_vega, batches, hooks={
+        'template fit (two GEMMs per correlation)': [
+            (fit_vega, '_fit_marg_templates')],
+        'power-spectrum grids': [(m.Pk_core, 'compute_peak_smooth')
+                                 for m in in_fit_models]})
+    log(f'marg in-fit chi2_batch({BATCH}) on CUDA events: {total_ms:.1f} ms; '
+        + ', '.join(f'{key} {ms:.1f} ms ({ms / total_ms:.1%})'
+                    for key, ms in parts.items())
+        + f'; the rest {total_ms - sum(parts.values()):.1f} ms')
+    want = np.asarray(in_fit_goldens['chi2_dense'])
+    got = fit_vega.chi2_batch(in_fit_goldens['params']).cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    grads = []
+    for point, value_w, grad_w in zip(in_fit_goldens['derivative_points'],
+                                      in_fit_goldens['dense']['chi2'],
+                                      in_fit_goldens['dense']['gradient']):
+        value, grad = fit_vega.chi2_value_and_gradient(point)
+        grads.append(max(abs(value / value_w - 1),
+                         rel_err([grad[n] for n in names], grad_w)))
+    log(f'marg in-fit vs JAX goldens: chi2 at {len(want)} points max '
+        f'relative diff {rel:.3e}; value and gradient at {len(grads)} '
+        f'points {max(grads):.3e}')
+    if not rel <= GOLDEN_RTOL or not max(grads) <= GOLDEN_RTOL:
+        fail(f'marg in-fit chi2 / gradient vs the JAX goldens differ by '
+             f'{rel:.3e} / {max(grads):.3e} > {GOLDEN_RTOL}')
+    marg_coefficients('marg in-fit', fit_vega,
+                      in_fit_goldens['derivative_points'][0],
+                      in_fit_goldens['coeff'])
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        timed_fit(device, fit_vega, 'marg in-fit')
+    launches['marg_in_fit_fit'] = dict(LAUNCHES)
+    checks += check_launches(device, 'marg_in_fit_fit', layouts)
+    check_fit('marg in-fit', 'dense', fit_vega, names,
+              in_fit_goldens['fit_dense'])
+    check_bestfit_coefficients('marg in-fit', fit_vega, names,
+                               in_fit_goldens['fit_dense'])
+    for label in ('marg_fit', 'marg_in_fit_fit'):
+        by_primitive = {primitive: sum(
+            n for key, n in launches[label].items()
+            if key[0] == primitive and (primitive != 'F' or key[1] >= 1))
+            for primitive in ('F', 'P', 'Ft')}
+        log(f'{label} kernel launches: F_d (d >= 1), P_d, Ft_d: '
+            f'{by_primitive}')
+        if not by_primitive['Ft']:
+            fail(f'the {label} dense fit launched no Ft_d')
+    log(f'marg phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
 def run_table6_path(device, work, card, fit_ini):
     """Phase table6 (see the module docstring); returns the kernel
     launches of its sweep and the kernel checks at their layouts."""
@@ -3516,7 +3812,7 @@ def run_dr16pub_path(device, work, card):
                  'kernel launch, or serves another chi^2')
         del warm
 
-    # --- the fits: vega_tpu's route, then the dense regime
+    # --- the fit in vega_tpu's route (the dense fit is run_vega's)
     seconds, counts = timed_fit(device, vega, 'dr16pub grid route')
     best = vega.bestfit
     want = goldens['fit_dense']
@@ -3634,9 +3930,11 @@ def run_run_vega_path(device, work, card):
     names = goldens['names']
     t_phase = time.perf_counter()
     main_ini = make_dr16_published_dataset(
-        Path(work) / 'run_vega', size='full', device=device, components=True)
+        Path(work) / 'run_vega', size='full', device=device, components=True,
+        files_from=Path(work) / 'dr16pub')
     log(f'run_vega: configuration synthetic-dr16-published-full with the '
-        f'components written in {time.perf_counter() - t_phase:.2f} s')
+        f'components written, on phase dr16pub\'s files, in '
+        f'{time.perf_counter() - t_phase:.2f} s')
     plots = importlib.util.find_spec('matplotlib') is not None
     log('run_vega: matplotlib ' + ('is installed: the plots are drawn'
                                    if plots else 'is not installed: no '
@@ -4233,6 +4531,8 @@ def main():
         mark('uv')
         desi_launches, desi_checks = run_desi_path(device, work, card)
         mark('desi')
+        marg_launches, marg_checks = run_marg_path(device, work, card)
+        mark('marg')
         table6_launches, table6_checks = run_table6_path(device, work, card,
                                                          fit_ini)
         mark('table6')
@@ -4253,7 +4553,7 @@ def main():
     checks = (dense_checks + grid_checks + fit_checks + f32_checks
               + scan_checks
               + mc_checks + sampler_checks + dr16_checks + uv_checks
-              + desi_checks
+              + desi_checks + marg_checks
               + table6_checks + dr16pub_checks + desi_mock_checks
               + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
@@ -4261,7 +4561,7 @@ def main():
          **f32_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **uv_launches, **desi_launches,
-         **table6_launches,
+         **marg_launches, **table6_launches,
          **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,
          **run_vega_launches},
         sampler_replays, checks, edge_checks)

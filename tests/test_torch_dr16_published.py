@@ -35,7 +35,8 @@ from vega_tpu_torch.models.eisenstein_hu import (  # noqa: E402
     make_fiducial_template)
 from vega_tpu_torch.ops.spline_combine import KnotGrid  # noqa: E402
 from vega_tpu_torch.pktoxi import hamilton_operators  # noqa: E402
-from vega_tpu_torch.testing import (DR16PUB_CORRELATIONS,  # noqa: E402
+from vega_tpu_torch.testing import (DR16PUB_COMPONENTS_MODEL,  # noqa: E402
+                                    DR16PUB_CORRELATIONS,
                                     DR16PUB_SAMPLE,
                                     dr16_published_correlation,
                                     make_dr16_published_dataset)
@@ -313,6 +314,35 @@ def test_files_equal_jax(published):
                                                rtol=1e-11, atol=0)
                 else:
                     assert np.array_equal(hdu_g[col], hdu_w[col])
+
+
+def test_components_on_shared_files(published, tmp_path):
+    """files_from writes only the ini files: a configuration with the
+    components written on an earlier call's template, data and metal
+    files, whose inis are that call's but for the components' options
+    (DR16PUB_COMPONENTS_MODEL in each [model], write_pk and write_cf
+    under [output]) and the output file in the new directory."""
+    shared = published['port'].parent
+    main = make_dr16_published_dataset(
+        tmp_path, size='tiny', device='cpu', extra_control=CONTROL,
+        components=True, files_from=shared)
+    assert main == tmp_path / 'main.ini'
+    assert not list(tmp_path.glob('*.fits'))
+    for ini in ['main.ini'] + [f'{c}.ini' for c in DR16PUB_CORRELATIONS]:
+        want, got = parse(shared / ini), parse(tmp_path / ini)
+        assert got.sections() == want.sections()
+        for section in want.sections():
+            expect = dict(want[section])
+            if ini == 'main.ini' and section == 'data sets':
+                expect['ini files'] = expect['ini files'].replace(
+                    str(shared), str(tmp_path))
+            elif section == 'output':
+                expect = {'filename': expect['filename'].replace(
+                    str(shared), str(tmp_path)), 'write_pk': 'True',
+                    'write_cf': 'True'}
+            elif section == 'model':
+                expect.update(DR16PUB_COMPONENTS_MODEL)
+            assert dict(got[section]) == expect, (ini, section)
 
 
 def fingerprint(main):

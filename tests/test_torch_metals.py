@@ -682,12 +682,27 @@ def test_model_terms_match_jax(variants, tmp_path, monkeypatch, case):
     assert np.max(np.abs(got - want) / np.abs(want)) <= CHI2_RTOL
 
 
-def test_unported_options_still_raise(variants, tmp_path):
+# small-scale marginalization on the auto (the files have no distortion
+# matrix: both packages take the identity, which carries the templates)
+MARG_CASE = ('lyaxlya', 'marginalize-below-rtmax = 20.')
+
+
+def test_unported_options_still_raise(variants, tmp_path, monkeypatch):
     """A config with [metals], model-hcd and small scale nl constructs;
-    small-scale marginalization on top of it raises not_ported."""
+    small-scale marginalization on top of it, which raised not_ported
+    before it was ported, constructs too, and its dense chi^2 of two rows
+    agrees (CHI2_RTOL) with vega_tpu's on the same files
+    (tests/data/torch_port_tiny_goldens.json, 'dr16_terms', case
+    'marginalization', made by tests/tools/make_torch_port_tiny_goldens.py
+    from MARG_CASE)."""
     _, _, main = variants['dr16']
-    main = with_option(main, tmp_path, 'lyaxlya',
-                       'marginalize-below-rtmax = 20.')
-    with pytest.raises(NotImplementedError,
-                       match='Small-scale marginalization'):
-        VegaInterface(main, device='cpu')
+    main = with_option(main, tmp_path, *MARG_CASE)
+    monkeypatch.setenv('VEGA_TPU_FACTORED', '0')
+    golden = json.loads(TINY_GOLDENS.read_text())['dr16_terms']
+    rows = {k: np.asarray(v) for k, v in golden['rows'].items()}
+    vega = VegaInterface(main, device='cpu')
+    assert vega.data['lyaxlya'].num_marg_modes > 0
+    got = vega.chi2_batch(rows).numpy()
+    want = np.asarray(golden['chi2']['marginalization'])
+    assert np.all(got < 1e99)
+    assert np.max(np.abs(got - want) / np.abs(want)) <= CHI2_RTOL

@@ -34,6 +34,7 @@ from vega_tpu_torch.samplers.pocomc import PocoMC
 from vega_tpu_torch.samplers.polychord import Polychord
 from vega_tpu_torch.samplers.smc import SMCSampler
 from vega_tpu_torch.scripts import run_vega_sampler
+from vega_tpu_torch.testing import with_control
 from vega_tpu_torch.vega_interface import VegaInterface
 
 LIMITS = {'x': (-5.0, 5.0), 'y': (-5.0, 5.0)}
@@ -415,29 +416,25 @@ def test_polychord_and_pocomc_route_to_the_native_samplers(tmp_path, capsys):
     assert 'using the native batched SMC' in capsys.readouterr().out
 
 
-def with_control(main_path, control, extra=''):
-    text = main_path.read_text().replace('[control]\n',
-                                         '[control]\n' + control)
-    path = main_path.parent / f'main_{abs(hash((control, extra)))}.ini'
-    path.write_text(text + extra)
-    return path
-
-
 def test_sampler_flags(auto):
     port = auto['port']
     assert port.run_sampler is False and port.sampler is None
-    assert port.corr_num_marg_modes is None
+    # no marginalization: every correlation carries 0 derived columns,
+    # as vega_tpu's dict says
+    assert port.corr_num_marg_modes == auto['jax'].corr_num_marg_modes \
+        == {'lyaxlya': 0}
     with pytest.raises(ValueError, match='Sampler not recognized'):
         VegaInterface(with_control(
-            auto['main'], 'run_sampler = True\nsampler = Emcee\n'),
-            device='cpu')
+            auto['main'], 'run_sampler = True\nsampler = Emcee\n',
+            auto['tmp'] / 'main_emcee.ini'), device='cpu')
     with pytest.raises(RuntimeError, match='no sampler config found'):
         VegaInterface(with_control(
-            auto['main'], 'run_sampler = True\nsampler = HMC\n'),
-            device='cpu')
+            auto['main'], 'run_sampler = True\nsampler = HMC\n',
+            auto['tmp'] / 'main_hmc.ini'), device='cpu')
     named = VegaInterface(with_control(
         auto['main'], 'run_sampler = True\nsampler = PocoMC\n',
-        '\n[PocoMC]\npath = .\nname = x\n'), device='cpu')
+        auto['tmp'] / 'main_named.ini', '\n[PocoMC]\npath = .\nname = x\n'),
+        device='cpu')
     assert named.run_sampler is True and named.sampler == 'PocoMC'
     with pytest.raises(ValueError, match='Sampler not requested'):
         run_vega_sampler.main([str(auto['main']), '--device', 'cpu'])
@@ -457,6 +454,7 @@ def test_run_vega_sampler(auto, name, section_text, columns):
     out_dir.mkdir()
     main = with_control(
         auto['main'], f'run_sampler = True\nsampler = {name}\n',
+        auto['tmp'] / f'main_{name}.ini',
         f'\n[{name}]\npath = {out_dir}\nname = synth\n' + section_text)
     assert run_vega_sampler.main([str(main), '--device', 'cpu']) == 0
     assert (out_dir / 'synth.paramnames').exists()
@@ -481,11 +479,12 @@ def test_run_vega_sampler_on_a_monte_carlo_mock(auto):
                'num_repeats = 4\nprecision = 0.2\nresume = False\n'
                'max_iters = 60\n')
     with pytest.raises(ValueError, match=r'no "\[monte carlo\]" section'):
-        run_vega_sampler.main([str(with_control(auto['main'], control,
-                                                sampler)),
-                               '--device', 'cpu'])
+        run_vega_sampler.main([str(with_control(
+            auto['main'], control, auto['tmp'] / 'main_mc_none.ini',
+            sampler)), '--device', 'cpu'])
     main = with_control(
         auto['main'], control + 'mc_seed = 4\n',
+        auto['tmp'] / 'main_mc.ini',
         sampler + '\n[monte carlo]\nbias_LYA = -0.3 -0.01 -0.12 0.01\n'
         'beta_LYA = 0.5 3.0 1.6 0.1\n'
         '\n[mc parameters]\nbias_LYA = -0.117\nbeta_LYA = 1.67\n')

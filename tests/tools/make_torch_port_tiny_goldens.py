@@ -26,11 +26,24 @@ vega_tpu's likelihood again:
   [sample] start;
 - 'mocks_fit': tests/test_torch_mocks_fit.py's DESI mock and LyaCoLoRe
   configurations, each record of that module's `dense_record`,
-  `grid_record` and `fit_record` on vega_tpu's interfaces.
+  `grid_record` and `fit_record` on vega_tpu's interfaces;
+- 'marginalization': tests/test_torch_marginalization.py's
+  configurations (its `make_base` files with `with_marg`'s options): on
+  the covariance route the dense chi^2 of ROWS, chi^2, coefficients and
+  log-likelihood at the defaults, value and gradient at POINT dense and
+  on the grid route, the route's chi^2 of ROWS, minimize() with the
+  best-fit coefficients; under marginalize-in-fit chi^2 of ROWS, value,
+  gradient and Hessian at POINT, chi2 / log_lik with return_marg_coeff,
+  minimize() with the best-fit coefficients and the results file's
+  marg_coeff header keys; a Monte-Carlo mock and its coefficients at
+  MC_POINT; the joint covariance's chi^2 of ROWS and log-likelihood.
 
-Each configuration is written by vega_tpu with the tests' own builders
-and arguments, so the files are the tests' own. The points are stored
-beside the numbers and the tests read them from here.
+Each configuration is written with the tests' own builders and
+arguments, so the files are the tests' own: vega_tpu's, except for
+'marginalization', whose module builds its files with the port's
+make_synthetic_dataset on the CPU (vega_tpu's numbers are taken on those
+files here). The points are stored beside the numbers and the tests read
+them from here.
 
 Usage (from the repo root; about 6 minutes on 8 CPU cores):
     JAX_PLATFORMS=cpu python tests/tools/make_torch_port_tiny_goldens.py
@@ -142,7 +155,8 @@ def dr16_terms_goldens(work, tm, JaxInterface):
             if k in tm.NAMES[:4]}
     out = {'rows': rows_of(rows), 'chi2': {}}
     os.environ['VEGA_TPU_FACTORED'] = '0'
-    for case, (corr, line) in tm.TERM_CASES.items():
+    for case, (corr, line) in {**tm.TERM_CASES,
+                               'marginalization': tm.MARG_CASE}.items():
         case_dir = Path(work) / f'dr16_{case}'
         case_dir.mkdir()
         case_main = tm.with_option(main, case_dir, corr, line,
@@ -246,6 +260,104 @@ def mocks_fit_goldens(work, mf, JaxInterface):
     return out
 
 
+def marginalization_goldens(work, tm, JaxInterface):
+    import numpy as np
+    from vega_tpu.io.fits import read_fits
+    names = list(tm.SAMPLE)
+    rows = {k: np.asarray(v) for k, v in tm.ROWS.items()}
+
+    def marg_fit(vega):
+        record = fit_record(vega)
+        stats = vega.bestfit_corr_stats
+        record['bestfit_marg_coeff'] = {
+            n: [float(c) for c in s['bestfit_marg_coeff']]
+            for n, s in stats.items()
+            if s['bestfit_marg_coeff'] is not None}
+        record['masked_size'] = {n: int(s['masked_size'])
+                                 for n, s in stats.items()}
+        return record
+
+    def coeffs(marg_coeff):
+        return {n: [float(c) for c in v] for n, v in marg_coeff.items()}
+
+    work = Path(work)
+    base = tm.make_base(work / 'marg_base')
+    cov_main = tm.with_marg(base, work / 'marg_cov', tm.BUILD_CONFIG_MARG)
+    out = {'cov': {}}
+    os.environ['VEGA_TPU_FACTORED'] = '0'
+    dense = JaxInterface(cov_main)
+    cov = out['cov']
+    cov['chi2_dense'] = [float(c) for c in
+                         np.asarray(dense.chi2_batch(rows))]
+    chi2, marg_coeff = dense.chi2(return_marg_coeff=True)
+    cov['chi2_default'] = float(chi2)
+    cov['coeff_default'] = coeffs(marg_coeff)
+    cov['log_lik_default'] = float(dense.log_lik())
+    cov['corr_num_marg_modes'] = {n: int(m) for n, m in
+                                  dense.corr_num_marg_modes.items()}
+    cov['value_gradient_dense'] = value_gradient(dense, tm.POINT)
+    cov['fit'] = marg_fit(dense)
+    os.environ.pop('VEGA_TPU_FACTORED')
+    route = JaxInterface(cov_main)
+    cov['route_keys'] = sorted(route.get_collapsed(tuple(sorted(names))))
+    cov['chi2_route'] = [float(c) for c in
+                         np.asarray(route.chi2_batch(rows))]
+    cov['value_gradient_route'] = value_gradient(route, tm.POINT)
+
+    in_fit_main = tm.with_marg(base, work / 'marg_in_fit', tm.IN_FIT_MARG,
+                               control='marginalize-in-fit = True')
+    vega = JaxInterface(in_fit_main)
+    in_fit = out['in_fit'] = {}
+    in_fit['chi2_batch'] = [float(c) for c in
+                            np.asarray(vega.chi2_batch(rows))]
+    in_fit.update(value_gradient(vega, tm.POINT))
+    hess = vega.chi2_hessian(tm.POINT, names)
+    in_fit['hessian'] = [[float(hess[a][b]) for b in names] for a in names]
+    _, marg_coeff = vega.chi2(tm.POINT, return_marg_coeff=True)
+    in_fit['coeff'] = coeffs(marg_coeff)
+    log_lik, marg_list = vega.log_lik(tm.POINT, return_marg_coeff=True)
+    in_fit['log_lik'] = float(log_lik)
+    in_fit['marg_list'] = [float(c) for c in marg_list]
+    in_fit['fit'] = marg_fit(vega)
+    vega.output.write_results(vega.bestfit_model, vega.params,
+                              vega.minimizer, vega.bestfit_corr_stats)
+    hdul = read_fits(Path(vega.output.outfile + '.fits'))
+    in_fit['fit']['header_marg_keys'] = {
+        h.name[len('MODEL_'):]: sorted(k for k in h.header
+                                       if 'MARG' in k.upper())
+        for h in hdul if h.name.startswith('MODEL_')}
+
+    mc_main = tm.with_marg(base, work / 'marg_mc', tm.IN_FIT_MARG,
+                           control=tm.MC_CONTROL, sample={},
+                           sections=tm.MC_SECTIONS)
+    vega = JaxInterface(mc_main)
+    vega.initialize_monte_carlo()
+    chi2, marg_coeff = vega.chi2(tm.MC_POINT, return_marg_coeff=True)
+    out['mc'] = {'mock_sum': {n: float(d.masked_mc_mock.sum())
+                              for n, d in vega.data.items()},
+                 'chi2': float(chi2), 'coeff': coeffs(marg_coeff)}
+
+    joint_base = tm.make_base(work / 'marg_joint_base', global_cov=True)
+    vega = JaxInterface(tm.with_marg(joint_base, work / 'marg_joint',
+                                     tm.BUILD_CONFIG_MARG))
+    out['joint'] = {'chi2': [float(c) for c in
+                             np.asarray(vega.chi2_batch(rows))],
+                    'log_lik_default': float(vega.log_lik())}
+    out['rows'] = rows_of(rows)
+    out['point'] = tm.POINT
+    return out
+
+
+def fit_record(vega):
+    """minimize() from the [sample] start: values, errors, fval."""
+    vega.minimize()
+    best = vega.bestfit
+    return {'values': {n: float(best.values[n]) for n in best.values},
+            'errors': {n: float(best.errors[n]) for n in best.values},
+            'fval': float(best.fmin.fval),
+            'is_valid': bool(best.fmin.is_valid)}
+
+
 def main():
     t_start = time.perf_counter()
     os.environ['VEGA_TPU_DS_MATMUL'] = '0'
@@ -256,6 +368,7 @@ def main():
     sys.path.insert(0, str(REPO))
     import conftest  # noqa: F401  (jax on the CPU, x64; as the tests run)
     import test_torch_dr16_published_fit as pf
+    import test_torch_marginalization as marg
     import test_torch_metals as tm
     import test_torch_mocks as mocks
     import test_torch_mocks_fit as mf
@@ -272,7 +385,8 @@ def main():
                 ('fht_extrap_published', fht_extrap_published_goldens,
                  mocks),
                 ('dr16pub_fit', dr16pub_fit_goldens, pf),
-                ('mocks_fit', mocks_fit_goldens, mf)):
+                ('mocks_fit', mocks_fit_goldens, mf),
+                ('marginalization', marginalization_goldens, marg)):
             t0 = time.perf_counter()
             out[key] = build(work, module, JaxInterface)
             seconds[key] = time.perf_counter() - t0

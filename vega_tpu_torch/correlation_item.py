@@ -1,17 +1,21 @@
 """Per-correlation configuration item.
 
-Counterpart of vega_tpu/correlation_item.py for the dense likelihood:
-tracer info, config sections, coordinates, the metal correlation list,
-the stacked-delta weights files of the new-metals mode and the cosmology
-of the data file's header, which the new-metals matrices read, and the
-broadband's binning. Small-scale marginalization is not ported yet and
-raises at construction.
+Counterpart of vega_tpu/correlation_item.py: tracer info, config
+sections, coordinates, the metal correlation list, the stacked-delta
+weights files of the new-metals mode and the cosmology of the data
+file's header, which the new-metals matrices read, the broadband's
+binning, and the small-scale marginalization options with their
+undistorted templates (`get_undist_xi_marg_templates`; data.py distorts
+them and builds the covariance update and the coefficient matrix).
 """
 
 from __future__ import annotations
 
+from functools import reduce
+
+import numpy as np
+
 from .cosmo import Cosmo
-from .utils import not_ported
 
 
 class CorrelationItem:
@@ -54,14 +58,29 @@ class CorrelationItem:
             if self.tracer2['weights-path'] is None:
                 self.tracer2['weights-path'] = self.tracer1['weights-path']
         self.test_flag = config['data'].getboolean('test', False)
+
+        # small-scale marginalization (vega_tpu/correlation_item.py:57-77)
+        marg_rs = [
+            config['model'].getfloat('marginalize-below-rtmax', 0),
+            config['model'].getfloat('marginalize-above-rtmin', 0),
+            config['model'].getfloat('marginalize-below-rpmax', 0),
+            config['model'].getfloat('marginalize-above-rpmin', 0),
+        ]
+        self.marginalize_small_scales_prior_sigma = config['model'].getfloat(
+            'marginalize-prior-sigma', 10.0)
+        self.marginalize_small_scales = {}
+        for value, name in zip(marg_rs, ['rtmax', 'rtmin', 'rpmax', 'rpmin']):
+            if value > 0:
+                self.marginalize_small_scales[name] = value
+        if config['model'].getboolean('marginalize-all-rmin-cuts', False):
+            self.marginalize_small_scales['all-rmin'] = True
+        self.marginalize_match_data_bins = config['model'].getboolean(
+            'marginalize-match-data-bins', False)
+        self.fit_marg_scales = config['model'].getboolean(
+            'fit-marginalized-scales', False)
+
         self.has_metals = False
         self.has_bb = False
-        marg_options = ('marginalize-below-rtmax', 'marginalize-above-rtmin',
-                        'marginalize-below-rpmax', 'marginalize-above-rpmin')
-        if (any(config['model'].getfloat(opt, 0) > 0 for opt in marg_options)
-                or config['model'].getboolean('marginalize-all-rmin-cuts',
-                                              False)):
-            raise not_ported('Small-scale marginalization', 5)
 
     def init_metals(self, tracer_catalog, metal_correlations):
         """Normalize and dedupe the metal correlation list
@@ -97,3 +116,67 @@ class CorrelationItem:
         self.dist_model_coordinates = (
             model_coordinates if dist_model_coordinates is None
             else dist_model_coordinates)
+
+    def get_undist_xi_marg_templates(self):
+        """Undistorted marginalization templates, a dense (n_model,
+        n_templates) indicator matrix (vega_tpu/correlation_item.py:
+        129-185): one column per model bin inside every box option, or
+        per bin the distorted-space small-scale mask leaves out
+        (all-rmin, upsampled onto the model grid by np.kron); with
+        marginalize-match-data-bins one column per nearest data bin."""
+        if 'all-rmin' not in self.marginalize_small_scales:
+            indices = []
+            coords = self.model_coordinates
+            if 'rtmax' in self.marginalize_small_scales:
+                indices.append(np.nonzero(
+                    coords.rt_regular_grid
+                    < self.marginalize_small_scales['rtmax'])[0])
+            if 'rtmin' in self.marginalize_small_scales:
+                indices.append(np.nonzero(
+                    coords.rt_regular_grid
+                    > self.marginalize_small_scales['rtmin'])[0])
+            if 'rpmax' in self.marginalize_small_scales:
+                indices.append(np.nonzero(
+                    np.abs(coords.rp_regular_grid)
+                    < self.marginalize_small_scales['rpmax'])[0])
+            if 'rpmin' in self.marginalize_small_scales:
+                indices.append(np.nonzero(
+                    np.abs(coords.rp_regular_grid)
+                    > self.marginalize_small_scales['rpmin'])[0])
+            common_idx = reduce(np.intersect1d, indices)
+            if common_idx.size == 0:
+                raise ValueError('No common indices found for small-scale '
+                                 'marginalization templates.')
+        else:
+            rp_nbins_dist = self.dist_model_coordinates.rp_nbins
+            rt_nbins_dist = self.dist_model_coordinates.rt_nbins
+            rp_nbins = self.model_coordinates.rp_nbins
+            rt_nbins = self.model_coordinates.rt_nbins
+            cb = rp_nbins // rp_nbins_dist
+            mask_dist = self.dist_model_coordinates.get_mask_scale_cuts(
+                self.config['cuts'], small_scale_mask=True
+            ).reshape(rp_nbins_dist, rt_nbins_dist)
+            # the distorted-space mask upsampled onto the model grid
+            mask_model = np.kron(mask_dist, np.ones((cb, cb), dtype=bool))
+            common_idx = np.nonzero(
+                ~mask_model.reshape(rp_nbins * rt_nbins))[0]
+            print(f'Marginalizing distortion scales with {common_idx.size} '
+                  'points based on scale cuts.')
+
+        n_model = self.model_coordinates.rt_regular_grid.size
+        if self.marginalize_match_data_bins:
+            rp = self.model_coordinates.rp_grid[common_idx]
+            rt = self.model_coordinates.rt_grid[common_idx]
+            dist_rp = self.dist_model_coordinates.rp_grid
+            dist_rt = self.dist_model_coordinates.rt_grid
+            idx_in_data = ((dist_rp[None, :] - rp[:, None]) ** 2
+                           + (dist_rt[None, :] - rt[:, None]) ** 2
+                           ).argmin(axis=1)
+            unique_idx = np.unique(idx_in_data)
+            rows = np.searchsorted(unique_idx, idx_in_data)
+            templates = np.zeros((n_model, unique_idx.size))
+            templates[common_idx, rows] = 1.0
+        else:
+            templates = np.zeros((n_model, common_idx.size))
+            templates[common_idx, np.arange(common_idx.size)] = 1.0
+        return templates

@@ -1,10 +1,12 @@
 """Correlation-function data: data vector, scale-cut masks, covariance,
 masked inverse covariance, log-determinant and distortion matrix.
 
-Counterpart of vega_tpu/data.py without small-scale marginalization
-templates, with the metal grids and matrices of the legacy metal-file
-mode (`_init_metals`), the metal pairs of the new-metals mode (whose
-matrices metals.py computes) and the cosmology of the file's header.
+Counterpart of vega_tpu/data.py, with the metal grids and matrices of the
+legacy metal-file mode (`_init_metals`), the metal pairs of the
+new-metals mode (whose matrices metals.py computes), the cosmology of
+the file's header and the small-scale marginalization templates
+(`_init_marginalization`: the distorted templates, the covariance update
+and the matrix that turns a residual into template coefficients).
 Host-side numpy throughout; the likelihood
 copies what it needs to the device. Monte-Carlo mocks
 (`create_monte_carlo`) draw from the numpy global RNG, as vega_tpu's do,
@@ -23,9 +25,17 @@ from .utils import (compute_log_cov_det, compute_masked_invcov, find_file,
 
 
 class Data:
-    """Data for one correlation component (reference: data.py:12-134)."""
+    """Data for one correlation component (reference: data.py:12-134).
 
-    def __init__(self, corr_item):
+    With small-scale marginalization configured, `marg_templates` holds
+    the distorted templates, `marg_diff2coeff_matrix` the coefficient
+    matrix and `num_marg_modes` the modes kept by the SVD; the covariance
+    takes `cov_marg_update` on its data-mask block unless
+    `marginalize_in_fit` (the templates are then fitted per evaluation
+    instead), and `effective_data_size` is the masked size less the
+    modes."""
+
+    def __init__(self, corr_item, marginalize_in_fit=False):
         self.corr_item = corr_item
         self.tracer1 = corr_item.tracer1
         self.tracer2 = corr_item.tracer2
@@ -62,16 +72,26 @@ class Data:
         self.variance = (np.ones(self.full_data_size)
                          if corr_item.low_mem_mode
                          else self._cov_mat.diagonal().copy())
-        # the covariance as read, for the plots (vega_tpu/data.py:75-79:
-        # an alias, since the port never updates the covariance in place)
+        # the covariance as read, for the plots (vega_tpu/data.py:75-79):
+        # an alias until the marginalization's update, which copies it
+        # first
         self.cov_mat_org = None if corr_item.low_mem_mode else self._cov_mat
         self.masked_data_vec = self.data_vec[self.data_mask]
+
+        # small-scale marginalization (vega_tpu/data.py:81-86)
+        self.marg_templates = None
+        self.cov_marg_update = None
+        self.marg_diff2coeff_matrix = None
+        self.num_marg_modes = 0
+        if corr_item.marginalize_small_scales:
+            self._init_marginalization(marginalize_in_fit)
 
         # Monte-Carlo state (vega_tpu/data.py:88-91)
         self._cholesky = None
         self._scale = 1.
         self.scaled_inv_masked_cov = None
         self.scaled_log_cov_det = None
+        self.effective_data_size = self.data_size - self.num_marg_modes
 
     def _wire_corr_item(self, corr_item):
         """Hand the metal grids and matrices read here, the broadband's
@@ -89,6 +109,87 @@ class Data:
             corr_item.init_broadband(self.coeff_binning_model)
         if self.cosmo_params is not None:
             corr_item.init_cosmo(self.cosmo_params)
+
+    def _init_marginalization(self, marginalize_in_fit):
+        """The distorted templates, the covariance update (on the
+        data-mask block, unless `marginalize_in_fit`) and the coefficient
+        matrix (T' C^-1 T + P)^-1 T' C^-1 from the inverse covariance
+        before the update, the prior P = sigma^-2 left out when both
+        fit-marginalized-scales and marginalize-match-data-bins are set
+        (vega_tpu/data.py:110-140)."""
+        self.marg_templates, self.cov_marg_update = \
+            self.get_dist_xi_marg_templates()
+
+        # the inverse of the covariance before the update, on the masks
+        # the templates may have widened
+        self._inv_masked_cov = None
+        invcov_pre = self.inv_masked_cov
+        self._inv_masked_cov = None
+
+        if marginalize_in_fit:
+            self.cov_marg_update = None
+        else:
+            if self.cov_mat_org is self._cov_mat:
+                self.cov_mat_org = self._cov_mat.copy()
+            self._cov_mat[np.ix_(self.data_mask, self.data_mask)] += \
+                self.cov_marg_update
+
+        templates_masked = self.marg_templates[self.model_mask, :]
+        g_mat = templates_masked.T.dot(invcov_pre)
+        a_mat = templates_masked.T.dot(g_mat.T).T
+        if not (self.corr_item.fit_marg_scales
+                and self.corr_item.marginalize_match_data_bins):
+            prior = self.corr_item.marginalize_small_scales_prior_sigma
+            a_mat = a_mat + np.diag(np.full(
+                self.marg_templates.shape[1], prior ** -2))
+        self.marg_diff2coeff_matrix = np.linalg.inv(a_mat).dot(g_mat)
+
+    def get_dist_xi_marg_templates(self, factor=1e-8, return_AAT=True):
+        """(templates, covariance update): the undistorted templates
+        through the distortion matrix, the data and model masks widened
+        to the marginalized bins with fit-marginalized-scales (the two
+        must then keep the same size), and sigma^2 U S^2 U' of the
+        masked templates' SVD, modes below `factor` of the largest
+        dropped (vega_tpu/data.py:482-525)."""
+        if not self.corr_item.marginalize_small_scales:
+            raise ValueError('Marginalization not configured')
+        if not self.has_distortion:
+            raise ValueError('Distortion matrix required for marginalization')
+
+        templates = self.corr_item.get_undist_xi_marg_templates()
+        templates = self.distortion_mat.dot(templates)
+
+        if self.corr_item.fit_marg_scales:
+            self.data_mask |= \
+                self.data_coordinates.get_mask_marginalization_scales(
+                    self.corr_item.config['cuts'],
+                    self.corr_item.marginalize_small_scales)
+            self.model_mask |= \
+                self.dist_model_coordinates.get_mask_marginalization_scales(
+                    self.corr_item.config['cuts'],
+                    self.corr_item.marginalize_small_scales)
+            if self.data_mask.sum() != self.model_mask.sum():
+                raise ValueError(
+                    'Data and model masks should be the same after '
+                    'marginalization scale cuts. Check rp-min for '
+                    'cross-correlations.')
+            self.masked_data_vec = self.data_vec[self.data_mask]
+
+        if not return_AAT:
+            return templates
+
+        t = templates * self.corr_item.marginalize_small_scales_prior_sigma
+        t = t[self.model_mask, :]
+        print(f'  There are {templates.shape[1]} templates. '
+              'SVD of template matrix to remove degenerate modes.')
+        u, s, _ = np.linalg.svd(t, full_matrices=False)
+        w = s > factor * s[0]
+        u = u[:, w]
+        s = s[w]
+        print(f'  There are {w.sum()} remaining modes for marginalization.')
+        self.num_marg_modes = int(w.sum())
+        cov_update = np.dot(u * s ** 2, u.T)
+        return templates, cov_update
 
     @property
     def cov_mat(self):

@@ -3,16 +3,26 @@
 // The reference builds these matrices in numpy by materializing all
 // O(n1*n2) pair products (reference: metals.py:502-654) — multi-GB
 // temporaries and minutes of wall clock for survey-sized stacked-delta
-// files. These kernels stream the pairs in OpenMP-parallel tiles with
-// per-thread accumulators; no pair array is ever materialized.
+// files. These kernels stream the pairs in OpenMP-parallel tiles; no
+// pair array is ever materialized.
 //
-// A copy of vega_tpu/native/pair_hist.cpp. Built at first use with
-// g++ -O3 -march=native -fopenmp -shared -fPIC into build/vega_tpu_torch/
-// and loaded with ctypes (see pair_hist.py).
+// Derived from vega_tpu/native/pair_hist.cpp, with one departure: the
+// sums are reproducible. vega_tpu's copy gives each thread the rows a
+// dynamic schedule hands it and adds the per-thread partials, so its
+// sums change from run to run and with the thread count. Here the rows
+// i are split into a fixed number of contiguous partitions
+// (kPartitions, whatever the thread count), each partition sums its rows
+// in order into its own partial, and the partials are added in partition
+// order: the same bits at any OMP_NUM_THREADS.
+//
+// Built at first use with g++ -O3 -march=native -fopenmp -shared -fPIC
+// into build/vega_tpu_torch/ and loaded with ctypes (see pair_hist.py).
 
 #include <cmath>
 #include <cstdint>
+#include <algorithm>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 #ifdef _OPENMP
@@ -31,6 +41,13 @@ inline int64_t find_bin(double x, double lo, double hi, int64_t n) {
     return b;
 }
 
+// The rows of tracer 1 are summed in this many contiguous partitions
+// (fewer when there are fewer rows), whatever the thread count.
+constexpr int64_t kPartitions = 64;
+// The partials are added into the outputs in blocks of this many entries,
+// one block per thread at a time.
+constexpr int64_t kReduceBlock = 512;
+
 }  // namespace
 
 extern "C" {
@@ -47,7 +64,8 @@ extern "C" {
 // w_ij = w1[i] * w2[j] * [zmin <= (az1[i]+az2[j])/2 <= zmax]
 // rp   = r1[i] - r2[j]  (absolute value if abs_rp != 0)
 //
-// All output buffers must be zero-initialized by the caller.
+// All output buffers must be zero-initialized by the caller. The sums
+// are the same bits at any thread count (the partitions above).
 void pair_histograms(
     // tracer 1
     const double* true_r1, const double* assumed_r1,
@@ -67,95 +85,95 @@ void pair_histograms(
     double* sum_assumed_rp, double* sum_z, double* ratio_hist) {
 
     const int64_t n2d = n_rp * n_rp;
+    const int64_t n_parts = n1 < kPartitions ? n1 : kPartitions;
+
+    // one partition's partials, contiguous: h2, sum_true, sum_assumed,
+    // sum_assumed_rp, sum_z, ratio_hist; zeroed by the thread that fills
+    // them, not here
+    const int64_t width = n2d + 4 * n_rp + n_ratio;
+    std::unique_ptr<double[]> partials(new double[n_parts * width]);
 
 #ifdef _OPENMP
-    const int max_threads = omp_get_max_threads();
-#else
-    const int max_threads = 1;
+#pragma omp parallel for schedule(dynamic, 1)
 #endif
+    for (int64_t p = 0; p < n_parts; ++p) {
+        double* h2_t = partials.get() + p * width;
+        std::fill(h2_t, h2_t + width, 0.0);
+        double* st_t = h2_t + n2d;
+        double* sa_t = st_t + n_rp;
+        double* sar_t = sa_t + n_rp;
+        double* sz_t = sar_t + n_rp;
+        double* rh_t = sz_t + n_rp;
+        const int64_t i_begin = p * n1 / n_parts;
+        const int64_t i_end = (p + 1) * n1 / n_parts;
 
-    std::vector<std::vector<double>> h2_loc(max_threads),
-        st_loc(max_threads), sa_loc(max_threads), sar_loc(max_threads),
-        sz_loc(max_threads), rh_loc(max_threads);
-    for (int t = 0; t < max_threads; ++t) {
-        h2_loc[t].assign(n2d, 0.0);
-        st_loc[t].assign(n_rp, 0.0);
-        sa_loc[t].assign(n_rp, 0.0);
-        sar_loc[t].assign(n_rp, 0.0);
-        sz_loc[t].assign(n_rp, 0.0);
-        rh_loc[t].assign(n_ratio, 0.0);
-    }
+        for (int64_t i = i_begin; i < i_end; ++i) {
+            const double tr1 = true_r1[i], ar1 = assumed_r1[i];
+            const double tz1 = true_z1[i], az1 = assumed_z1[i];
+            const double wi = w1[i];
+            if (wi == 0.0) continue;
 
-#ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic, 16)
-#endif
-    for (int64_t i = 0; i < n1; ++i) {
-#ifdef _OPENMP
-        const int tid = omp_get_thread_num();
-#else
-        const int tid = 0;
-#endif
-        double* h2_t = h2_loc[tid].data();
-        double* st_t = st_loc[tid].data();
-        double* sa_t = sa_loc[tid].data();
-        double* sar_t = sar_loc[tid].data();
-        double* sz_t = sz_loc[tid].data();
-        double* rh_t = rh_loc[tid].data();
+            for (int64_t j = 0; j < n2; ++j) {
+                const double zpair = 0.5 * (az1 + assumed_z2[j]);
+                if (zpair < zmin || zpair > zmax) continue;
+                const double w = wi * w2[j];
+                if (w == 0.0) continue;
 
-        const double tr1 = true_r1[i], ar1 = assumed_r1[i];
-        const double tz1 = true_z1[i], az1 = assumed_z1[i];
-        const double wi = w1[i];
-        if (wi == 0.0) continue;
+                double true_rp = tr1 - true_r2[j];
+                double assumed_rp = ar1 - assumed_r2[j];
+                if (abs_rp) {
+                    true_rp = std::fabs(true_rp);
+                    assumed_rp = std::fabs(assumed_rp);
+                }
 
-        for (int64_t j = 0; j < n2; ++j) {
-            const double zpair = 0.5 * (az1 + assumed_z2[j]);
-            if (zpair < zmin || zpair > zmax) continue;
-            const double w = wi * w2[j];
-            if (w == 0.0) continue;
+                const int64_t bt = find_bin(true_rp, rp_min, rp_max, n_rp);
+                const int64_t ba = find_bin(assumed_rp, rp_min, rp_max,
+                                            n_rp);
 
-            double true_rp = tr1 - true_r2[j];
-            double assumed_rp = ar1 - assumed_r2[j];
-            if (abs_rp) {
-                true_rp = std::fabs(true_rp);
-                assumed_rp = std::fabs(assumed_rp);
-            }
+                if (ba >= 0 && bt >= 0) h2_t[ba * n_rp + bt] += w;
+                if (bt >= 0) st_t[bt] += w;
+                if (ba >= 0) {
+                    sa_t[ba] += w;
+                    sar_t[ba] += w * assumed_rp;
+                    sz_t[ba] += w * 0.5 * (tz1 + true_z2[j]);
+                }
 
-            const int64_t bt = find_bin(true_rp, rp_min, rp_max, n_rp);
-            const int64_t ba = find_bin(assumed_rp, rp_min, rp_max, n_rp);
-
-            if (ba >= 0 && bt >= 0) h2_t[ba * n_rp + bt] += w;
-            if (bt >= 0) st_t[bt] += w;
-            if (ba >= 0) {
-                sa_t[ba] += w;
-                sar_t[ba] += w * assumed_rp;
-                sz_t[ba] += w * 0.5 * (tz1 + true_z2[j]);
-            }
-
-            if (std::fabs(true_rp) < rp_ratio_cut && n_ratio > 0) {
-                const double true_md = 0.5 * (tr1 + true_r2[j]);
-                const double assumed_md = 0.5 * (ar1 + assumed_r2[j]);
-                if (true_md != 0.0) {
-                    const double ratio = assumed_md / true_md;
-                    const int64_t br = find_bin(ratio, ratio_min, ratio_max,
-                                                n_ratio);
-                    if (br >= 0)
-                        rh_t[br] += w / (true_md * true_md);
+                if (std::fabs(true_rp) < rp_ratio_cut && n_ratio > 0) {
+                    const double true_md = 0.5 * (tr1 + true_r2[j]);
+                    const double assumed_md = 0.5 * (ar1 + assumed_r2[j]);
+                    if (true_md != 0.0) {
+                        const double ratio = assumed_md / true_md;
+                        const int64_t br = find_bin(ratio, ratio_min,
+                                                    ratio_max, n_ratio);
+                        if (br >= 0)
+                            rh_t[br] += w / (true_md * true_md);
+                    }
                 }
             }
         }
     }
 
-    for (int t = 0; t < max_threads; ++t) {
-        for (int64_t k = 0; k < n2d; ++k) h2[k] += h2_loc[t][k];
-        for (int64_t k = 0; k < n_rp; ++k) {
-            sum_true[k] += st_loc[t][k];
-            sum_assumed[k] += sa_loc[t][k];
-            sum_assumed_rp[k] += sar_loc[t][k];
-            sum_z[k] += sz_loc[t][k];
+    // each entry: the outputs' value, then the partitions' partials added
+    // in partition order, never thread order (entries in parallel)
+    double* outputs[6] = {h2, sum_true, sum_assumed, sum_assumed_rp, sum_z,
+                          ratio_hist};
+    const int64_t sizes[6] = {n2d, n_rp, n_rp, n_rp, n_rp, n_ratio};
+    std::vector<double> total(width);
+    for (int64_t o = 0, k = 0; o < 6; k += sizes[o++])
+        std::copy(outputs[o], outputs[o] + sizes[o], total.data() + k);
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (int64_t k0 = 0; k0 < width; k0 += kReduceBlock) {
+        const int64_t k1 = k0 + kReduceBlock < width ? k0 + kReduceBlock
+                                                     : width;
+        for (int64_t p = 0; p < n_parts; ++p) {
+            const double* part = partials.get() + p * width;
+            for (int64_t k = k0; k < k1; ++k) total[k] += part[k];
         }
-        for (int64_t k = 0; k < n_ratio; ++k)
-            ratio_hist[k] += rh_loc[t][k];
     }
+    for (int64_t o = 0, k = 0; o < 6; k += sizes[o++])
+        std::copy(total.data() + k, total.data() + k + sizes[o], outputs[o]);
 }
 
 // min/max of the distance ratios over ALL pairs — np.histogram with no

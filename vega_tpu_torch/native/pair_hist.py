@@ -44,11 +44,36 @@ def _cpu_model():
     return platform.processor() or platform.machine()
 
 
-def _build_key():
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(' '.join(GXX_FLAGS).encode())
-    h.update(_cpu_model().encode())
-    return h.hexdigest()[:16]
+def build_library(source, prefix):
+    """The path of the library built from the C++ file `source`, compiled
+    with GXX_FLAGS into BUILD_DIR as `{prefix}_{key}.so` unless it is
+    there, the key a hash of the source, the flags and the CPU model. The
+    build writes a temporary file and renames it into place, so a
+    concurrent process never loads a partial file. Raises RuntimeError
+    when g++ is missing or the build fails."""
+    source = Path(source)
+    key = hashlib.sha256(source.read_bytes())
+    key.update(' '.join(GXX_FLAGS).encode())
+    key.update(_cpu_model().encode())
+    path = BUILD_DIR / f'{prefix}_{key.hexdigest()[:16]}.so'
+    if path.is_file():
+        return path
+    gxx = shutil.which('g++')
+    if gxx is None:
+        raise RuntimeError('g++ not found: the pair histograms of the '
+                           'new-metals matrices are built from source at '
+                           'first use')
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [gxx, *GXX_FLAGS, str(source), '-o', tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'g++ failed ({proc.returncode}):\n'
+                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, path)
+    return path
 
 
 def _declare(lib):
@@ -69,29 +94,17 @@ def _declare(lib):
     return lib
 
 
+def load_source(source, prefix):
+    """Build (if needed) the library of `source` and load it, with the C
+    interface declared."""
+    return _declare(ctypes.CDLL(str(build_library(source, prefix))))
+
+
 @functools.cache
 def load_library():
-    """Build (if needed) and load the library; cached per process.
+    """Build (if needed) and load the port's library; cached per process.
     Raises RuntimeError when g++ is missing or the build fails."""
-    path = BUILD_DIR / f'libvega_tpu_torch_pair_hist_{_build_key()}.so'
-    if path.is_file():
-        return _declare(ctypes.CDLL(str(path)))
-    gxx = shutil.which('g++')
-    if gxx is None:
-        raise RuntimeError('g++ not found: the pair histograms of the '
-                           'new-metals matrices are built from source at '
-                           'first use')
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [gxx, *GXX_FLAGS, str(SOURCE), '-o', tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'g++ failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-    os.replace(tmp, path)   # atomic: a concurrent load sees no partial file
-    return _declare(ctypes.CDLL(str(path)))
+    return load_source(SOURCE, 'libvega_tpu_torch_pair_hist')
 
 
 def _as_c(arr):

@@ -180,6 +180,38 @@ def desi_extra_model(parameters=None):
             'cross': options + '\nradiation effects = True' + block}
 
 
+# BuildConfig's small-scale marginalization once switched on
+# (vega_tpu/build_config.py:105-115,325-341): the distorted scales each
+# correlation's r-min cut leaves out, a prior of 10, those bins fitted
+# and one template per data bin. With make_synthetic_dataset(...,
+# cross=True, metals=DESI_METALS, new_metals=True, with_distortion=True,
+# extra_model=marg_extra_model(desi_extra_model()),
+# sample=DESI_MARG_SAMPLE) this is the configuration synthetic-desi-marg
+# (per-correlation covariances); with `with_control(main,
+# 'marginalize-in-fit = True', path)` the templates are fitted per
+# evaluation instead of entering the covariance.
+MARG_MODEL = {'marginalize-all-rmin-cuts': 'True',
+              'marginalize-prior-sigma': '10.0',
+              'fit-marginalized-scales': 'True',
+              'marginalize-match-data-bins': 'True'}
+# [sample] entries (lower, upper, start, error) of its fits: (ap, at) on
+# the grid, the LYA and QSO biases and beta_LYA in the coefficient
+# program; DESI_MOCK_FIT_SAMPLE's limits, errors and starts
+DESI_MARG_SAMPLE = {
+    'ap': '0.5 1.5 1.02 0.02', 'at': '0.5 1.5 0.98 0.03',
+    'bias_LYA': '-1.0 0.0 -0.12 0.01', 'beta_LYA': '0.0 3.0 1.6 0.1',
+    'bias_QSO': '0.0 6.0 3.6 0.1'}
+
+
+def marg_extra_model(extra_model=''):
+    """`extra_model` (text, or {'auto': text, 'cross': text}) with
+    MARG_MODEL's options first in each correlation's [model]."""
+    lines = '\n'.join(f'{k} = {v}' for k, v in MARG_MODEL.items()) + '\n'
+    if isinstance(extra_model, dict):
+        return {k: lines + v for k, v in extra_model.items()}
+    return lines + extra_model
+
+
 # DESI DR1's baseline as run on mocks
 # (examples/DESI_mock_setup/make_configs.py:18-30): the DESI model with
 # Gaussian full-shape smoothing in [model] and in [metals], no Arinyo
@@ -939,7 +971,7 @@ def dr16_published_main(ini_files, template_file, out_file, sample=None,
 
 def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
                                 sample=None, extra_control=None,
-                                components=False):
+                                components=False, files_from=None):
     """eBOSS DR16's published configuration on synthetic data; returns the
     main ini's path. Four correlations (lyaxlya, lyaxlyb: 2500 bins each;
     lyaxqso, lybxqso: 5000 bins each at size='full'), the files of
@@ -951,29 +983,34 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
     metals). `sample` replaces the combined fit's [sample];
     `extra_control` ({option: value}) goes under [control]; components=True
     writes the components ([output] write_pk / write_cf) with the
-    departure DR16PUB_COMPONENTS_MODEL."""
+    departure DR16PUB_COMPONENTS_MODEL. `files_from`, the directory of an
+    earlier call at the same size, lends that call's template, data and
+    metal files: only the ini files are written in `workdir`, and no
+    model is evaluated."""
     from .vega_interface import VegaInterface, resolve_device
     device = resolve_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
+    source = workdir if files_from is None else Path(files_from)
     rng = np.random.default_rng(seed)
     tiny = size == 'tiny'
     nt = 10 if tiny else 50
-    template_file = workdir / 'fiducial_eh98.fits'
-    make_fiducial_template(template_file, n_k=128 if tiny else 814)
-
-    data_files, metal_files, crosses = {}, {}, {}
-    for name in DR16PUB_CORRELATIONS:
-        crosses[name] = name.endswith('xqso')
-        data_files[name] = workdir / f'cf_{name}.fits'
-        metal_files[name] = workdir / f'metal_{name}.fits'
-        coords = _write_correlation_data(data_files[name], crosses[name],
-                                         DR16PUB_ZEFF, rng, nt=nt)
-        write_metal_file(
-            metal_files[name], coords, DR16PUB_ZEFF, 'LYA',
-            'QSO' if crosses[name] else 'LYA', metals_in1=DR16PUB_METALS,
-            metals_in2=() if crosses[name] else DR16PUB_METALS,
-            rp_shifts=metal_rp_shifts(DR16PUB_METALS, DR16PUB_ZEFF))
+    template_file = source / 'fiducial_eh98.fits'
+    data_files = {n: source / f'cf_{n}.fits' for n in DR16PUB_CORRELATIONS}
+    metal_files = {n: source / f'metal_{n}.fits'
+                   for n in DR16PUB_CORRELATIONS}
+    crosses = {n: n.endswith('xqso') for n in DR16PUB_CORRELATIONS}
+    if files_from is None:
+        make_fiducial_template(template_file, n_k=128 if tiny else 814)
+        for name in DR16PUB_CORRELATIONS:
+            coords = _write_correlation_data(data_files[name], crosses[name],
+                                             DR16PUB_ZEFF, rng, nt=nt)
+            write_metal_file(
+                metal_files[name], coords, DR16PUB_ZEFF, 'LYA',
+                'QSO' if crosses[name] else 'LYA',
+                metals_in1=DR16PUB_METALS,
+                metals_in2=() if crosses[name] else DR16PUB_METALS,
+                rp_shifts=metal_rp_shifts(DR16PUB_METALS, DR16PUB_ZEFF))
     ini_files = []
     for name in DR16PUB_CORRELATIONS:
         ini_files.append(workdir / f'{name}.ini')
@@ -989,6 +1026,8 @@ def make_dr16_published_dataset(workdir, size='full', device='cuda', seed=0,
             ini_files, template_file,
             workdir / 'output_fitter' / '_'.join(DR16PUB_CORRELATIONS),
             sample, extra_control, components).write(fh)
+    if files_from is not None:
+        return main_path
 
     # the data vectors: the model at the configuration's parameters
     model_cf = VegaInterface(main_path, device=device).compute_model(
@@ -1109,6 +1148,24 @@ LYACOLORE_FIT_SAMPLE = {
     'par_sigma_smooth': '0.0 10.0 2.2 0.1',
     'per_sigma_smooth': '0.0 10.0 2.6 0.1',
 }
+
+
+def with_control(main_ini, lines, path, sections=''):
+    """Write a copy of the main ini `main_ini` at `path` (which may be
+    `main_ini`) with `lines` ('option = value' lines) added to its
+    [control] section and `sections` (ini text of further sections)
+    after it; returns `path`."""
+    config = _ini_parser()
+    config.read(main_ini)
+    if 'control' not in config:
+        config['control'] = {}
+    for line in lines.strip().splitlines():
+        key, value = line.split('=', 1)
+        config['control'][key.strip()] = value.strip()
+    with open(path, 'w') as fh:
+        config.write(fh)
+        fh.write(sections)
+    return Path(path)
 
 
 def with_sample(main_ini, sample, path):

@@ -62,7 +62,19 @@ one rebuilt model per step; `compute_sensitivity_exact` from exact
 partials of vega_tpu's component graph, forward-mode columns taken as
 one double backward (`_component_jacobian`).
 
-Marginalization and blinding beyond "none" are not ported yet.
+Small-scale marginalization (the [model] marginalize-* options of a
+correlation, data.py): by default the templates enter the covariance
+(its update, made once on the host), and every path runs on that
+covariance's masked inverse. With [control] marginalize-in-fit = True
+the covariance stays as read and each evaluation fits the templates to
+its residual instead: coefficients D2C (d - m[mask]) per row, the model
+plus T . coefficients (vega_interface.py:441-447,532-544); every such
+call is dense, as in vega_tpu. `chi2` / `log_lik` with
+return_marg_coeff=True, `compute_marg_coeff` and the fit's
+`bestfit_corr_stats` give the coefficients; `corr_num_marg_modes` the
+modes per correlation, the samplers' derived columns.
+
+Blinding beyond "none" is not ported yet.
 """
 
 from __future__ import annotations
@@ -190,9 +202,12 @@ class VegaInterface:
                              and global_cov_file is not None)
         if control and control.getboolean('model_pk', False):
             raise not_ported('model_pk', 5)
-        if control and control.getboolean('marginalize-in-fit', False):
-            raise not_ported('marginalize-in-fit', 5)
+        # the templates fitted per evaluation instead of entering the
+        # covariance (vega_interface.py:77-79)
+        self.marginalize_in_fit = (
+            bool(control) and control.getboolean('marginalize-in-fit', False))
         for feature, on in (
+                ('marginalize-in-fit', self.marginalize_in_fit),
                 ('a global covariance', global_cov_file is not None),
                 ('the samplers', bool(control)
                  and control.getboolean('run_sampler', False)),
@@ -210,6 +225,8 @@ class VegaInterface:
             for feature in ('metals', 'broadband'):
                 if feature in config:
                     refuse_f32(self.dtype, feature)
+            if self.corr_items[name].marginalize_small_scales:
+                refuse_f32(self.dtype, 'Small-scale marginalization')
 
         self.params = self._read_parameters(self.corr_items,
                                             self.main_config['parameters'])
@@ -237,7 +254,8 @@ class VegaInterface:
 
         if not all(item.has_data for item in self.corr_items.values()):
             raise not_ported('Correlations without a data file', 5)
-        self.data = {name: Data(item)
+        self.data = {name: Data(item,
+                                marginalize_in_fit=self.marginalize_in_fit)
                      for name, item in self.corr_items.items()}
 
         self.scale_params = ScaleParameters(self.main_config['cosmo-fit type'])
@@ -310,9 +328,9 @@ class VegaInterface:
                                  self.data, self.mc_config, self.global_cov,
                                  grad_func=self.chi2_gradient,
                                  hess_func=self.chi2_hessian, vega=self)
-        # the port has no marginalization templates (they raise at
-        # construction): no correlation carries derived sampler columns
-        self.corr_num_marg_modes = None
+        # the samplers' derived columns (vega_interface.py:201-204)
+        self.corr_num_marg_modes = {name: self.data[name].num_marg_modes
+                                    for name in self.corr_items}
         self.output = Output(self.main_config['output'], self.data,
                              self.corr_items, self.analysis)
 
@@ -366,7 +384,10 @@ class VegaInterface:
         model mask) to the device: per correlation, or under a global
         covariance once for the concatenated correlations (key
         '_global', vega_interface.py:271-277). The data vectors change
-        with Monte-Carlo mocks: `_device_data_vecs` copies those."""
+        with Monte-Carlo mocks: `_device_data_vecs` copies those. Under
+        marginalize-in-fit also the templates (`_set_marg_constants`)."""
+        if self.marginalize_in_fit:
+            self._set_marg_constants()
         if self._use_global_cov:
             self._chi2_data = {'_global': {
                 'inv_cov': to_tensor(self.masked_global_invcov,
@@ -384,6 +405,35 @@ class VegaInterface:
                     np.flatnonzero(d.model_mask), dtype=torch.int64,
                     device=self.device),
             }
+
+    def _set_marg_constants(self):
+        """The templates T (n_model, n_t) and the coefficient matrix D2C
+        (n_t, n_masked) of each marginalized correlation on the device,
+        for marginalize-in-fit (vega_interface.py:269-285); per
+        correlation, also beside a global covariance."""
+        self._marg_data = {
+            name: {'templates': to_tensor(d.marg_templates, self.device,
+                                          self.dtype),
+                   'diff2coeff': to_tensor(d.marg_diff2coeff_matrix,
+                                           self.device, self.dtype),
+                   'model_index': torch.as_tensor(
+                       np.flatnonzero(d.model_mask), dtype=torch.int64,
+                       device=self.device)}
+            for name, d in self.data.items()
+            if d.marg_diff2coeff_matrix is not None}
+
+    def _fit_marg_templates(self, name, model, data_vecs):
+        """marginalize-in-fit: the model (B, n_model) plus T . coeff, with
+        coeff = D2C (d - m[mask]) per row (vega_interface.py:441-447,
+        532-544); the model as given for a correlation without
+        templates. Two GEMMs, which vega_tpu runs outside any Pallas
+        kernel."""
+        marg = self._marg_data.get(name)
+        if marg is None:
+            return model
+        diff = data_vecs[name] - model[:, marg['model_index']]
+        coeff = diff @ marg['diff2coeff'].T
+        return model + coeff @ marg['templates'].T
 
     def _current_data_vecs(self):
         """The masked data vector each chi^2 compares with, host numpy:
@@ -512,7 +562,12 @@ class VegaInterface:
                 cf, cf_bad = self.models[name].compute(
                     local_params, self._pk_full, self._pk_smooth,
                     use_kernel=use_kernel, sampling=sampling)
-                models.append(densify(cf).expand(n_b, -1))
+                model = densify(cf).expand(n_b, -1)
+                if self.marginalize_in_fit:
+                    # per-correlation data vectors, which a joint
+                    # covariance does not keep: vega_tpu's KeyError
+                    model = self._fit_marg_templates(name, model, data_vecs)
+                models.append(model)
                 bad = bad | cf_bad
             joint = self._chi2_data['_global']
             diff = (data_vecs['_global']
@@ -554,6 +609,9 @@ class VegaInterface:
                         local_params, self._pk_full, self._pk_smooth,
                         use_kernel=use_kernel, sampling=sampling)
                     model = densify(cf).expand(n_b, -1)
+                    if self.marginalize_in_fit:
+                        model = self._fit_marg_templates(name, model,
+                                                         data_vecs)
                     diff = data_vecs[name] - model[:, arrays['model_index']]
                     corr_chi2 = quadratic_rows(diff, arrays['inv_cov'])
                     bad = bad | cf_bad
@@ -625,15 +683,53 @@ class VegaInterface:
             log_lik = log_lik + self._gaussian_lik_prior(prior[1])
         return log_lik
 
-    def chi2(self, params=None):
+    def chi2(self, params=None, return_marg_coeff=False):
         """Full chi^2 at one parameter point (reference:
-        vega_interface.py:250-325): a batch of one."""
-        return float(self.chi2_batch(params or {})[0])
+        vega_interface.py:1178-1226): a batch of one. return_marg_coeff
+        also gives {name: the best-fit template coefficients} of the
+        model at the point (`compute_marg_coeff`), which under
+        marginalize-in-fit are the ones the chi^2 fitted."""
+        chi2 = float(self.chi2_batch(params or {})[0])
+        if return_marg_coeff:
+            return chi2, self.compute_marg_coeff(
+                self.compute_model(params, run_init=False))
+        return chi2
 
-    def log_lik(self, params=None):
-        """Full log-likelihood (reference: vega_interface.py:327-387): a
-        batch of one."""
-        return float(self.log_lik_batch(params or {})[0])
+    def log_lik(self, params=None, return_marg_coeff=False):
+        """Full log-likelihood (reference: vega_interface.py:1270-1292): a
+        batch of one. return_marg_coeff also gives the coefficients of
+        every marginalized correlation in one array, correlations in
+        sorted order (None without any)."""
+        if not return_marg_coeff:
+            return float(self.log_lik_batch(params or {})[0])
+        chi2, marg_coeff = self.chi2(params, return_marg_coeff=True)
+        log_lik = self._log_norm() - 0.5 * chi2
+        for prior in self.priors.values():
+            log_lik += self._gaussian_lik_prior(prior[1])
+        marg_list = None
+        if marg_coeff:
+            corr_names = sorted(n for n in self.corr_items if n in marg_coeff)
+            marg_list = (np.hstack([marg_coeff[c] for c in corr_names])
+                         if corr_names else np.array([]))
+        return log_lik, marg_list
+
+    def compute_marg_coeff(self, model_cf):
+        """{name: D2C (d - m[mask])} for each marginalized correlation of
+        the host models `model_cf`, against the Monte-Carlo mock in MC
+        mode (vega_interface.py:1354-1368)."""
+        coeffs = {}
+        for name in self.corr_items:
+            corr_data = self.data[name]
+            if corr_data.marg_diff2coeff_matrix is None:
+                continue
+            if self.monte_carlo:
+                diff = corr_data.masked_mc_mock \
+                    - model_cf[name][corr_data.model_mask]
+            else:
+                diff = corr_data.masked_data_vec \
+                    - model_cf[name][corr_data.model_mask]
+            coeffs[name] = corr_data.marg_diff2coeff_matrix.dot(diff)
+        return coeffs
 
     def _log_norm(self):
         """(vega_interface.py:1294-1306)"""
@@ -762,9 +858,10 @@ class VegaInterface:
         """Minimize chi^2 over the sampled parameters, then the best-fit
         model, per-correlation chi^2, reduced chi^2 and PTE
         (vega_interface.py:1443-1502): against the Monte-Carlo mock and
-        its scaled covariance in MC mode. The port has no marginalization
-        templates (they raise at construction), so the effective size is
-        the masked size."""
+        its scaled covariance in MC mode; with marginalization each
+        correlation's effective size, its best-fit template coefficients
+        and the templates added to its best-fit model
+        (vega_interface.py:1476-1490)."""
         if self.minimizer is None:
             print('No sampled parameters. Skipping minimization.')
             return
@@ -780,8 +877,9 @@ class VegaInterface:
         print('\n----------------------------------------------------')
         for name in self.corr_items:
             corr_data = self.data[name]
-            data_size = corr_data.data_size
+            data_size = corr_data.effective_data_size
             self.total_data_size += data_size
+            diff = None
             if self.monte_carlo and self._use_global_cov:
                 # no per-correlation mock (vega_interface.py:1464-1466)
                 chisq = 0
@@ -793,6 +891,12 @@ class VegaInterface:
                 diff = corr_data.masked_data_vec \
                     - self.bestfit_model[name][corr_data.model_mask]
                 chisq = diff.T.dot(corr_data.inv_masked_cov.dot(diff))
+            bestfit_marg_coeff = None
+            if (corr_data.marg_diff2coeff_matrix is not None
+                    and diff is not None):
+                bestfit_marg_coeff = corr_data.marg_diff2coeff_matrix.dot(diff)
+                self.bestfit_model[name] = self.bestfit_model[name] + \
+                    corr_data.marg_templates.dot(bestfit_marg_coeff)
             reduced_chisq = chisq / (data_size - num_pars)
             p_value = 1 - scipy.stats.chi2.cdf(chisq, data_size - num_pars)
             print(f'{name} chi^2/(ndata-nparam): {chisq:.1f}/({data_size}'
@@ -801,7 +905,7 @@ class VegaInterface:
             self.bestfit_corr_stats[name] = {
                 'masked_size': data_size, 'chisq': chisq,
                 'reduced_chisq': reduced_chisq, 'p_value': p_value,
-                'bestfit_marg_coeff': None,
+                'bestfit_marg_coeff': bestfit_marg_coeff,
             }
 
         self.chisq = self.minimizer.fmin.fval
@@ -1064,14 +1168,17 @@ class VegaInterface:
         return mocks
 
     @torch.no_grad()
-    def compute_model(self, params=None, run_init=True, use_kernel=True):
+    def compute_model(self, params=None, run_init=True, use_kernel=True,
+                      marg_coeff=None):
         """Model correlations at one point as numpy arrays
         (vega_interface.py:1015-1099); raises VegaModelError where the
         chi^2 would take the penalty. run_init=True builds the models
         anew first, so that a changed fiducial (save-components) takes
         effect, and drops the collapses built from the old ones
         (vega_interface.py:1060-1071). With save-components each model
-        keeps this evaluation's components."""
+        keeps this evaluation's components. `marg_coeff` ({name:
+        coefficients}) adds each marginalized correlation's templates
+        times its coefficients (vega_interface.py:1093-1097)."""
         if run_init:
             self._build_models()
             self._collapsed_cache = {}
@@ -1085,7 +1192,14 @@ class VegaInterface:
         if bool(bad.any()):
             raise utils.VegaModelError(
                 'Model evaluation failed (out-of-bounds interpolation)')
-        return {name: cf[0].cpu().numpy() for name, cf in model_cf.items()}
+        model_cf = {name: cf[0].cpu().numpy()
+                    for name, cf in model_cf.items()}
+        if marg_coeff is not None:
+            for name in self.data:
+                if self.data[name].marg_templates is not None:
+                    model_cf[name] = model_cf[name] + \
+                        self.data[name].marg_templates.dot(marg_coeff[name])
+        return model_cf
 
     # ------------------------------------------------------------------
     # Collapses (vega_interface.py:288-348,563-875)
@@ -1097,10 +1211,12 @@ class VegaInterface:
         correlation whose model stays factored, else {} (dense path).
         with_data_terms=False skips the data-side (y, s) terms and gives
         {} for a grid payload, which bakes the data vector in. Under a
-        global covariance always {}: every call is served densely, as
-        vega_tpu serves it (vega_interface.py:578)."""
+        global covariance or marginalize-in-fit always {}: every call is
+        served densely, as vega_tpu serves it (vega_interface.py:
+        576-579)."""
         key = frozenset(sample_names)
-        if not key or not self._factored or self._use_global_cov:
+        if (not key or not self._factored or self._use_global_cov
+                or self.marginalize_in_fit):
             return {}
         grid_names = self._grid_candidate_names(key)
         if grid_names:
@@ -1120,8 +1236,8 @@ class VegaInterface:
         correlation W = V_m Ci, A = W V_m', the unmasked basis V, the
         coefficients c0 at the current values and m0 = c0 @ V_m; one
         model run on the device, returned as host numpy. {} under a
-        global covariance (vega_interface.py:305)."""
-        if self._use_global_cov:
+        global covariance or marginalize-in-fit (vega_interface.py:305)."""
+        if self._use_global_cov or self.marginalize_in_fit:
             return {}
         if self._chi2_data is None:
             self.set_chi2_constants()
@@ -1457,6 +1573,24 @@ class VegaInterface:
             [self.data[name].data_mask for name in self.corr_items])
         self.full_model_mask = np.concatenate(
             [self.data[name].model_mask for name in self.corr_items])
+
+        # each marginalized correlation's covariance update on its block
+        # (vega_interface.py:1844-1857)
+        if any(item.marginalize_small_scales
+               for item in self.corr_items.values()):
+            print('Updating global covariance with marginalization templates.')
+            j = 0
+            for name in self.corr_items:
+                data = self.data[name]
+                ndata = data.full_data_size
+                wd = data.data_mask
+                if self.corr_items[name].marginalize_small_scales:
+                    block = self.global_cov[j:j + ndata, j:j + ndata]
+                    if data.cov_marg_update is not None:
+                        block[np.ix_(wd, wd)] += data.cov_marg_update
+                    if self.low_mem_mode:
+                        del data.cov_marg_update
+                j += ndata
 
         if self.low_mem_mode:
             masked_cov = self.global_cov[np.ix_(self.full_data_mask,
