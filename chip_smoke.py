@@ -164,6 +164,35 @@ configuration, with no JAX:
      chi^2 and value and gradient (1e-8), the coefficients (1e-8), a fit
      and its bestfit_marg_coeff as above;
    it fails unless both fits launched Ft_d.
+9c. the likelihood options (phase options), against
+   tests/data/torch_port_options_goldens.json (vega_tpu on the same
+   seeded files, tests/tools/make_torch_port_options_goldens.py):
+   - configuration synthetic-desi-dr3-full: phase desi's files, the auto
+     and the cross copied with BLINDING = desi_dr3 and a seeded DA_BLIND
+     column (testing.with_blinding; the cross's line of sight reversed
+     for BuildConfig's lyaxqso), the configs of DESI DR1's baseline
+     written by the port's BuildConfig (testing.write_desi_example_configs:
+     examples/DESI_data_setup/make_configs.py's options, 17 names with
+     bias_QSO and no beta_QSO, priors), equal as text to vega_tpu's apart
+     from the date and git-hash lines; every data vector DA_BLIND; dense
+     chi2_batch at the goldens' 8 points (1e-8 relative; the shift from
+     the unblinded chi^2 reported beside the JAX one) and at 8192 rows
+     (finite; evals/s), and minimize() against the JAX fit (values 1e-3
+     of the JAX errors, errors 1e-3 relative, fval 1e-4); it fails unless
+     the metal stacks launched F_0 and the fit a kernel of order d >= 1
+     and Ft_d;
+   - use_full_pk_for_mc on phase mc's files with an empty [sample]: the
+     fiducial of get_fiducial_for_monte_carlo (Model.compute_direct,
+     through F_0) within 1e-10 of max|ref| of the JAX fiducial, 32 mocks
+     around it fitted in one chunk over (ap, at, bias_LYA, beta_LYA), and
+     the goldens' 4 numpy mocks against the JAX fits (as phase mc);
+     profiling.time_likelihood on that interface (first call and steady
+     rate) and one profiling.trace;
+   - model_pk on the same files: compute_model's (4, 814) multipoles of
+     both correlations within 1e-10 of max|ref| of vega_tpu's;
+   - has_datafile = False in both correlations: the interface holds what
+     vega_tpu's holds (no data, models, plots or modes) and each
+     evaluation raises vega_tpu's exception.
 10. eBOSS DR16's 13-name combined fit (phase table6), configuration
    synthetic-dr16-table6-full: the DR16-shaped dataset with
    testing.TABLE6_SAMPLE sampled (ap, at, drp_QSO,
@@ -280,8 +309,8 @@ configuration, with no JAX:
      (model.metals) among them, against vega_tpu's (1e-10 of max|ref|
      at 64 indices and in norm);
    - compute_sensitivity_exact over the 18 names at the goldens' nominal
-     (1e-9) and compute_sensitivity over (ap, at, bias_eta_LYA,
-     beta_LYA), 8 rebuilds (1e-8), partials and Fisher sums;
+     (1e-9) and compute_sensitivity over (ap, at), 4 rebuilds (1e-8),
+     partials and Fisher sums;
    it fails unless the exact Jacobian launched F_0, a kernel of order
    d >= 1 and the transpose.
 
@@ -340,6 +369,8 @@ MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
 UV_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_uv_goldens.json'
 MARG_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_marg_goldens.json'
+OPTIONS_GOLDENS = (ROOT / 'tests' / 'data'
+                   / 'torch_port_options_goldens.json')
 # the marg phase's template coefficients against the JAX package's, of
 # their largest entry (PERF.md section 2)
 MARG_COEFF_RTOL = 1e-8
@@ -362,6 +393,10 @@ F32_FIT_SIGMA = 1e-2
 COMPONENT_RTOL = 1e-10
 SENSITIVITY_EXACT_RTOL = 1e-9
 SENSITIVITY_FD_RTOL = 1e-8
+# the run_vega phase's central differences over the first two of the
+# goldens' four names (ap, at): 4 model rebuilds (8 until the options
+# phase was added)
+FD_SENSITIVITY_NAMES = 2
 COMPONENT_SUM_RTOL = 1e-12
 # the payload's node-convergence floor against the dense chi^2 (vega_tpu
 # measured 1.6e-3 at most on the reference data, docs/performance.md:
@@ -400,11 +435,11 @@ KERNEL_HESS_RTOL = 1e-9      # and Hessians
 # best fits: |d value| <= FIT_VALUE_SIGMA x the JAX error, errors within
 # FIT_ERROR_RTOL, |d fval| <= FIT_FVAL_ABS
 FIT_VALUE_SIGMA = {'grid': 1e-2, 'dense': 1e-3, 'joint': 1e-2,
-                   'published': 1e-2, 'mock': 1e-2}
+                   'published': 1e-2, 'mock': 1e-2, 'blinded': 1e-3}
 FIT_ERROR_RTOL = {'grid': 1e-3, 'dense': 1e-5, 'joint': 1e-3,
-                  'published': 1e-3, 'mock': 1e-3}
+                  'published': 1e-3, 'mock': 1e-3, 'blinded': 1e-3}
 FIT_FVAL_ABS = {'grid': GRID_ABS_TOL, 'dense': 1e-8, 'joint': 1e-4,
-                'published': 1e-4, 'mock': 1e-4}
+                'published': 1e-4, 'mock': 1e-4, 'blinded': 1e-4}
 # the desi phase's global mock against the JAX one: the same numpy draw
 # around each package's own best fit; its dense calls take 1.6 s each, so
 # two timed rounds
@@ -423,6 +458,13 @@ DEFAULT_FIT_CHUNK = 8
 # golden mock fits: values within MC_VALUE_SIGMA of the JAX errors,
 # errors within MC_ERROR_RTOL, chi^2 within MC_CHI2_ABS, valid equal
 MC_VALUE_SIGMA, MC_ERROR_RTOL, MC_CHI2_ABS = 1e-3, 1e-5, 1e-8
+# the options phase: compute_direct's fiducial and the model_pk
+# multipoles against vega_tpu's, max|diff| <= OPTION_MODEL_RTOL
+# max|ref|; mocks fitted around the fiducial in one chunk; calls of
+# profiling.time_likelihood
+OPTION_MODEL_RTOL = 1e-10
+OPTIONS_MOCKS = 32
+PROFILE_EVALS = 20
 # rows are independent: a scan point's fval in chunks of 8 vs in one chunk
 # differs only by round-off in the last Newton steps
 SCAN_CHUNK_FVAL_ABS = 1e-8
@@ -440,8 +482,10 @@ SAMPLER_LOGL_RTOL = 1e-9
 EVOLVE_LOGL_RTOL = 1e-12
 NS_HOST_ITERATIONS = 3
 SMC_SETTINGS = {'n_effective': 512, 'n_mcmc': 5, 'seed': 0}
-HMC_GRID_SETTINGS = {'num_chains': 32, 'num_warmup': 200,
-                     'num_samples': 200, 'num_leapfrog': 16, 'seed': 0}
+# 100 + 100 trajectories (200 + 200 until the options phase was added:
+# 3,200 draws still hold the moments to their bounds)
+HMC_GRID_SETTINGS = {'num_chains': 32, 'num_warmup': 100,
+                     'num_samples': 100, 'num_leapfrog': 16, 'seed': 0}
 HMC_DENSE_SETTINGS = {'num_chains': 32, 'num_warmup': 20, 'num_samples': 20,
                       'num_leapfrog': 8, 'seed': 0}
 # the dense log-likelihood's evolution as a graph: chains, repeats,
@@ -3023,6 +3067,278 @@ def run_desi_path(device, work, card):
 
 
 # ----------------------------------------------------------------------
+# The likelihood options: blinded DESI data written by BuildConfig,
+# use_full_pk_for_mc, model_pk, data-free correlations, profiling
+# ----------------------------------------------------------------------
+INI_HEADER = re.compile(r'^# (File written on|vega_tpu(_torch)? git hash:) '
+                        r'.*$', re.MULTILINE)
+
+
+def config_texts(out_dir, desi_dir):
+    """{file name: text} of the ini files BuildConfig wrote into
+    `out_dir`, the date and git-hash lines blanked and the two
+    directories replaced by '<out>' and '<desi>', as
+    tests/tools/make_torch_port_options_goldens.py keeps vega_tpu's."""
+    return {p.name: INI_HEADER.sub('#', p.read_text())
+            .replace(str(out_dir), '<out>').replace(str(desi_dir), '<desi>')
+            for p in sorted(Path(out_dir).glob('*.ini'))}
+
+
+def raised(fn):
+    """The name of the exception fn() raises (None if it returns): the
+    data-free interface's calls are expected to raise as vega_tpu's do."""
+    try:
+        fn()
+    except Exception as exc:
+        return type(exc).__name__
+    return None
+
+
+def run_options_desi_dr3(device, work, want, blind_seeds, launches, checks):
+    """Part (a) of the options phase: synthetic-desi-dr3-full."""
+    from vega_tpu_torch.build_config import BuildConfig
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.testing import (with_blinding,
+                                        write_desi_example_configs)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    desi_dir = Path(work) / 'desi'
+    out = Path(work) / 'options' / 'desi_dr3'
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    files = {
+        'auto': with_blinding(desi_dir / 'cf_synthetic.fits', 'desi_dr3',
+                              out / 'cf_desi.fits', seed=blind_seeds['auto']),
+        'cross': with_blinding(desi_dir / 'xcf_synthetic.fits', 'desi_dr3',
+                               out / 'xcf_desi.fits',
+                               seed=blind_seeds['cross'], flip_rp=True),
+        'stack': desi_dir / 'delta_stack.fits',
+        'catalog': desi_dir / 'qso_catalog.fits',
+        'template': desi_dir / 'fiducial_eh98.fits'}
+    main = write_desi_example_configs(BuildConfig, out, files)
+    texts = config_texts(out, desi_dir)
+    log(f'options desi_dr3: blinded copies and BuildConfig\'s configs '
+        f'{sorted(texts)} in {time.perf_counter() - t0:.2f} s')
+    if texts != want['configs']:
+        fail('options desi_dr3: the port\'s BuildConfig files differ from '
+             'vega_tpu\'s in ' + str(sorted(
+                 n for n in set(texts) | set(want['configs'])
+                 if texts.get(n) != want['configs'].get(n))))
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        vega = VegaInterface(main, device=device)
+    names = want['names']
+    log(f'options desi_dr3: interface in {time.perf_counter() - t0:.2f} s, '
+        f'{len(names)} names sampled, blind {vega._blind}, offsets '
+        f'{vega._rnsps}')
+    if sorted(vega.sample_params['limits']) != sorted(names):
+        fail(f'options desi_dr3 samples {sorted(vega.sample_params["limits"])}')
+    if not vega._blind or vega._rnsps is not None:
+        fail('options desi_dr3: the interface is not blinded as vega_tpu\'s')
+    for name, path in (('lyaxlya', files['auto']),
+                       ('lyaxqso', files['cross'])):
+        if not (vega.data[name].blind and np.array_equal(
+                vega.data[name].data_vec, read_fits(path)[1]['DA_BLIND'])):
+            fail(f'options desi_dr3: {name} does not read DA_BLIND')
+
+    # the dense regime: counts from zero
+    seen = watch_metals(vega)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        got = vega.chi2_batch(want['params']).cpu().numpy()
+        batches = desi_rows(vega.params, names, BATCH,
+                            np.random.default_rng(0))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        chi2 = vega.chi2_batch(batches).cpu().numpy()
+        first_s = time.perf_counter() - t0
+        for name in batches:
+            batches[name] = batches[name] + 1e-9
+        t0 = time.perf_counter()
+        vega.chi2_batch(batches).cpu()
+        timed_s = time.perf_counter() - t0
+    launches['options_desi_dr3_dense'] = dict(LAUNCHES)
+    blinded = np.asarray(want['chi2_blinded'])
+    rel = float(np.max(np.abs(got - blinded) / np.abs(blinded)))
+    shift = got - np.asarray(want['chi2_unblinded'])
+    jax_shift = blinded - np.asarray(want['chi2_unblinded'])
+    log(f'options desi_dr3 dense chi2 on DA_BLIND vs JAX goldens '
+        f'({len(got)} points): max relative diff {rel:.3e}; moved from the '
+        f'unblinded chi2 by [{shift.min():.6g}, {shift.max():.6g}] (JAX '
+        f'[{jax_shift.min():.6g}, {jax_shift.max():.6g}])')
+    if not rel <= GOLDEN_RTOL:
+        fail(f'options desi_dr3 dense chi2 differs from the JAX goldens by '
+             f'{rel:.3e}')
+    if chi2.shape != (BATCH,) or not np.all(np.isfinite(chi2)) \
+            or np.any(chi2 >= 1e100):
+        fail('options desi_dr3 chi2_batch is not finite without a penalty')
+    log(f'options desi_dr3 dense chi2_batch({BATCH}): first call '
+        f'{first_s:.3f} s, then {BATCH / timed_s:.1f} evals/s ({timed_s:.4f} '
+        f's), chi2 in [{chi2.min():.6g}, {chi2.max():.6g}], kernel launches '
+        f'{launches["options_desi_dr3_dense"]}, '
+        f'{metal_launches(seen, "F")} of F_0 from the metal stacks')
+    if not metal_launches(seen, 'F'):
+        fail('the options desi_dr3 dense path launched no F_0 from '
+             'metals.py')
+    checks += check_launches(device, 'options_desi_dr3_dense', layouts)
+
+    # the fit: counts from zero
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        timed_fit(device, vega, 'options desi_dr3 dense')
+        check_fit('options desi_dr3 dense', 'blinded', vega, names,
+                  want['fit'])
+    launches['options_desi_dr3_fit'] = dict(LAUNCHES)
+    counts = launches['options_desi_dr3_fit']
+    log(f'options desi_dr3 fit kernel launches: {counts}')
+    if not (any(n for (p, d), n in counts.items() if d >= 1)
+            and any(n for (p, _), n in counts.items() if p == 'Ft')):
+        fail('the options desi_dr3 fit launched no kernel of order d >= 1 '
+             'or no transpose')
+    checks += check_launches(device, 'options_desi_dr3_fit', layouts)
+
+
+def run_options_path(device, work, card):
+    """Phase options (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    from vega_tpu_torch import profiling
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import MonteCarloEngine
+    from vega_tpu_torch.testing import with_control, with_sample
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens = json.loads(OPTIONS_GOLDENS.read_text())
+    t_phase = time.perf_counter()
+    launches, checks = {}, []
+    run_options_desi_dr3(device, work, goldens['desi_dr3'],
+                         goldens['blind_seeds'], launches, checks)
+    log(f'options desi_dr3: {time.perf_counter() - t_phase:.1f} s')
+
+    # (b) use_full_pk_for_mc on the mc phase's files: no [sample], so no
+    # initial fit; counts from zero
+    t0 = time.perf_counter()
+    mc_ini = Path(work) / 'mc' / 'main.ini'
+    options = Path(work) / 'options'
+    direct_ini = with_control(with_sample(mc_ini, {}, options / 'direct.ini'),
+                              'use_full_pk_for_mc = True',
+                              options / 'direct.ini')
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        vega = VegaInterface(direct_ini, device=device)
+    want = goldens['direct']
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        fiducial = vega.get_fiducial_for_monte_carlo(print_func=log)
+        fiducial_ms = 1e3 * (time.perf_counter() - t1)
+        engine = MonteCarloEngine(vega)
+        sample = {key: {n: vega.mc_config['sample'][key][n]
+                        for n in want['mocks']['names']}
+                  for key in ('limits', 'values', 'errors', 'fix')}
+        mocks = engine.generate_mocks(fiducial, OPTIONS_MOCKS, seed=MC_SEED)
+        fits = timed_mock_fits(device, engine, mocks, sample, OPTIONS_MOCKS,
+                               'options use_full_pk_for_mc mocks')
+        if not np.mean(fits['valid']) >= 0.9:
+            fail(f'options use_full_pk_for_mc: only '
+                 f'{np.mean(fits["valid"]):.3f} of the fits are valid')
+        golden_mocks = numpy_mocks(vega, fiducial, want['mocks']['n_mocks'],
+                                   want['mocks']['seed'])
+        got = timed_mock_fits(device, engine, golden_mocks, sample,
+                              DEFAULT_FIT_CHUNK,
+                              'options use_full_pk_for_mc golden')
+        check_mock_fits('options use_full_pk_for_mc', got, want['mocks'])
+    launches['options_direct'] = dict(LAUNCHES)
+    worst = max(rel_err(fiducial[n], want['fiducial'][n])
+                for n in want['fiducial'])
+    log(f'options use_full_pk_for_mc: fiducial (compute_direct at '
+        f'{vega.mc_config["params"]}) in {fiducial_ms:.1f} ms against the '
+        f'JAX fiducial {worst:.3e} of max|ref|; kernel launches '
+        f'{launches["options_direct"]}; the phase so far '
+        f'{time.perf_counter() - t0:.1f} s')
+    if not worst <= OPTION_MODEL_RTOL:
+        fail(f'options use_full_pk_for_mc: the fiducial differs from the '
+             f'JAX one by {worst:.3e} of max|ref|')
+    if not launches['options_direct'].get(('F', 0)):
+        fail('options use_full_pk_for_mc launched no F_0')
+    checks += check_launches(device, 'options_direct', layouts)
+
+    # (e) profiling.time_likelihood on synthetic-full's interface
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        stats = profiling.time_likelihood(vega, n_evals=PROFILE_EVALS)
+        with profiling.trace(options / 'trace', device) as prof:
+            vega.chi2()
+    launches['options_profiling'] = dict(LAUNCHES)
+    checks += check_launches(device, 'options_profiling', layouts)
+    device_us = sum(getattr(e, 'self_device_time_total',
+                            getattr(e, 'self_cuda_time_total', 0))
+                    for e in prof.key_averages())
+    log(f'options profiling.time_likelihood (synthetic-full, dense chi2 at '
+        f'one point, {PROFILE_EVALS} calls): first call '
+        f'{stats["first_call_s"]:.4f} s, steady {stats["evals_per_sec"]:.1f}'
+        f' evals/s, chi2 {stats["chi2"]!r}, on {card}; profiling.trace of '
+        f'one chi2: {device_us / 1e3:.4f} ms of device time in its table')
+    del vega
+
+    # (c) model_pk on the same files
+    t0 = time.perf_counter()
+    vega = VegaInterface(with_control(mc_ini, 'model_pk = True',
+                                      options / 'model_pk.ini'),
+                         device=device)
+    LAUNCHES.clear()
+    multipoles = vega.compute_model(run_init=False)
+    launches['options_model_pk'] = dict(LAUNCHES)
+    if {n: m.shape for n, m in multipoles.items()} != {
+            n: np.shape(m) for n, m in goldens['model_pk'].items()}:
+        fail('options model_pk: the multipoles are not of the JAX shapes')
+    worst = max(rel_err(multipoles[n], goldens['model_pk'][n])
+                for n in goldens['model_pk'])
+    log(f'options model_pk: multipoles '
+        f'{ {n: m.shape for n, m in multipoles.items()} } in '
+        f'{time.perf_counter() - t0:.2f} s (interface included) against the '
+        f'JAX ones {worst:.3e} of max|ref|; kernel launches '
+        f'{launches["options_model_pk"]}')
+    if not worst <= OPTION_MODEL_RTOL:
+        fail(f'options model_pk differs from the JAX multipoles by '
+             f'{worst:.3e} of max|ref|')
+    del vega
+
+    # (d) correlations without a data file
+    text = mc_ini.read_text()
+    for ini in re.findall(r'^ini files = (.*)$', text, re.MULTILINE
+                          )[0].split():
+        copy = options / f'data_free_{Path(ini).name}'
+        copy.write_text(Path(ini).read_text().replace(
+            '[data]\n', '[data]\nhas_datafile = False\n', 1))
+        text = text.replace(ini, str(copy))
+    (options / 'data_free.ini').write_text(text)
+    vega = VegaInterface(options / 'data_free.ini', device=device)
+    want = goldens['data_free']
+    got = {'has_data': vega._has_data,
+           'data': {n: d is None for n, d in vega.data.items()},
+           'models': sorted(vega.models), 'plots': vega.plots is None,
+           'corr_num_marg_modes': vega.corr_num_marg_modes,
+           'raises': {
+               'compute_model': raised(
+                   lambda: vega.compute_model({'bias_LYA': -0.11})),
+               'compute_model_no_init': raised(lambda: vega.compute_model(
+                   {'bias_LYA': -0.11}, run_init=False)),
+               'chi2': raised(lambda: vega.chi2({'bias_LYA': -0.11})),
+               'chi2_batch': raised(lambda: vega.chi2_batch(
+                   {'bias_LYA': np.array([-0.11, -0.12])}))}}
+    log(f'options data-free: {got} (JAX {want})')
+    if got != want:
+        fail('options data-free: the interface does not do what '
+             'vega_tpu\'s does')
+    log(f'options phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
+# ----------------------------------------------------------------------
 # eBOSS DR16's 13-name fit: the 4-dimension combination sweep, the payload
 # cache, the results file and the Monte-Carlo scripts
 # ----------------------------------------------------------------------
@@ -3844,6 +4160,19 @@ def held_to_summary(got, want):
     return max(err, norm)
 
 
+def sensitivity_subset(want, names):
+    """The goldens' sensitivity summary of `names` alone: their partials
+    and the Fisher sums of their pairs (a name's central difference and a
+    pair's Fisher information do not depend on the other names)."""
+    pairs = {corr: [k for k in sums if set(k.split('|')) <= set(names)]
+             for corr, sums in want['fisher_sums'].items()}
+    return {'partials': {corr: {n: p[n] for n in names}
+                         for corr, p in want['partials'].items()},
+            **{key: {corr: {k: want[key][corr][k] for k in pairs[corr]}
+                     for corr in want[key]}
+               for key in ('fisher_sums', 'fisher_abs_sums')}}
+
+
 def check_sensitivity(label, vega, want, rtol):
     """vega.sensitivity against the goldens' partials and Fisher sums:
     returns the worst partial and the worst sum (of its bins' absolute
@@ -4064,9 +4393,11 @@ def run_run_vega_path(device, work, card):
     check_sensitivity('run_vega compute_sensitivity_exact', vega,
                       goldens['exact'], SENSITIVITY_EXACT_RTOL)
 
-    # the other sampled names at the goldens' point, not the run's fit
+    # the other sampled names at the goldens' point, not the run's fit;
+    # the first FD_SENSITIVITY_NAMES of the goldens' names (4 rebuilds)
     vega.params.update(goldens['point'])
-    fd_nominal = {n: nominal[n] for n in goldens['fd_names']}
+    fd_names = goldens['fd_names'][:FD_SENSITIVITY_NAMES]
+    fd_nominal = {n: nominal[n] for n in fd_names}
     LAUNCHES.clear()
     with recorded_launches() as layouts:
         t0 = time.perf_counter()
@@ -4078,7 +4409,8 @@ def run_run_vega_path(device, work, card):
         f'({2 * len(fd_nominal)} rebuilds) {fd_s:.2f} s, kernel launches '
         f'{launches["run_vega_sensitivity_fd"]}')
     checks += check_launches(device, 'run_vega_sensitivity_fd', layouts)
-    check_sensitivity('run_vega compute_sensitivity', vega, goldens['fd'],
+    check_sensitivity('run_vega compute_sensitivity', vega,
+                      sensitivity_subset(goldens['fd'], fd_names),
                       SENSITIVITY_FD_RTOL)
     log(f'run_vega phase: {time.perf_counter() - t_phase:.1f} s')
     return launches, checks
@@ -4533,6 +4865,9 @@ def main():
         mark('desi')
         marg_launches, marg_checks = run_marg_path(device, work, card)
         mark('marg')
+        options_launches, options_checks = run_options_path(device, work,
+                                                            card)
+        mark('options')
         table6_launches, table6_checks = run_table6_path(device, work, card,
                                                          fit_ini)
         mark('table6')
@@ -4553,7 +4888,7 @@ def main():
     checks = (dense_checks + grid_checks + fit_checks + f32_checks
               + scan_checks
               + mc_checks + sampler_checks + dr16_checks + uv_checks
-              + desi_checks + marg_checks
+              + desi_checks + marg_checks + options_checks
               + table6_checks + dr16pub_checks + desi_mock_checks
               + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
@@ -4561,7 +4896,7 @@ def main():
          **f32_launches,
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **uv_launches, **desi_launches,
-         **marg_launches, **table6_launches,
+         **marg_launches, **options_launches, **table6_launches,
          **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,
          **run_vega_launches},
         sampler_replays, checks, edge_checks)

@@ -471,7 +471,9 @@ def test_forecast_mock_is_the_fiducial(setup, monkeypatch):
 def test_mc_start_from_fit_is_not_ported(setup):
     """mc_start_from_fit is ported: the fiducial is the model at a saved
     fit's values under [mc parameters] (its parity with vega_tpu is in
-    tests/test_torch_output.py); use_full_pk_for_mc still raises."""
+    tests/test_torch_output.py); with use_full_pk_for_mc it is
+    compute_direct's at the best fit's values (its parity with vega_tpu
+    is in tests/test_torch_likelihood_options.py)."""
     port = VegaInterface(setup['main'], device='cpu')
     port.use_grid_payload(NAMES, gc.load_payload(setup['tmp']
                                                  / 'payload.npz'))
@@ -487,11 +489,13 @@ def test_mc_start_from_fit_is_not_ported(setup):
     for name in port.corr_items:
         assert np.array_equal(fiducial[name], want[name])
     port.main_config.remove_option('control', 'mc_start_from_fit')
-    # the item of ROADMAP.md's "Modules still to port": likelihood
-    # options (5)
     port.main_config['control']['use_full_pk_for_mc'] = 'True'
-    with pytest.raises(NotImplementedError, match='item 5'):
-        port.get_fiducial_for_monte_carlo()
+    fiducial = port.get_fiducial_for_monte_carlo()
+    want = port.compute_model(port.bestfit.values | MC_PARAMS,
+                              run_init=False,
+                              direct_pk=port.fiducial['pk_full'])
+    for name in port.corr_items:
+        assert np.array_equal(fiducial[name], want[name])
     # the global mock is ported; it needs a global covariance
     with pytest.raises(ValueError, match='global covariance'):
         port.analysis.create_global_monte_carlo({})

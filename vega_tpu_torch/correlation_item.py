@@ -4,9 +4,12 @@ Counterpart of vega_tpu/correlation_item.py: tracer info, config
 sections, coordinates, the metal correlation list, the stacked-delta
 weights files of the new-metals mode and the cosmology of the data
 file's header, which the new-metals matrices read, the broadband's
-binning, and the small-scale marginalization options with their
+binning, the small-scale marginalization options with their
 undistorted templates (`get_undist_xi_marg_templates`; data.py distorts
-them and builds the covariance update and the coefficient matrix).
+them and builds the covariance update and the coefficient matrix),
+`model_pk` (the model's multipoles instead of its correlation), whether
+the correlation has a data file (`has_data`) and which blinded tracers
+it carries (`check_if_blind_corr`).
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ class CorrelationItem:
     dist_model_coordinates = None
     data_coordinates = None
 
-    def __init__(self, config):
+    def __init__(self, config, model_pk=False):
         self.config = config
+        self.model_pk = model_pk
         self.name = config['data'].get('name')
         self.tracer1 = {
             'name': config['data'].get('tracer1'),
@@ -43,6 +47,7 @@ class CorrelationItem:
         self.has_distortion = config['data'].getboolean('distortion', True)
         self.cov_rescale = config['data'].getfloat('cov_rescale', None)
 
+        # (vega_tpu/correlation_item.py:43-45)
         self.has_data = config['data'].getboolean('has_datafile', True)
         if 'filename' not in config['data']:
             self.has_data = False
@@ -116,6 +121,18 @@ class CorrelationItem:
         self.dist_model_coordinates = (
             model_coordinates if dist_model_coordinates is None
             else dist_model_coordinates)
+
+    def check_if_blind_corr(self, blind_tracers):
+        """Whether a blinded name of `blind_tracers` ('all' or tracer
+        names) reaches this correlation (vega_tpu/correlation_item.py:
+        119-128)."""
+        if 'all' in blind_tracers:
+            return True
+        for tracer in blind_tracers:
+            if (tracer in self.tracer1['name']
+                    or tracer in self.tracer2['name']):
+                return True
+        return False
 
     def get_undist_xi_marg_templates(self):
         """Undistorted marginalization templates, a dense (n_model,

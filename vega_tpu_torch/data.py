@@ -6,7 +6,9 @@ legacy metal-file mode (`_init_metals`), the metal pairs of the
 new-metals mode (whose matrices metals.py computes), the cosmology of
 the file's header and the small-scale marginalization templates
 (`_init_marginalization`: the distorted templates, the covariance update
-and the matrix that turns a residual into template coefficients).
+and the matrix that turns a residual into template coefficients), and the
+data-level blinding of the file's BLINDING header (`_load_data_vector`:
+desi_dr3 reads the blinded DA_BLIND column and sets `blind`).
 Host-side numpy throughout; the likelihood
 copies what it needs to the device. Monte-Carlo mocks
 (`create_monte_carlo`) draw from the numpy global RNG, as vega_tpu's do,
@@ -20,8 +22,11 @@ import numpy as np
 from . import mocks
 from .coordinates import Coordinates
 from .io.fits import read_fits
-from .utils import (compute_log_cov_det, compute_masked_invcov, find_file,
-                    not_ported)
+from .utils import compute_log_cov_det, compute_masked_invcov, find_file
+
+# data-level blinding strategies: the data vector is the file's DA_BLIND
+# (vega_tpu/data.py:20)
+BLINDING_STRATEGIES = ['desi_dr3']
 
 
 class Data:
@@ -46,6 +51,8 @@ class Data:
             'cholesky-masked-cov', True)
 
         self.data_vec = None
+        self.blind = None
+        self.blinding_strat = None
         self._cov_mat = None
         self._distortion_mat = None
         self._inv_masked_cov = None
@@ -295,6 +302,31 @@ class Data:
             header['RPMIN'], header['RPMAX'], header['RTMAX'],
             header['NP'] * np_factor, header['NT'] * np_factor, **grids)
 
+    def _load_data_vector(self, columns, data_path):
+        """The data vector by the file's blinding strategy, and `blind`
+        (vega_tpu/data.py:218-241): none, desi_m2, desi_y1 and desi_y3
+        read DA and leave `blind` False (their blinding is the
+        parameters' offsets, utils.get_blinding); desi_dr3 reads the
+        mandatory DA_BLIND column; any other strategy raises."""
+        strat = self.blinding_strat
+        if strat is None or strat in ('desi_m2', 'desi_y1', 'desi_y3'):
+            self.blind = False
+            self.data_vec = self._column(columns, 'DA', required=True)
+            return
+        if strat not in BLINDING_STRATEGIES:
+            self.blind = True
+            raise ValueError(f'Unknown blinding strategy {strat}.')
+        print(f'Strategy: {strat}')
+        self.blind = True
+        if strat == 'desi_dr3' and 'DA_BLIND' not in columns:
+            # vega_tpu's assertion, raised whatever python's -O says
+            raise AssertionError('Blinding failed, do not run!!!')
+        if 'DA_BLIND' in columns:
+            print(f'Warning! Running on blinded data {data_path}')
+        self.data_vec = self._column(columns, 'DA_BLIND', 'DA')
+        if self.data_vec is None:
+            raise ValueError('No DA or DA_BLIND column in data file.')
+
     def _read_data(self, data_path, cuts_config, dmat_path=None,
                    cov_path=None, cov_rescale=None):
         """(reference: data.py:285-440)"""
@@ -304,10 +336,9 @@ class Data:
         columns = hdul[1].columns
 
         strat = header.get('BLINDING', None)
-        if strat not in (None, 'none', 'None', 'desi_m2', 'desi_y1',
-                         'desi_y3'):
-            raise not_ported(f'Data-level blinding ({strat})', 5)
-        self.data_vec = self._column(columns, 'DA', required=True)
+        self.blinding_strat = None if strat in (None, 'none', 'None') \
+            else strat
+        self._load_data_vector(columns, data_path)
         self.full_data_size = len(self.data_vec)
 
         if dmat_path is None:

@@ -25,6 +25,13 @@ alone: one dense row) as host arrays, keyed as vega_tpu keys them
 {'peak': {}, 'smooth': {}, 'full': {}}, with the core model under
 'core' and, with the metals decomposed (no-metal-decomp = False), each
 metal pair's under its (name1, name2).
+
+`compute_direct` is the model on one given linear spectrum, a single
+component 'full' with no peak / smooth split (vega_tpu/model.py:247-251;
+the Monte-Carlo fiducial of use_full_pk_for_mc). With `model_pk` (the
+main [control] option) both return the power spectrum's multipoles (n_ell,
+n_k) per row instead of the correlation (vega_tpu/model.py:110-111):
+the Legendre projection, one GEMM.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ class Model:
         self.device = torch.device(device)
         self.dtype = dtype
         self._corr_item = corr_item
+        self._model_pk = corr_item.model_pk
         if corr_item.model_coordinates is None:
             raise ValueError('CorrelationItem has no model coordinates')
         corr_item.config['model']['bin_size_rp'] = \
@@ -237,6 +245,13 @@ class Model:
                     and isinstance(pk_peak, power_spectrum.FactoredPk)
                     and pk_peak.grid_free):
                 pk_cache['pk'] = (pk_peak, pk_smooth_grid, bad_pk)
+        if self._model_pk:
+            # the multipoles of bao_amp x peak + smooth: vega_tpu's
+            # _compute_model returns them before the transform, so no
+            # metal and no term after it enters (model.py:110-111)
+            return (col(pars['bao_amp'], 2)
+                    * self.PktoXi.compute_pk_ells(pk_peak)
+                    + self.PktoXi.compute_pk_ells(pk_smooth_grid), bad_pk)
         xi_peak, bad_peak = self._compute_model(
             pars, pk_peak, use_kernel, sampling, pk_lin=pk_peak_lin,
             component='peak' if save else None)
@@ -266,6 +281,29 @@ class Model:
             xi_peak = col(pars['bao_amp'], 1) * xi_peak
         return (self._add_xi(xi_peak, xi_smooth),
                 bad_peak | bad_metals | bad_smooth | bad_pk)
+
+    def compute_direct(self, pars, pk_full, use_kernel=True, save=False):
+        """The model on the linear spectrum `pk_full` alone, one
+        component 'full' with no peak / smooth split and no BAO
+        broadening (vega_tpu/model.py:247-251): P(k, mu_k) from
+        `PowerSpectrum.compute` with peak = False, then the transform
+        (through the combine) and the terms after it. With the metals
+        and no-metal-decomp (the default) no metal is added, as in
+        vega_tpu, where only `compute` passes the metals in
+        (model.py:124-126); with no-metal-decomp = False each metal pair
+        is computed on `pk_full`. `save` keeps the components under
+        'full'. Returns (xi (B', M), bad (B',)), or the multipoles
+        (B', n_ell, n_k) under model_pk."""
+        save = save and self.save_components
+        pars = dict(pars)
+        pars['peak'] = False
+        pk_model, bad = self.Pk_core.compute(pk_full, pars)
+        if self._model_pk:
+            return self.PktoXi.compute_pk_ells(pk_model), bad
+        xi, bad_xi = self._compute_model(
+            pars, pk_model, use_kernel, pk_lin=pk_full,
+            component='full' if save else None)
+        return xi, bad_xi | bad
 
     def coefficients(self, pars, n_rows):
         """The coefficient part of the factored model: (n_rows, T), the

@@ -13,7 +13,10 @@ map of the sampled P_ell values. We therefore precompute the dense
 becomes one f64 GEMM on the device.
 
 A copy of the operator builders of vega_tpu/ops/fftlog.py (numpy only),
-pinned to them by tests/test_torch_host.py. The environment overrides of
+pinned to them by tests/test_torch_host.py, with its inverse transform
+(`FFTLogXi2P`) and the padded transform of the template tools
+(`extrapolated_transform`, scripts/make_template.py), pinned by
+tests/test_torch_config_tools.py. The environment overrides of
 the JAX package (VEGA_TPU_LOWRING, VEGA_TPU_FFT_PAD) are not carried:
 the port always takes the default branch and padding.
 
@@ -161,3 +164,87 @@ class FFTLogP2Xi:
         a = np.eye(n) * self._prefac[None, :]
         m = self._convolve(a) * self._postfac[None, :]
         return np.ascontiguousarray(m.T)
+
+
+class FFTLogXi2P:
+    """Inverse transform xi_ell(r) -> P_ell(k) on a fixed log-spaced r
+    grid: P_ell(k) = 4 pi (-1)^(ell/2) Integral r^2 dr j_ell(kr) xi_ell(r).
+
+    Same FFTLog discretization as FFTLogP2Xi with the roles of the grids
+    swapped (used by the template side-band machinery; the reference uses
+    mcfit.xi2P in bin/make_template.py:26-29).
+    """
+
+    def __init__(self, r_grid: np.ndarray, ell: int, lowring: bool = True,
+                 pad_to: int | None = None):
+        r = np.asarray(r_grid, dtype=np.float64)
+        n = len(r)
+        delta = np.log(r[-1] / r[0]) / (n - 1)
+        if pad_to is None:
+            pad_to = default_pad_size(n)
+        n_fft = max(int(pad_to), n)
+        self.ell = ell
+        self.r_grid = r
+        self.n = n
+        self.n_fft = n_fft
+        mu = ell + 0.5
+        lnxy = lowring_offset(delta, mu) if lowring else 0.0
+        self.lnxy = lnxy
+        self.k_grid = np.exp(lnxy) / r[::-1]
+
+        self._u = _u_coefficients(n_fft, delta, mu, lnxy)
+        self._pad_l = (n_fft - n) // 2
+        self._prefac = r ** 1.5
+        sign = -1.0 if (ell // 2) % 2 else 1.0
+        # 4 pi * sqrt(pi/2) against the forward's 1/(2 pi^2) sqrt(pi/2)
+        self._postfac = (sign * 4 * np.pi * np.sqrt(np.pi / 2)
+                         * self.k_grid ** -1.5)
+
+    def transform(self, xi_ell: np.ndarray) -> np.ndarray:
+        a = np.asarray(xi_ell, dtype=np.float64) * self._prefac
+        n, n_fft, pad_l = self.n, self.n_fft, self._pad_l
+        f = np.zeros(a.shape[:-1] + (n_fft,), dtype=np.float64)
+        f[..., pad_l:pad_l + n] = a
+        hk = np.fft.ifft(np.fft.fft(f, axis=-1) * self._u, axis=-1).real
+        return self._postfac * hk[..., pad_l:pad_l + n][..., ::-1]
+
+
+def extrapolated_transform(fftlog_cls, x, f, ell=0, pad_factor=2,
+                           keep='center'):
+    """Run a transform with power-law padding of the input on both ends
+    (the role of mcfit's extrap=True; used for smooth template work, not
+    the likelihood hot path).
+
+    Returns (y_grid, transformed): the reciprocal of the original x range
+    (keep='center') or the full padded output (keep='all').
+    """
+    x = np.asarray(x, dtype=np.float64)
+    f = np.asarray(f, dtype=np.float64)
+    n = len(x)
+    n_pad = (pad_factor - 1) * n // 2
+    delta = np.log(x[-1] / x[0]) / (n - 1)
+
+    x_lo = x[0] * np.exp(-delta * np.arange(n_pad, 0, -1))
+    x_hi = x[-1] * np.exp(delta * np.arange(1, n_pad + 1))
+
+    def _slope(f0, f1, safe):
+        return np.log(np.abs(f1 / f0)) / delta if safe else 0.0
+
+    lo_safe = f[0] != 0 and f[1] != 0 and np.sign(f[0]) == np.sign(f[1])
+    hi_safe = f[-1] != 0 and f[-2] != 0 and np.sign(f[-1]) == np.sign(f[-2])
+    slope_lo = _slope(f[0], f[1], lo_safe)
+    slope_hi = _slope(f[-2], f[-1], hi_safe)
+    f_lo = f[0] * (x_lo / x[0]) ** slope_lo if lo_safe else np.zeros(n_pad)
+    f_hi = f[-1] * (x_hi / x[-1]) ** slope_hi if hi_safe else np.zeros(n_pad)
+
+    x_full = np.concatenate([x_lo, x, x_hi])
+    f_full = np.concatenate([f_lo, f, f_hi])
+
+    tr = fftlog_cls(x_full, ell)
+    out = tr.transform(f_full)
+    y = tr.k_grid if hasattr(tr, 'k_grid') and fftlog_cls is FFTLogXi2P \
+        else tr.r_grid
+    if keep == 'all':
+        return y, out
+    sl = slice(n_pad, n_pad + n)
+    return y[sl], out[sl]

@@ -103,6 +103,7 @@ class TraceableLogLik:
         local = dict(self._params)
         local.update({name: theta[:, i]
                       for i, name in enumerate(self.names)})
+        local = self.vega._blinded(local)
         chi2 = self.vega._chi2_rows(
             local, theta.shape[0], names=self._key,
             collapsed=self._collapsed, cov_scales=self._cov_scales)

@@ -255,6 +255,14 @@ class PktoXi:
                 torch.einsum('lij,...lj->...li', self.fft_sd_ops, pk_ells))
         return pk.knots
 
+    def compute_pk_ells(self, pk):
+        """P(k, mu_k) -> its multipoles (..., n_ell, n_k): the Legendre
+        projection, a FactoredPk densified first (vega_tpu/pktoxi.py:
+        264-269). One GEMM, no combine."""
+        if isinstance(pk, FactoredPk):
+            pk = pk.dense()
+        return torch.matmul(self.legendre_proj, pk)
+
     def compute(self, r_grid, mu_grid, pk, use_kernel=True,
                 coords_param_free=False, single_ell=-1):
         """Transform to xi on the rescaled (r, mu) grids; returns

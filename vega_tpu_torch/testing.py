@@ -777,6 +777,10 @@ def make_synthetic_dataset(workdir, cross=True, size='full', device='cuda',
     # Second pass: regenerate the data vectors from the actual model at
     # the default parameters so fits are well-posed (truth = defaults)
     vega = VegaInterface(main_path, device=device)
+    if vega.model_pk:
+        # the models give multipoles: no data-space model to write
+        # (vega_tpu/testing.py:285-287)
+        return main_path
     model_cf = vega.compute_model(run_init=False)
     for name, corr_item in vega.corr_items.items():
         is_cross = corr_item.tracer1['type'] != corr_item.tracer2['type']
@@ -1148,6 +1152,108 @@ LYACOLORE_FIT_SAMPLE = {
     'par_sigma_smooth': '0.0 10.0 2.2 0.1',
     'per_sigma_smooth': '0.0 10.0 2.6 0.1',
 }
+
+
+# DESI DR1's baseline fit as examples/DESI_data_setup/make_configs.py:
+# 37-63 writes it with BuildConfig: its options (the template excepted:
+# the synthetic files' own), sampled names, priors and parameters
+DESI_EXAMPLE_OPTIONS = {
+    'scale_params': 'ap_at',
+    'small_scale_nl': True,
+    'bao_broadening': True,
+    'hcd_model': 'Rogers2018',
+    'velocity_dispersion': 'lorentz',
+    'radiation_effects': True,
+    'desi-instrumental-systematics': True,
+    'metals': list(DESI_METALS),
+    'new_metals': True,
+    'rebin-metals': 3,
+}
+DESI_EXAMPLE_PARAMETERS = {'desi_inst_sys_amp': 0.00032,
+                           'qso_rad_strength': 0.74}
+
+
+def write_desi_example_configs(build_config, out_dir, files, zeff=2.33,
+                               name_extension='baseline_blinded'):
+    """Write DESI DR1's baseline fit of the auto and the cross with the
+    BuildConfig class `build_config` (this package's, or vega_tpu's for
+    its goldens) into `out_dir`: DESI_EXAMPLE_OPTIONS with `files`'
+    'template', DESI's 17 sampled names (bias_QSO without beta_QSO) and
+    priors, DESI_EXAMPLE_PARAMETERS, and the example's cuts and fast
+    metals per correlation. `files` names the 'auto' and 'cross'
+    correlation files (the cross with LYA as tracer1: BuildConfig's
+    lyaxqso) and the new-metals weights, 'stack' (the forest) and
+    'catalog' (the quasars). Returns the main ini's path."""
+    def corr(data_file, weights1, weights2, is_cross):
+        return {'corr_path': str(data_file),
+                'weights-tracer1': str(weights1),
+                'weights-tracer2': str(weights2),
+                'r-min': 10., 'r-max': 180.,
+                'rp-min': -200. if is_cross else 0.,
+                'fast_metals': 'True'}
+
+    correlations = {
+        'lyaxlya': corr(files['auto'], files['stack'], files['stack'], False),
+        'lyaxqso': corr(files['cross'], files['stack'], files['catalog'],
+                        True),
+    }
+    options = dict(DESI_EXAMPLE_OPTIONS, template=str(files['template']))
+    builder = build_config(options=options, overwrite=True)
+    fit_info = {'fitter': True, 'zeff': zeff,
+                'sample_params': list(DESI_SAMPLED),
+                'priors': dict(DESI_PRIORS)}
+    return builder.build(correlations, 'lyaxlya_lyaxqso', fit_info,
+                         out_dir, parameters=dict(DESI_EXAMPLE_PARAMETERS),
+                         name_extension=name_extension)
+
+
+# the header keys a correlation file keeps when its blinding is rewritten
+# (the binning, and the cosmology the new-metals matrices read)
+BLINDING_HEADER_KEYS = ('RPMIN', 'RPMAX', 'RTMAX', 'NP', 'NT', 'OMEGAM',
+                        'OMEGAK', 'OMEGAR', 'WL')
+
+
+def with_blinding(data_file, strategy, path=None, seed=0, blind_column=True,
+                  flip_rp=False):
+    """Write the correlation file `data_file` to `path` (over itself when
+    None) with the header's BLINDING set to `strategy`, as
+    tests/test_blinding.py::_set_blinding does, keeping the binning and
+    cosmology keys (BLINDING_HEADER_KEYS). With `blind_column` a DA_BLIND
+    column is added: DA x (1 + 0.01 N(0, 1)), the normal draws from
+    np.random.default_rng([seed, 2]). `flip_rp` reverses the line of
+    sight of a cross-correlation: every per-bin column but the
+    coordinates (DA, DA_BLIND, NB) and the covariance's rows and columns
+    move from rp to -rp, so a QSO x LYA file holds LYA x QSO,
+    xi_AB(rp) = xi_BA(-rp), the tracer order of BuildConfig's lyaxqso.
+    Returns the path written."""
+    from .io.fits import read_fits
+    path = Path(data_file if path is None else path)
+    hdus = read_fits(data_file)
+    cor = hdus[1]
+    header = {k: v for k, v in cor.header.items()
+              if k in BLINDING_HEADER_KEYS}
+    header['BLINDING'] = strategy
+    columns = {k: np.asarray(v) for k, v in cor.columns.items()}
+    n = columns['DA'].size
+    if blind_column:
+        rng = np.random.default_rng([seed, 2])
+        columns['DA_BLIND'] = columns['DA'] * (1 + 0.01 * rng.normal(size=n))
+    if flip_rp:
+        where = {(rp, rt): i for i, (rp, rt) in
+                 enumerate(zip(columns['RP'], columns['RT']))}
+        perm = np.array([where[(-rp, rt)] for rp, rt in
+                         zip(columns['RP'], columns['RT'])])
+        for key in ('DA', 'DA_BLIND', 'NB'):
+            if key in columns:
+                columns[key] = columns[key][perm]
+        columns['CO'] = columns['CO'][np.ix_(perm, perm)]
+        if 'DM' in columns:
+            raise ValueError('flip_rp: a distortion matrix is not flipped')
+    write_fits(path, [
+        {'name': 'COR', 'header': header, 'columns': columns},
+        {'name': 'DMATTRI', 'columns': dict(hdus[2].columns)},
+    ])
+    return path
 
 
 def with_control(main_ini, lines, path, sections=''):

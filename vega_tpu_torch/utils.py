@@ -18,6 +18,17 @@ import torch
 REPO_ROOT = Path(__file__).resolve().parents[1]
 JAX_PACKAGE_DIR = REPO_ROOT / 'vega_tpu'
 
+# parameter-level blinding (vega_tpu/utils.py:18-25): names a blinded fit
+# must keep fixed, and the blinded names with the tracers they blind
+BLIND_FIXED_PARS = [
+    'ap_full', 'at_full', 'aiso_full', 'epsilon_full', 'phi_full',
+]
+
+VEGA_BLINDED_PARS = {
+    'phi_smooth': ['all'],
+    'growth_rate': ['all'],
+}
+
 
 class VegaModelError(Exception):
     """Model-domain failure (reference: utils.py:444-453). Per-evaluation
@@ -184,3 +195,51 @@ def compute_log_cov_det(cov_mat, data_mask):
     """log|C| of the masked covariance (reference: utils.py:301-318)."""
     masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
     return float(np.linalg.slogdet(masked_cov)[1])
+
+
+def get_blinding(blind_pars, blinding_strat):
+    """Parameter-level blinding offsets (vega_tpu/utils.py:289-323). The
+    offsets files live on NERSC only: for desi_y1 / desi_y3 there is no
+    file and this returns None, any other strategy raises, and nothing is
+    downloaded."""
+    if blinding_strat is None:
+        # vega_tpu's assertion, raised whatever python's -O says
+        raise AssertionError('Blinding failed, do not run!!!')
+    print(f'Blinding parameters: {blind_pars}')
+
+    if ('ap' in blind_pars) or ('at' in blind_pars) or ('alpha' in blind_pars):
+        blinding_type = 'bao'
+    elif ('growth_rate' in blind_pars) or ('phi_smooth' in blind_pars):
+        blinding_type = 'full-shape'
+    else:
+        raise ValueError(f'No blinding implemented for parameters {blind_pars}')
+
+    blinding_choices = {
+        'desi_y1': {'full-shape': None, 'bao': None},
+        'desi_y3': {'full-shape': None, 'bao': None},
+    }
+
+    if blinding_strat not in blinding_choices:
+        raise ValueError(f'Unknown blinding version: {blinding_strat}.')
+
+    blinding_file = blinding_choices[blinding_strat][blinding_type]
+    if blinding_file is None:
+        return None
+
+    blinding = {}
+    with np.load(blinding_file) as file:
+        for par in blind_pars:
+            if par not in VEGA_BLINDED_PARS:
+                raise ValueError(f'Blinding for parameter {par} not implemented.')
+            blinding[par] = float(file[par])
+    return blinding
+
+
+def apply_blinding(params, blinding):
+    """Add each blinded name's offset pi - exp(v^2) to `params`
+    (vega_tpu/utils.py:326-330). The values may be floats or (B,)
+    tensors: each entry is replaced, never changed in place, so a leaf
+    that requires grad stays a leaf."""
+    for par, val in blinding.items():
+        params[par] = params[par] + (np.pi - np.exp(val ** 2))
+    return params

@@ -74,7 +74,29 @@ return_marg_coeff=True, `compute_marg_coeff` and the fit's
 `bestfit_corr_stats` give the coefficients; `corr_num_marg_modes` the
 modes per correlation, the samplers' derived columns.
 
-Blinding beyond "none" is not ported yet.
+Blinding (the data files' BLINDING header, vega_interface.py:143-146,
+1792-1826): with desi_dr3 every data set reads its DA_BLIND column
+(data.py), so every consumer of the data vector (the dense chi^2, the
+collapses' data terms and the grid payload, which are keyed on the data
+versions, the marginalization coefficients, the Monte-Carlo fiducial)
+sees the blinded vector. `_init_blinding` holds the data sets to one
+strategy and refuses a sampled BLIND_FIXED_PARS name or bias_QSO with
+beta_QSO; the parameter offsets of a sampled blinded name
+(utils.get_blinding: None for desi_y1 / desi_y3, the offsets files being
+on NERSC only, and a raise for any other strategy) are added in
+`_batch_params`, so every path (dense, factored, grid, derivatives, the
+batched Newton, the samplers) evaluates the model at the blinded values.
+
+Options of [control] (vega_interface.py:72-73,1026,1077-1086,1396-1401):
+model_pk makes `compute_model` return each correlation's power-spectrum
+multipoles (n_ell, n_k), which no chi^2 compares with (vega_tpu's chi^2
+raises IndexError there, and so does the port's); `compute_model(...,
+direct_pk=pk)` evaluates `Model.compute_direct` on one given linear
+spectrum, which the Monte-Carlo fiducial takes with use_full_pk_for_mc.
+Correlations without a data file ([data] has_datafile = False, or no
+filename) build an interface with no data, no blinding, no models and no
+plots, as vega_tpu's does; its models need the data's coordinates, so
+every evaluation raises as vega_tpu's raises (`_no_data`).
 """
 
 from __future__ import annotations
@@ -101,7 +123,7 @@ from .model import Model
 from .output import Output
 from .parameters.param_utils import get_default_values
 from .scale_parameters import ScaleParameters
-from .utils import not_ported, refuse_f32, resolve_dtype, to_tensor
+from .utils import refuse_f32, resolve_dtype, to_tensor
 
 PENALTY_CHI2 = 1e100
 
@@ -200,13 +222,18 @@ class VegaInterface:
         self.low_mem_mode = (bool(control)
                              and control.getboolean('low_mem_mode', False)
                              and global_cov_file is not None)
-        if control and control.getboolean('model_pk', False):
-            raise not_ported('model_pk', 5)
+        # the models give P(k) multipoles instead of the correlation
+        # (vega_interface.py:72-73)
+        self.model_pk = bool(control) and control.getboolean('model_pk',
+                                                             False)
         # the templates fitted per evaluation instead of entering the
         # covariance (vega_interface.py:77-79)
         self.marginalize_in_fit = (
             bool(control) and control.getboolean('marginalize-in-fit', False))
         for feature, on in (
+                ('model_pk', self.model_pk),
+                ('use_full_pk_for_mc', bool(control) and control.getboolean(
+                    'use_full_pk_for_mc', False)),
                 ('marginalize-in-fit', self.marginalize_in_fit),
                 ('a global covariance', global_cov_file is not None),
                 ('the samplers', bool(control)
@@ -219,7 +246,7 @@ class VegaInterface:
         for path in ini_files:
             config = parse_ini(path)
             name = config['data'].get('name')
-            self.corr_items[name] = CorrelationItem(config)
+            self.corr_items[name] = CorrelationItem(config, self.model_pk)
             self.corr_items[name].low_mem_mode = self.low_mem_mode
             # before the data layer reads their files
             for feature in ('metals', 'broadband'):
@@ -252,15 +279,27 @@ class VegaInterface:
             if 'growth_rate' in self.params:
                 self.fiducial['growth_rate'] = self.params['growth_rate']
 
-        if not all(item.has_data for item in self.corr_items.values()):
-            raise not_ported('Correlations without a data file', 5)
-        self.data = {name: Data(item,
-                                marginalize_in_fit=self.marginalize_in_fit)
+        # without a data file no Data, no blinding and no models
+        # (vega_interface.py:136-153)
+        self._has_data = all(item.has_data
+                             for item in self.corr_items.values())
+        if not self._has_data:
+            refuse_f32(self.dtype, 'Correlations without a data file')
+        self.data = {name: (Data(item,
+                                 marginalize_in_fit=self.marginalize_in_fit)
+                            if self._has_data else None)
                      for name, item in self.corr_items.items()}
+
+        self._blind = False
+        self._rnsps = None
+        if self._has_data:
+            self._init_blinding()
 
         self.scale_params = ScaleParameters(self.main_config['cosmo-fit type'])
 
-        self._build_models()
+        self.models = {}
+        if self._has_data:
+            self._build_models()
 
         # Monte Carlo config (vega_interface.py:157-164)
         self.mc_config = None
@@ -329,8 +368,9 @@ class VegaInterface:
                                  grad_func=self.chi2_gradient,
                                  hess_func=self.chi2_hessian, vega=self)
         # the samplers' derived columns (vega_interface.py:201-204)
-        self.corr_num_marg_modes = {name: self.data[name].num_marg_modes
-                                    for name in self.corr_items}
+        self.corr_num_marg_modes = ({name: self.data[name].num_marg_modes
+                                     for name in self.corr_items}
+                                    if self._has_data else {})
         self.output = Output(self.main_config['output'], self.data,
                              self.corr_items, self.analysis)
 
@@ -359,8 +399,8 @@ class VegaInterface:
         """The plots of the data (plots.plot.VegaPlots), built at first
         use: matplotlib is imported here and nowhere else of the
         interface (vega_interface.py:227-230 builds them at
-        construction)."""
-        if self._plots is None:
+        construction); None without the data."""
+        if self._plots is None and self._has_data:
             from .plots.plot import VegaPlots
             self._plots = VegaPlots(vega_data=self.data)
         return self._plots
@@ -495,9 +535,10 @@ class VegaInterface:
     # ------------------------------------------------------------------
     # Batched model + chi^2
     # ------------------------------------------------------------------
-    def _batch_params(self, params):
+    def _batch_params(self, params, blind=True):
         """Local parameter dict: the stored floats, overridden by `params`
-        as (B,) tensors on the device in its dtype. Returns (dict, B)."""
+        as (B,) tensors on the device in its dtype, with the blinding
+        offsets (`_blinded`) unless blind=False. Returns (dict, B)."""
         local = copy.copy(self.params)
         for name, value in (params or {}).items():
             local[name] = torch.as_tensor(value, dtype=self.dtype,
@@ -507,18 +548,66 @@ class VegaInterface:
         if not sizes <= {1, n_b}:
             raise ValueError(f'parameter batches of different lengths: '
                              f'{sorted(sizes)}')
-        return local, n_b
+        return (self._blinded(local) if blind else local), n_b
+
+    def _blinded(self, local):
+        """`local` with the parameter blinding (vega_interface.py:
+        1334-1348): each blinded name plus its offset pi - exp(v^2), each
+        BLIND_FIXED_PARS name present set to 1; `local` itself without
+        offsets. Floats and (B,) tensors alike, never in place."""
+        if self._rnsps is None:
+            return local
+        local = utils.apply_blinding(dict(local), self._rnsps)
+        for par in local:
+            if par in utils.BLIND_FIXED_PARS:
+                local[par] = 1.
+        return local
+
+    def _grid_values(self, local, spec, sign):
+        """`local` with each blinded grid parameter's offset taken off
+        (sign -1: the sampled values, at which a payload's Chebyshev
+        values are taken, its nodes being sampled values blinded inside
+        the sweep) or added (+1: its blinded reference values, at which
+        the coefficient program runs; vega_interface.py:396-417)."""
+        out = dict(local)
+        for name in spec.names:
+            if self._rnsps is not None and name in self._rnsps:
+                out[name] = out[name] + sign * (
+                    np.pi - np.exp(self._rnsps[name] ** 2))
+        return out
+
+    def _no_data(self, entry, error=AssertionError):
+        """Raise at an evaluation of an interface without the data, as
+        vega_tpu raises there: its Model asserts the coordinates only the
+        data set (model.py:39), its chi^2 asserts the data
+        (vega_interface.py:1181), and its compiled paths first read the
+        absent data's inverse covariances (AttributeError)."""
+        if not self._has_data:
+            raise error(f'{entry}: the correlations have no data file, so '
+                        'there is no model to evaluate')
+
+    def _require_correlation_model(self):
+        """Under model_pk the models give multipoles, which no chi^2
+        compares with the data: vega_tpu's chi^2 fails on the data mask
+        (IndexError)."""
+        if self.model_pk:
+            raise IndexError('model_pk: the models give P(k) multipoles '
+                             '(n_ell, n_k), not the correlation the data '
+                             'mask indexes')
 
     def _model_graph(self, local_params, n_b, use_kernel=True, save=False):
         """(model_cf {name: (B, M)}, bad (B,)) for every correlation,
-        dense; `save` keeps the components (Model.compute)."""
+        dense (under model_pk the multipoles (B, n_ell, n_k)); `save`
+        keeps the components (Model.compute)."""
         model_cf = {}
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         for name in self.corr_items:
             cf, cf_bad = self.models[name].compute(
                 local_params, self._pk_full, self._pk_smooth,
                 use_kernel=use_kernel, save=save)
-            model_cf[name] = cf.expand(n_b, -1)
+            # (B, M), or under model_pk (B, n_ell, n_k)
+            model_cf[name] = cf.expand(
+                (n_b,) + (cf.shape[-2:] if self.model_pk else (-1,)))
             bad = bad | cf_bad
         return model_cf, bad
 
@@ -532,7 +621,12 @@ class VegaInterface:
         data vector per row (Monte-Carlo mock fits); default the current
         ones (`_device_data_vecs`). A collapse with data terms (y, s) or a
         grid payload bakes the current data in and takes none.
-        cov_scales: {name: float}, default `_current_cov_scales`."""
+        cov_scales: {name: float}, default `_current_cov_scales`.
+        `local_params` are blinded (`_batch_params`): a grid payload's
+        Chebyshev values are taken at the sampled values, and its
+        coefficient program at the blinded reference values."""
+        self._no_data('chi2', AttributeError)
+        self._require_correlation_model()
         if self._chi2_data is None:
             self.set_chi2_constants()
         collapsed = self._device_collapsed(collapsed or {})
@@ -548,10 +642,12 @@ class VegaInterface:
             else None
         coeff_params = local_params
         if spec is not None:
-            tvecs, excess = gridcollapse.grid_tvecs(spec, local_params, n_b)
+            tvecs, excess = gridcollapse.grid_tvecs(
+                spec, self._grid_values(local_params, spec, -1), n_b)
             # the coefficient program at the grid reference values
             coeff_params = dict(local_params)
             coeff_params.update(zip(spec.names, spec.ref))
+            coeff_params = self._grid_values(coeff_params, spec, +1)
         chi2 = torch.zeros(n_b, dtype=self.dtype, device=self.device)
         bad = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         if self._use_global_cov:
@@ -689,6 +785,7 @@ class VegaInterface:
         also gives {name: the best-fit template coefficients} of the
         model at the point (`compute_marg_coeff`), which under
         marginalize-in-fit are the ones the chi^2 fitted."""
+        self._no_data('chi2')
         chi2 = float(self.chi2_batch(params or {})[0])
         if return_marg_coeff:
             return chi2, self.compute_marg_coeff(
@@ -700,6 +797,7 @@ class VegaInterface:
         batch of one. return_marg_coeff also gives the coefficients of
         every marginalized correlation in one array, correlations in
         sorted order (None without any)."""
+        self._no_data('log_lik')
         if not return_marg_coeff:
             return float(self.log_lik_batch(params or {})[0])
         chi2, marg_coeff = self.chi2(params, return_marg_coeff=True)
@@ -1115,13 +1213,11 @@ class VegaInterface:
         with postprocess.FitResults) or else of [sample] (a fit runs first
         when anything is sampled), or read from the files [control]
         mc_fiducial_<name> names when use_measured_fiducial is set
-        (vega_interface.py:1375-1403)."""
+        (vega_interface.py:1375-1403); with use_full_pk_for_mc the model
+        is `compute_direct`'s on the full linear spectrum alone."""
         mc_params = self.mc_config['params']
         control = self.main_config['control']
         mc_start_from_fit = control.get('mc_start_from_fit', None)
-        if control.getboolean('use_full_pk_for_mc', False):
-            raise not_ported('use_full_pk_for_mc (the model from a given '
-                             'power spectrum, compute_direct)', 5)
         if mc_start_from_fit is not None:
             from .postprocess.fit_results import FitResults
             print_func(f'Reading input fit {mc_start_from_fit}')
@@ -1139,7 +1235,12 @@ class VegaInterface:
                 hdul = read_fits(utils.find_file(path))
                 fiducial_model[name] = hdul[1]['DA']
             return fiducial_model
-        return self.compute_model(mc_params, run_init=False)
+        # use_full_pk_for_mc: the model on the full linear spectrum alone
+        # (Model.compute_direct; vega_interface.py:1396-1401)
+        use_full_pk = control.getboolean('use_full_pk_for_mc', False)
+        return self.compute_model(
+            mc_params, run_init=False,
+            direct_pk=self.fiducial['pk_full'] if use_full_pk else None)
 
     def initialize_monte_carlo(self, scale=None, print_func=print):
         """Draw one mock per correlation around the fiducial (seed
@@ -1169,7 +1270,7 @@ class VegaInterface:
 
     @torch.no_grad()
     def compute_model(self, params=None, run_init=True, use_kernel=True,
-                      marg_coeff=None):
+                      marg_coeff=None, direct_pk=None):
         """Model correlations at one point as numpy arrays
         (vega_interface.py:1015-1099); raises VegaModelError where the
         chi^2 would take the penalty. run_init=True builds the models
@@ -1178,7 +1279,16 @@ class VegaInterface:
         (vega_interface.py:1060-1071). With save-components each model
         keeps this evaluation's components. `marg_coeff` ({name:
         coefficients}) adds each marginalized correlation's templates
-        times its coefficients (vega_interface.py:1093-1097)."""
+        times its coefficients (vega_interface.py:1093-1097). `direct_pk`
+        (a host (n_k,) linear spectrum) evaluates `Model.compute_direct`
+        on it instead of the peak / smooth model (vega_interface.py:
+        1077-1083). Under model_pk each correlation is its multipoles
+        (n_ell, n_k), returned whatever the penalty flag says
+        (vega_interface.py:1084-1086)."""
+        # vega_tpu rebuilds its models first (they assert the data's
+        # coordinates) or reads the absent data's inverse covariances
+        self._no_data('compute_model',
+                      AssertionError if run_init else AttributeError)
         if run_init:
             self._build_models()
             self._collapsed_cache = {}
@@ -1186,9 +1296,21 @@ class VegaInterface:
             self._grid_cache = {}
             self._device_memo = {}
         local, _ = self._batch_params(params)
-        model_cf, bad = self._model_graph(
-            local, 1, use_kernel,
-            save=self.fiducial.get('save-components', False))
+        save = self.fiducial.get('save-components', False)
+        if direct_pk is not None:
+            pk = to_tensor(direct_pk, self.device, self.dtype)
+            model_cf, bad = {}, torch.zeros(1, dtype=torch.bool,
+                                            device=self.device)
+            for name in self.corr_items:
+                model_cf[name], cf_bad = self.models[name].compute_direct(
+                    local, pk, use_kernel, save=save)
+                bad = bad | cf_bad
+        else:
+            model_cf, bad = self._model_graph(local, 1, use_kernel,
+                                              save=save)
+        if self.model_pk:
+            return {name: cf.reshape(cf.shape[-2:]).cpu().numpy()
+                    for name, cf in model_cf.items()}
         if bool(bad.any()):
             raise utils.VegaModelError(
                 'Model evaluation failed (out-of-bounds interpolation)')
@@ -1218,6 +1340,8 @@ class VegaInterface:
         if (not key or not self._factored or self._use_global_cov
                 or self.marginalize_in_fit):
             return {}
+        self._no_data('get_collapsed', AttributeError)
+        self._require_correlation_model()
         grid_names = self._grid_candidate_names(key)
         if grid_names:
             if not with_data_terms:
@@ -1242,10 +1366,11 @@ class VegaInterface:
         if self._chi2_data is None:
             self.set_chi2_constants()
         sampling = Sampling(key)
+        local = self._blinded(self.params)
         out = {}
         for name in self.corr_items:
             cf, _ = self.models[name].compute(
-                self.params, self._pk_full, self._pk_smooth,
+                local, self._pk_full, self._pk_smooth,
                 sampling=sampling)
             if not isinstance(cf, FactoredXi):
                 continue
@@ -1266,6 +1391,7 @@ class VegaInterface:
         stored values with `overrides` ((name, value) pairs) in place."""
         local = dict(self.params)
         local.update(overrides)
+        local = self._blinded(local)
         for name, c0 in c0s.items():
             got = self.models[name].coefficients(local, 1)[0].cpu().numpy()
             err = (np.max(np.abs(got - c0)) if got.shape == c0.shape
@@ -1350,9 +1476,10 @@ class VegaInterface:
         """The coefficient program of each named correlation at a batch
         of points ({param: float or (P,) array}): {name: (P, T)}."""
         local, n_rows = self._batch_params(
-            {k: v for k, v in batch.items() if np.ndim(v)})
+            {k: v for k, v in batch.items() if np.ndim(v)}, blind=False)
         local.update({k: float(v) for k, v in batch.items()
                       if not np.ndim(v)})
+        local = self._blinded(local)
         return {name: self.models[name].coefficients(local, n_rows)
                 for name in names}
 
@@ -1381,8 +1508,12 @@ class VegaInterface:
         local.update({k: v for k, v in sample_params.items()
                       if not np.ndim(v)})
         nodes, n_c = self._batch_params(
-            {k: v for k, v in sample_params.items() if np.ndim(v)})
+            {k: v for k, v in sample_params.items() if np.ndim(v)},
+            blind=False)
         local.update({k: nodes[k] for k in grid_names})
+        # the nodes are sampled values: blinded here, with the rest
+        # (vega_interface.py:336)
+        local = self._blinded(local)
         payload, c0s = {}, {}
         bad = torch.zeros(n_c, dtype=torch.bool, device=self.device)
         for name in self.corr_items:
@@ -1510,6 +1641,10 @@ class VegaInterface:
             limits = self._limits_dict()
             extra = (None if limits == self._config_limits
                      else repr(sorted(limits.items())))
+            if self._rnsps is not None:
+                # a payload swept at blinded values serves only the same
+                # blinding (vega_tpu's fingerprint leaves the offsets out)
+                extra = repr((extra, sorted(self._rnsps.items())))
             fingerprint = gridcollapse.payload_fingerprint(
                 self, sorted(key), spec, mode_budget, svd_tol,
                 components=components, extra=extra)
@@ -1701,3 +1836,43 @@ class VegaInterface:
                 raise ValueError('Only gaussian priors are supported.')
             prior_dict[param] = np.array(prior_list[1:]).astype(float)
         return prior_dict
+
+    def _init_blinding(self):
+        """The blinding of the data sets (vega_interface.py:1792-1826):
+        one strategy for all of them; on blinded data no BLIND_FIXED_PARS
+        name may be sampled, nor bias_QSO beside beta_QSO, and the sampled
+        names of VEGA_BLINDED_PARS that reach a correlation get the
+        offsets of utils.get_blinding (`_rnsps`; None where that gives
+        none)."""
+        blinding_strat = None
+        for data_obj in self.data.values():
+            if data_obj.blind:
+                self._blind = True
+                if blinding_strat is None:
+                    blinding_strat = data_obj.blinding_strat
+                elif blinding_strat != data_obj.blinding_strat:
+                    raise ValueError(
+                        'Different blinding strategies found in data sets.')
+
+        if not self._blind:
+            return
+
+        blind_pars = []
+        for par in self.sample_params['limits']:
+            if par in utils.BLIND_FIXED_PARS:
+                raise ValueError(
+                    f'Running on blind data, parameter {par} must be fixed.')
+            if par not in utils.VEGA_BLINDED_PARS:
+                continue
+            tracers = utils.VEGA_BLINDED_PARS[par]
+            if any(corr.check_if_blind_corr(tracers)
+                   for corr in self.corr_items.values()):
+                blind_pars += [par]
+
+        if blind_pars:
+            self._rnsps = utils.get_blinding(blind_pars, blinding_strat)
+
+        if ('bias_QSO' in self.sample_params['limits']
+                and 'beta_QSO' in self.sample_params['limits']):
+            raise ValueError(
+                'Running on blind data and sampling bias_QSO and beta_QSO.')
