@@ -105,15 +105,17 @@ configuration, with no JAX:
      terms in its basis, the cross dense; the payload's correlations and
      terms against the JAX payload's, chi^2 within 2e-4 + 1e-9 |chi2|,
      evals/s;
-   - value and gradient at 2 points on both (1e-6 / 1e-8) and
-     minimize() on the dense path against the JAX dense fit;
+   - value and gradient at 2 points on both (1e-6 / 1e-8) and the JAX
+     dense fit held as the port's minimum on the dense path
+     (`check_golden_minimum`: the Newton step 1e-3 of the JAX errors,
+     the errors 1e-5, chi^2 1e-8 of the JAX fval);
    - one dense chi^2 of each variant (HeII, the split bias evolution with
      OMEGAM, single_multipole = 0, fht_extrap on the auto without
      metals) against its golden (1e-8);
    - every launch layout held as below, and the edge layouts on the
      legacy knot grid with two tables and on fht_extrap's grid;
    it fails unless the relativistic and asymmetry terms launched F_0 of
-   two tables, the dense fit Ft_d of two tables, and single_multipole
+   two tables, the dense derivatives Ft_d of two tables, and single_multipole
    F_0 of one.
 9. the DESI DR1 baseline model (phase desi), configuration
    synthetic-desi-full: the same dataset with the DR16 model's HCD and
@@ -138,7 +140,11 @@ configuration, with no JAX:
    - derivatives at two points (1e-8), minimize() against the JAX fit
      (values 1e-2 / errors 1e-3 of the JAX errors), one seeded global
      mock through initialize_monte_carlo (1e-8 of the JAX mock; its
-     initial fit is the fit before) and a fit on it against the JAX one;
+     initial fit is the fit before) and the JAX fit on it held as the
+     port's minimum (`check_golden_minimum`: the Newton step from the
+     JAX best fit 1e-2 of the JAX errors, the errors from the Hessian
+     there 1e-3, chi^2 against the JAX fval 1e-4) in place of a second
+     17-name fit;
    it fails unless the metal stack launched F_0 on the dense and the
    grid path and Ft_d in the dense fit.
 9b. small-scale marginalization (phase marg), configuration
@@ -247,14 +253,41 @@ configuration, with no JAX:
      golden points, reported (the sigma_velo node convergence of
      ROADMAP.md section 3); a warm interface loads the payload with no
      launch and serves a bit-equal chi2_batch;
-   - minimize() in that route (calls, wall time; the dense chi^2 at its
-     best fit against the JAX dense fit's, reported); the dense fit of
-     this configuration is the run_vega phase's (`cli fit`, held against
-     the same JAX dense fit);
+   - that route at the JAX dense best fit: its chi^2, and the Newton
+     step to its minimum in JAX errors (value, gradient and Hessian
+     there; reported); the dense fit of this configuration is the
+     run_vega phase's (`cli fit`, held against the same JAX dense fit);
    it fails unless the metal stacks launched F_0 on the dense path and
    in the sweep, each launch layout (the legacy knot grid's among them)
    held against its plain version. The legacy knot grid also joins the
    edge layouts.
+11b. the f32 throughput mode on the eBOSS DR16 and DESI configurations
+   (phase f32_models): synthetic-dr16-full, synthetic-desi-full and
+   synthetic-dr16-published-full, on the files their f64 phases wrote,
+   each with an interface built under VEGA_TPU_X64=0 (dense) or with
+   dtype=torch.float32 (grid), against vega_tpu's f32 dense chi^2 of
+   tests/data/torch_port_f32_models_goldens.json and its f64 goldens
+   (tests/data/torch_port_{dr16,desi,dr16pub}_goldens.json) within the
+   f32 ladder |d chi2| <= max(0.3, 3e-4 |chi2|):
+   - dense chi2_batch(8192) with only f32 kernels launched and F_0 from
+     the metal stacks, its first call and steady evals/s beside the f64
+     phase's of the same run; chi^2 at the goldens' 8 points against
+     vega_tpu's f64 (enforced) and f32 (enforced where vega_tpu's own
+     f32 is within the ladder of its f64, else its gap is printed);
+   - the grid route, cold, f32 kernels only: dr16 32 x 32 nodes, desi
+     its 14 names under per-correlation covariances (each against
+     vega_tpu's f64 grid goldens), dr16pub vega_tpu's route (the crosses
+     from the 4-dimension payload, the autos dense: vega_tpu has no
+     route goldens; held to the f64 route of phase dr16pub in the same
+     run, f32 adding at most a tenth of that route's own distance from
+     the JAX dense chi^2, the ladder reported: `check_f32_route`);
+   - one dense fit from the f64 goldens' start, within 1e-2 of the JAX
+     errors of vega_tpu's f64 fit; it fails unless the fit launched the
+     f32 Ft_d, an f32 kernel of order d >= 1 and F_0 from the metal
+     stacks;
+   every f32 launch layout is held against its f32 plain version (1e-5
+   of max|ref|), and the six edge layouts run in f32 on the legacy knot
+   grid too.
 12. DESI DR1's baseline as run on mocks (phase desi_mock), configuration
    synthetic-desi-mock-full (testing.make_desi_mock_dataset; examples/
    DESI_mock_setup): the DESI model with Gaussian full-shape smoothing in
@@ -294,12 +327,14 @@ configuration, with no JAX:
    and write_cf, fast_metals and fast_metal_bias off, which both packages
    require) on phase dr16pub's template, data and metal files
    (files_from), against tests/data/torch_port_run_vega_goldens.json:
-   - `vega_tpu_torch.cli fit main.ini --device cuda` (run_vega: the
-     interface, vega_tpu's route for the 18 names, which sweeps and finds
-     nothing factored once the metals run unrolled, the fit, the results
+   - `vega_tpu_torch.cli fit main.ini --device cuda` under
+     VEGA_TPU_FACTORED=0 (run_vega: the interface, the fit, the results
      file, and the wedge and shell plots where matplotlib is installed,
-     decided before the call), timed; the best fit against the JAX dense
-     fit of the dr16pub goldens (1e-2 / 1e-3 of the JAX errors);
+     decided before the call; vega_tpu's route for the 18 names would
+     sweep the payload and find nothing factored once the metals run
+     unrolled, so every name is dense either way), timed; the best fit
+     against the JAX dense fit of the dr16pub goldens (1e-2 / 1e-3 of
+     the JAX errors);
    - the results file read back: MODEL_*, BESTFIT, PK_* and Xi_* of the
      four correlations, the MODEL_ models and BESTFIT's names, values,
      errors and covariance equal to the in-memory fit and every
@@ -375,6 +410,8 @@ OPTIONS_GOLDENS = (ROOT / 'tests' / 'data'
 # their largest entry (PERF.md section 2)
 MARG_COEFF_RTOL = 1e-8
 F32_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_f32_goldens.json'
+F32_MODELS_GOLDENS = (ROOT / 'tests' / 'data'
+                      / 'torch_port_f32_models_goldens.json')
 # the f32 mode against vega_tpu's f32 ladder (tests/test_f32_mode.py:
 # 106-109: |d chi2| <= 0.3 and <= 3e-4 |chi2|, both held there on chi^2
 # of ~200-3,300, where the two parts meet at chi^2 = 1,000): here
@@ -385,6 +422,9 @@ F32_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_f32_goldens.json'
 # errors
 F32_CHI2_ABS, F32_CHI2_REL = 0.3, 3e-4
 F32_FIT_SIGMA = 1e-2
+# dr16pub's f32 route against its f64 route: at most this share of the
+# f64 route's own distance from the dense chi^2 (check_f32_route)
+F32_ROUTE_SHARE = 0.1
 # the run_vega phase against the JAX goldens, each of the largest entry of
 # the reference vector: the saved components at the goldens' point, the
 # exact partials (and the Fisher sums, of the sum of their bins'
@@ -1184,6 +1224,52 @@ def check_fit(label, regime, vega, names, want):
     if not d_fval <= FIT_FVAL_ABS[regime]:
         fail(f'{label} fval differs by {d_fval:.3e} > '
              f'{FIT_FVAL_ABS[regime]:g}')
+
+
+def check_golden_minimum(label, device, vega, names, want, regime):
+    """The JAX fit's best point held as the port's minimum, in place of
+    a fit from the start: at the JAX best-fit values, the Newton step
+    H^-1 g to the port's minimum in JAX errors, the errors sqrt(diag(2
+    H^-1)) the minimizer takes at a minimum (minimizer._compute_errors)
+    against the JAX errors, and the chi^2 against the JAX fval, under
+    check_fit's bounds for `regime`. A minimum on a limit of [sample]
+    has no zero gradient: the check refuses it."""
+    point = dict(zip(names, want['values']))
+    on_limit = [n for n in names if any(
+        lim is not None and np.isclose(point[n], lim, rtol=0, atol=1e-9)
+        for lim in vega.sample_params['limits'][n])]
+    if on_limit:
+        fail(f'{label}: the JAX best fit sits on the limits of {on_limit}; '
+             'hold it with a fit')
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    value, grad = vega.chi2_value_and_gradient(point)
+    hess = vega.chi2_hessian(point, list(names))
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    g = np.array([grad[n] for n in names])
+    h = np.array([[hess[a][b] for b in names] for a in names])
+    errors = np.sqrt(np.diag(2.0 * np.linalg.inv(h)))
+    d_sigma = float(np.max(np.abs(np.linalg.solve(h, g))
+                           / np.asarray(want['errors'])))
+    d_err = float(np.max(np.abs(errors / np.asarray(want['errors']) - 1)))
+    d_fval = abs(value - want['fval'])
+    log(f'{label} at the JAX best fit ({seconds:.3f} s: value, gradient, '
+        f'Hessian): Newton step to the port\'s minimum {d_sigma:.3e} JAX '
+        f'errors, errors max relative diff {d_err:.3e}, chi2 {value!r} '
+        f'(JAX fval {want["fval"]!r})')
+    if not np.all(np.isfinite(errors)):
+        fail(f'{label}: the Hessian at the JAX best fit is not positive '
+             'definite')
+    if not d_sigma <= FIT_VALUE_SIGMA[regime]:
+        fail(f'{label}: the port\'s minimum is {d_sigma:.3e} errors from '
+             f'the JAX best fit > {FIT_VALUE_SIGMA[regime]:g}')
+    if not d_err <= FIT_ERROR_RTOL[regime]:
+        fail(f'{label} errors differ by {d_err:.3e} relative > '
+             f'{FIT_ERROR_RTOL[regime]:g}')
+    if not d_fval <= FIT_FVAL_ABS[regime]:
+        fail(f'{label} chi2 at the JAX best fit differs from its fval by '
+             f'{d_fval:.3e} > {FIT_FVAL_ABS[regime]:g}')
 
 
 def run_fit_path(device, work):
@@ -2441,6 +2527,7 @@ def run_dr16_path(device, work, card):
         dense_vega.chi2_batch(batches)
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
+    F64_DENSE_RATES['dr16'] = BATCH / float(np.median(times))
     log(f'dr16 dense chi2_batch({BATCH}): '
         f'{BATCH / np.median(times):.1f} evals/s (median of '
         f'{TIMED_ROUNDS}, s per call '
@@ -2750,9 +2837,8 @@ def run_uv_path(device, work, card):
             value_gradients(device, dense_vega, points, names, 'uv dense'),
             goldens['dense'], {'chi2': FIT_DENSE_RTOL,
                                'gradient': FIT_DENSE_RTOL})
-        timed_fit(device, dense_vega, 'uv dense')
-        check_fit('uv dense', 'dense', dense_vega, names,
-                  goldens['fit_dense'])
+        check_golden_minimum('uv dense', device, dense_vega, names,
+                             goldens['fit_dense'], 'dense')
     launches['uv_fit'] = dict(LAUNCHES)
     checks += check_launches(device, 'uv_fit', layouts)
     legacy_ft = sum(r.launches for key, r in layouts.items()
@@ -2760,7 +2846,8 @@ def run_uv_path(device, work, card):
     log(f'uv fit kernel launches: {launches["uv_fit"]}; Ft_d of two tables '
         f'(the relativistic and asymmetry terms\' backward): {legacy_ft}')
     if not legacy_ft:
-        fail('the uv dense fit launched no Ft_d of the legacy terms')
+        fail('the uv dense derivatives launched no Ft_d of the legacy '
+             'terms')
 
     # --- the variants, one dense evaluation each: counts from zero
     variant_grids = {}
@@ -2919,6 +3006,7 @@ def run_desi_path(device, work, card):
         dense_vega.chi2_batch(batches)
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
+    F64_DENSE_RATES['desi'] = BATCH / float(np.median(times))
     log(f'desi dense chi2_batch({BATCH}): '
         f'{BATCH / np.median(times):.1f} evals/s (median of '
         f'{DESI_TIMED_ROUNDS}, s per call '
@@ -3043,9 +3131,8 @@ def run_desi_path(device, work, card):
             f'{d_mock:.3e}')
         if mock.size != want['size'] or not d_mock <= MOCK_RTOL:
             fail(f'desi global mock differs from the JAX one by {d_mock:.3e}')
-        timed_fit(device, dense_vega, 'desi mock')
-        check_fit('desi mock', 'joint', dense_vega, names,
-                  goldens['fit_mock'])
+        check_golden_minimum('desi mock', device, dense_vega, names,
+                             goldens['fit_mock'], 'joint')
     launches['desi_fit'] = dict(LAUNCHES)
     checks += check_launches(device, 'desi_fit', layouts)
     # the backward's launches come from autograd, outside Metals.compute:
@@ -4013,6 +4100,7 @@ def run_dr16pub_path(device, work, card):
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
     dense_rate = BATCH / float(np.median(times))
+    F64_DENSE_RATES['dr16pub'] = dense_rate
     log(f'dr16pub dense chi2_batch({BATCH}): {dense_rate:.1f} evals/s '
         f'(median of {TIMED_ROUNDS}, s per call '
         f'{", ".join(f"{t:.4f}" for t in times)})')
@@ -4102,6 +4190,7 @@ def run_dr16pub_path(device, work, card):
         profile_call(f'dr16pub grid-route chi2_batch({BATCH})',
                      lambda: vega.chi2_batch(batches).cpu(), device)
         grid = vega.chi2_batch(goldens['points']).cpu().numpy()
+        F64_ROUTE_CHI2['dr16pub'] = grid
         d_grid = grid - dense_want
         log(f'dr16pub grid route vs JAX dense goldens ({len(grid)} points, '
             f'chi2 {dense_want.min():.6g} .. {dense_want.max():.6g}): '
@@ -4128,18 +4217,270 @@ def run_dr16pub_path(device, work, card):
                  'kernel launch, or serves another chi^2')
         del warm
 
-    # --- the fit in vega_tpu's route (the dense fit is run_vega's)
-    seconds, counts = timed_fit(device, vega, 'dr16pub grid route')
-    best = vega.bestfit
+    # --- where the route's minimum lies against the JAX dense fit (the
+    # dense fit is run_vega's): the Newton step from the JAX dense best
+    # fit on the route, in place of a fit in it
     want = goldens['fit_dense']
-    d_sigma = max(abs(best.values[n] - v) / e for n, v, e in
-                  zip(names, want['values'], want['errors']))
-    log(f'dr16pub grid-route fit: fval {best.fmin.fval!r}, valid '
-        f'{best.fmin.is_valid}; the dense chi^2 at its best fit '
-        f'{dense_vega.chi2(best.values)!r} (the JAX dense fit\'s '
-        f'{want["fval"]!r}); max |d value| from the JAX dense fit '
-        f'{d_sigma:.3e} errors; reported, not enforced')
+    point = dict(zip(names, want['values']))
+    t0 = time.perf_counter()
+    value, grad = vega.chi2_value_and_gradient(point)
+    hess = vega.chi2_hessian(point, list(names))
+    torch.cuda.synchronize(device)
+    h = np.array([[hess[a][b] for b in names] for a in names])
+    step = np.linalg.solve(h, np.array([grad[n] for n in names]))
+    d_sigma = float(np.max(np.abs(step) / np.asarray(want['errors'])))
+    log(f'dr16pub grid route at the JAX dense best fit '
+        f'({time.perf_counter() - t0:.3f} s: value, gradient, Hessian): '
+        f'chi2 {value!r} (the JAX dense fit\'s {want["fval"]!r}); the '
+        f'Newton step to the route\'s minimum {d_sigma:.3e} JAX errors; '
+        'reported, not enforced')
     log(f'dr16pub phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
+# ----------------------------------------------------------------------
+# The f32 throughput mode on the eBOSS DR16 and DESI configurations
+# ----------------------------------------------------------------------
+F32_MODELS = ('dr16', 'desi', 'dr16pub')
+F32_MODELS_ROUNDS = {'dr16': TIMED_ROUNDS, 'desi': DESI_TIMED_ROUNDS,
+                     'dr16pub': DESI_TIMED_ROUNDS}
+# the f64 phases' numbers of this run that the f32_models phase reads:
+# dense chi2_batch(8192) evals/s by configuration, and dr16pub's f64
+# route chi^2 at its goldens' points
+F64_DENSE_RATES = {}
+F64_ROUTE_CHI2 = {}
+
+
+def f32_model_files(device, work, name):
+    """(main ini, grid ini) of the configuration the f64 phase `name`
+    wrote under `work`, written here with the same arguments when that
+    phase did not run (the phase alone); desi's without its Monte-Carlo
+    sections, and its grid ini without the joint covariance."""
+    from vega_tpu_torch.testing import (DESI_METALS, DR16_METALS,
+                                        desi_extra_model, dr16_extra_model,
+                                        make_dr16_published_dataset,
+                                        make_synthetic_dataset)
+    root = Path(work) / name
+    main_ini = root / 'main.ini'
+    if not main_ini.exists():
+        if name == 'dr16':
+            make_synthetic_dataset(
+                root, cross=True, size='full', device=device,
+                sample=json.loads(DR16_GOLDENS.read_text())['sample'],
+                extra_model=dr16_extra_model(), metals=list(DR16_METALS))
+        elif name == 'desi':
+            goldens = json.loads(DESI_GOLDENS.read_text())
+            make_synthetic_dataset(
+                root, cross=True, size='full', device=device,
+                sample=goldens['sample'], extra_model=desi_extra_model(),
+                metals=list(DESI_METALS), new_metals=True, global_cov=True,
+                extra_control=goldens['extra_control'])
+        else:
+            make_dr16_published_dataset(root, size='full', device=device)
+    if name != 'desi':
+        return main_ini, main_ini
+    # the desi phase's [monte carlo] and [mc parameters] sections, which
+    # the f32 mode refuses (they move no chi^2 outside Monte-Carlo mode)
+    kept, skip = [], False
+    for line in main_ini.read_text().splitlines(keepends=True):
+        if line.startswith('['):
+            skip = line.strip() in ('[monte carlo]', '[mc parameters]')
+        if not skip:
+            kept.append(line)
+    f32_ini = root / 'main_f32.ini'
+    f32_ini.write_text(''.join(kept))
+    # per-correlation covariances: the files without the joint one
+    grid_ini = root / 'main_f32_grid.ini'
+    grid_ini.write_text(re.sub(r'global-cov-file = .*\n', '\n',
+                               f32_ini.read_text()))
+    return f32_ini, grid_ini
+
+
+def f32_models_hold(label, got, jax32, jax64):
+    """The port's f32 chi^2 against vega_tpu's f64 (enforced) and its
+    f32 (enforced where vega_tpu's own f32 is within the ladder of its
+    f64; else its gap is printed and the port is held to f64 alone)."""
+    f32_ladder(f'{label} vs vega_tpu\'s f64', got, jax64)
+    jax32, jax64 = np.asarray(jax32, float), np.asarray(jax64, float)
+    gap = np.abs(jax32 - jax64)
+    jax_within = bool(np.all(gap <= np.maximum(F32_CHI2_ABS,
+                                               F32_CHI2_REL * np.abs(jax64))))
+    if not jax_within:
+        log(f'{label}: vega_tpu\'s own f32 misses its f64 by up to '
+            f'{gap.max():.4g}, outside the ladder: the port is held to '
+            'vega_tpu\'s f64, and its gap to vega_tpu\'s f32 is reported')
+    f32_ladder(f'{label} vs vega_tpu\'s f32', got, jax32,
+               enforce=jax_within)
+
+
+def check_f32_route(name, got, route64, dense64):
+    """dr16pub's f32 route, for which vega_tpu has no route goldens,
+    against the f64 route of phase dr16pub in the same run: the ladder
+    reported, and enforced that f32 adds at most F32_ROUTE_SHARE of the
+    route's own distance from the JAX f64 dense chi^2 (the sigma_velo
+    node convergence, ROADMAP.md section 3). On this 4-dimension payload
+    the interpolated data term s(g) loses ~3e-4 of chi^2 in f32 (its
+    Chebyshev coefficients sum to ~1e4 x s; ROADMAP.md section 3)."""
+    f32_ladder(f'f32 {name} grid route vs vega_tpu\'s f64 dense', got,
+               dense64, enforce=False)
+    if route64 is None:
+        log(f'f32 {name} grid route: phase dr16pub did not run, no f64 route '
+            'to hold it to')
+        return
+    f32_ladder(f'f32 {name} grid route vs the f64 route of phase dr16pub',
+               got, route64, enforce=False)
+    own = np.abs(np.asarray(route64) - np.asarray(dense64))
+    share = float(np.max(np.abs(np.asarray(got) - np.asarray(route64))
+                         / own))
+    log(f'f32 {name} grid route: |f32 - f64 route| at most {share:.3e} of '
+        f'the f64 route\'s own distance from the dense chi2 ('
+        + ', '.join(f'{d:.4g}' for d in own) + f'); gate {F32_ROUTE_SHARE:g}')
+    if not share <= F32_ROUTE_SHARE:
+        fail(f'f32 {name} grid route adds {share:.3e} of the route\'s own '
+             f'error to it, > {F32_ROUTE_SHARE:g}')
+
+
+def run_f32_models_path(device, work, card):
+    """Phase f32_models (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    goldens32 = json.loads(F32_MODELS_GOLDENS.read_text())['full']
+    sources = {'dr16': DR16_GOLDENS, 'desi': DESI_GOLDENS,
+               'dr16pub': DR16PUB_GOLDENS}
+    t_phase = time.perf_counter()
+    launches, checks = {}, []
+    for name in F32_MODELS:
+        t_config = time.perf_counter()
+        goldens = json.loads(sources[name].read_text())
+        names = goldens['names']
+        points = goldens.get('params', goldens.get('points'))
+        jax32 = goldens32[name]['f32']
+        if 'chi2' not in jax32:
+            fail(f'f32 {name}: vega_tpu\'s f32 goldens hold no chi^2 '
+                 f'({jax32})')
+        main_ini, grid_ini = f32_model_files(device, work, name)
+        t0 = time.perf_counter()
+        with switch('VEGA_TPU_FACTORED', '0'), switch('VEGA_TPU_X64', '0'):
+            dense = VegaInterface(main_ini, device=device)
+        if dense.dtype != torch.float32:
+            fail(f'f32 {name}: VEGA_TPU_X64=0 gave {dense.dtype}')
+        log(f'f32 {name} dense: interface in {time.perf_counter() - t0:.2f} '
+            's')
+        rng = np.random.default_rng(0)
+        batches = desi_rows(dense.params, names, BATCH, rng)
+
+        # --- dense chi2_batch(8192): counts from zero
+        seen = watch_metals(dense)
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            chi2 = dense.chi2_batch(batches)
+            torch.cuda.synchronize(device)
+            first_s = time.perf_counter() - t0
+        path = f'f32_{name}_dense'
+        launches[path] = dict(LAUNCHES)
+        f32_only(f'f32 {name} dense', launches[path])
+        chi2_np = chi2.cpu().numpy()
+        log(f'f32 {name} dense chi2_batch({BATCH}), {len(names)} names: '
+            f'{chi2.dtype}, first call {first_s:.3f} s, peak device memory '
+            f'{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, chi2 '
+            f'in [{chi2_np.min():.6g}, {chi2_np.max():.6g}], kernel '
+            f'launches {launches[path]}, {metal_launches(seen, "F")} of F_0 '
+            'from the metal stacks at '
+            + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen))
+        if chi2.dtype != torch.float32 or not np.all(np.isfinite(chi2_np)):
+            fail(f'f32 {name} dense chi2_batch is not a finite float32 '
+                 'batch')
+        if not metal_launches(seen, 'F'):
+            fail(f'f32 {name}: the dense path launched no F_0 from '
+                 'metals.py')
+        checks += check_launches(device, path, layouts)
+        f32_models_hold(f'f32 {name} dense', dense.chi2_batch(
+            points).cpu().numpy(), jax32['chi2'], goldens['chi2_dense'])
+        times = []
+        for _ in range(F32_MODELS_ROUNDS[name]):
+            for n in batches:
+                batches[n] = batches[n] + 1e-6
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            dense.chi2_batch(batches)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        rate = BATCH / float(np.median(times))
+        f64_rate = F64_DENSE_RATES.get(name)
+        log(f'f32 {name} dense chi2_batch({BATCH}): {rate:.1f} evals/s '
+            f'(median of {len(times)}, s per call '
+            f'{", ".join(f"{t:.4f}" for t in times)}); the f64 phase\'s '
+            + ('not measured in this run' if f64_rate is None else
+               f'{f64_rate:.1f} evals/s, f32 / f64 {rate / f64_rate:.3f}'))
+
+        # --- the grid route: counts from zero
+        grid_names = goldens.get('grid_names', names)
+        with switch('VEGA_TPU_FACTORED', None), \
+                switch('VEGA_TPU_GRID_COLLAPSE', None), \
+                switch('VEGA_TPU_GRID_CACHE', '0'):
+            grid = VegaInterface(grid_ini, device=device,
+                                 dtype=torch.float32)
+            LAUNCHES.clear()
+            with recorded_launches() as layouts:
+                t0 = time.perf_counter()
+                payload = grid.get_collapsed(frozenset(grid_names))
+                torch.cuda.synchronize(device)
+                collapse_s = time.perf_counter() - t0
+                got = grid.chi2_batch({n: points[n] for n in grid_names})
+            path = f'f32_{name}_grid'
+            launches[path] = dict(LAUNCHES)
+            f32_only(f'f32 {name} grid', launches[path])
+            checks += check_launches(device, path, layouts)
+        got = got.cpu().numpy()
+        served = sorted(set(payload) - {'__grid__'})
+        log(f'f32 {name} grid route ({len(grid_names)} names): '
+            f'{payload["__grid__"]}, serves {served}, cold collapse '
+            f'{collapse_s:.3f} s (device sweep '
+            f'{grid.grid_stats["sweep_s"]:.3f} s), kernel launches '
+            f'{launches[path]}')
+        if not np.all(np.isfinite(got)):
+            fail(f'f32 {name} grid chi2 is not finite')
+        if name == 'dr16pub':
+            check_f32_route(name, got, F64_ROUTE_CHI2.get(name),
+                            goldens['chi2_dense'])
+        else:
+            f32_ladder(f'f32 {name} grid vs vega_tpu\'s f64 grid', got,
+                       goldens['chi2_grid'])
+        del grid
+
+        # --- one dense fit from the f64 goldens' start: counts from zero
+        seen.clear()
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            timed_fit(device, dense, f'f32 {name} dense')
+        path = f'f32_{name}_fit'
+        launches[path] = dict(LAUNCHES)
+        f32_only(f'f32 {name} dense fit', launches[path])
+        checks += check_launches(device, path, layouts)
+        best, want = dense.bestfit, goldens['fit_dense']
+        d_sigma = max(abs(best.values[n] - v) / e for n, v, e in
+                      zip(names, want['values'], want['errors']))
+        log(f'f32 {name} dense fit: max |d value| / error from vega_tpu\'s '
+            f'f64 fit {d_sigma:.3e} (gate {F32_FIT_SIGMA:g}), fval '
+            f'{best.fmin.fval!r} (vega_tpu f64 {want["fval"]!r}), valid '
+            f'{best.fmin.is_valid}, kernel launches {launches[path]}')
+        if not (best.fmin.is_valid and d_sigma <= F32_FIT_SIGMA):
+            fail(f'f32 {name} dense fit is not valid or misses vega_tpu\'s '
+                 'f64 fit')
+        counts = launches[path]
+        if not (any(n for k, n in counts.items() if k[0] == 'Ft')
+                and any(n for k, n in counts.items() if k[1] >= 1)
+                and metal_launches(seen, 'F')):
+            fail(f'the f32 {name} dense fit launched no f32 Ft_d, no f32 '
+                 'kernel of order d >= 1, or no F_0 from metals.py')
+        del dense
+        log(f'f32 {name}: {time.perf_counter() - t_config:.1f} s')
+    log(f'f32_models phase: {time.perf_counter() - t_phase:.1f} s')
     return launches, checks
 
 
@@ -4280,9 +4621,9 @@ def run_run_vega_path(device, work, card):
 
     run_vega.fit_and_write = keep
     try:
-        with switch('VEGA_TPU_GRID_CACHE', None), \
-                switch('VEGA_TPU_GRID_CACHE_DIR',
-                       str(Path(work) / 'grid_cache_run_vega')):
+        # the dense path: with the metals unrolled vega_tpu's route
+        # sweeps a payload that serves no correlation
+        with switch('VEGA_TPU_FACTORED', '0'):
             LAUNCHES.clear()
             torch.cuda.reset_peak_memory_stats(device)
             with recorded_launches() as layouts:
@@ -4295,13 +4636,10 @@ def run_run_vega_path(device, work, card):
         run_vega.fit_and_write = fit_and_write
     launches['run_vega_fit'] = dict(LAUNCHES)
     vega = interfaces[0]
-    log(f'run_vega: cli fit {fit_s:.2f} s (interface, route sweep, fit, '
-        f'results file{", plots" if plots else ""}), exit {status}, peak '
-        f'device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f}'
-        f' GB, route {vega.grid_stats.get("source")} (sweep '
-        f'{vega.grid_stats.get("sweep_s", float("nan")):.2f} s, served '
-        f'{sorted(set(vega.get_collapsed(frozenset(names))) - {"__grid__"})}'
-        f'), kernel launches {launches["run_vega_fit"]}')
+    log(f'run_vega: cli fit {fit_s:.2f} s (interface, dense fit, results '
+        f'file{", plots" if plots else ""}), exit {status}, peak device '
+        f'memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, '
+        f'kernel launches {launches["run_vega_fit"]}')
     checks += check_launches(device, 'run_vega_fit', layouts)
     if status != 0 or not launches['run_vega_fit'].get(('F', 0)):
         fail('run_vega: the fit exited non-zero or launched no F_0')
@@ -4874,6 +5212,13 @@ def main():
         dr16pub_launches, dr16pub_checks = run_dr16pub_path(device, work,
                                                             card)
         mark('dr16pub')
+        f32_models_launches, f32_models_checks = run_f32_models_path(
+            device, work, card)
+        edge_checks += check_edge_layouts(
+            device, KnotGrid.build(legacy_knot_grid(device, main_ini).values,
+                                   device, torch.float32),
+            n_ell, 'old_fftlog')
+        mark('f32_models')
         desi_mock_launches, desi_mock_checks = run_desi_mock_path(
             device, work, card)
         mark('desi_mock')
@@ -4889,7 +5234,8 @@ def main():
               + scan_checks
               + mc_checks + sampler_checks + dr16_checks + uv_checks
               + desi_checks + marg_checks + options_checks
-              + table6_checks + dr16pub_checks + desi_mock_checks
+              + table6_checks + dr16pub_checks + f32_models_checks
+              + desi_mock_checks
               + lyacolore_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
@@ -4897,7 +5243,8 @@ def main():
          'scan': scan_launches, **mc_launches, **sampler_launches,
          **dr16_launches, **uv_launches, **desi_launches,
          **marg_launches, **options_launches, **table6_launches,
-         **dr16pub_launches, **desi_mock_launches, **lyacolore_launches,
+         **dr16pub_launches, **f32_models_launches, **desi_mock_launches,
+         **lyacolore_launches,
          **run_vega_launches},
         sampler_replays, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))

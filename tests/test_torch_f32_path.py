@@ -17,7 +17,8 @@ fits within 1e-2 of the JAX errors:
   path;
 - the dtype's selection, TF32 off, the payload cache's separation of the
   dtypes, the penalty (inf in f32, as vega_tpu's 1e100 rounds) and the
-  refusal of what the f32 mode does not cover.
+  refusal of what the f32 mode does not cover (the eBOSS DR16 and DESI
+  configurations it covers: tests/test_torch_f32_models.py).
 
 The grid chi^2 and both fits of synthetic-full run against the goldens on
 the card (chip_smoke.py's f32 phase): the 1,024-node sweep alone takes
@@ -255,25 +256,27 @@ def test_penalty_is_inf_as_in_vega_tpu(interfaces):
 
 
 @pytest.mark.parametrize('ini, section, text', [
-    ('lyaxlya', 'model', 'model-hcd = Rogers2018'),
-    ('lyaxlya', 'model', 'small scale nl = dnl_arinyo'),
-    ('lyaxlya', 'model', 'old_fftlog = True'),
-    ('qsoxlya', 'model', 'radiation effects = True'),
+    ('lyaxlya', 'model', 'pk-damping-scale = 10.'),
+    ('lyaxlya', 'model', 'mock-bin-size = 4.'),
+    ('lyaxlya', 'model', 'velocity dispersion = gauss'),
+    ('lyaxlya', 'model', 'UVB-fluctuations = True'),
     ('lyaxlya', 'model', 'fullshape smoothing = gauss'),
-    ('lyaxlya', 'metals', 'filename = metals.fits'),
-    ('lyaxlya', 'broadband', 'bb1 = add pre rp,rt 0:0:1 0:0:1'),
-    ('main', 'data sets', 'global-cov-file = global_cov.fits'),
+    ('qsoxlya', 'model', 'relativistic correction = True'),
+    ('lyaxlya', 'model', 'marginalize-all-rmin-cuts = True'),
+    ('main', 'control', 'model_pk = True'),
     ('main', 'control', 'run_sampler = True'),
     ('main', 'monte carlo', 'bias_LYA = True'),
     ('main', 'output', 'write_cf = True'),
-], ids=['hcd', 'arinyo', 'old_fftlog', 'radiation', 'smoothing',
-        'metals', 'broadband', 'global_cov', 'sampler', 'monte_carlo',
-        'components'])
+], ids=['pk_damping', 'mock_binning', 'gauss_dispersion', 'uv',
+        'smoothing', 'relativistic', 'marginalization', 'model_pk',
+        'sampler', 'monte_carlo', 'components'])
 def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
                                               text):
     """What the f32 mode does not cover raises not_ported at construction,
     naming ROADMAP.md item 10, before it reads a file the option names:
-    it never runs in f64 instead."""
+    it never runs in f64 instead. The HCD, NL, old_fftlog, radiation,
+    metals, broadband and joint-covariance cases this test held until
+    the f32 mode covered them run in tests/test_torch_f32_models.py."""
     src = Path(tiny).parent
     for path in src.iterdir():
         body = path.read_bytes()

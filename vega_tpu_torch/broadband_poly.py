@@ -6,9 +6,10 @@ on the host (`_design_matrix`, :77-98), `compute` for pre / post x add /
 mul (:100-132), `compute_add_terms`, the additive columns as factored
 terms (:134-159), and the Gaussian sky residual (:161-173).
 
-Each design matrix is (n_bins, n_coeff) numpy on the host, kept as a
-device tensor; a polynomial is one (B, n_coeff) x (n_coeff, n_bins)
-product with the coefficients, floats or (B,) tensors.
+Each design matrix is (n_bins, n_coeff) numpy on the host (f64), kept
+as a device tensor in the model's dtype; a polynomial is one
+(B, n_coeff) x (n_coeff, n_bins) product with the coefficients, floats
+or (B,) tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class BroadbandPolynomials:
     """(reference: broadband_poly.py:4-72 for the config surface)"""
 
     def __init__(self, bb_input, cf_name, model_coordinates,
-                 dist_model_coordinates, *, device):
+                 dist_model_coordinates, *, device, dtype=torch.float64):
         self.device = torch.device(device)
         self.model_coordinates = model_coordinates
         self.dist_model_coordinates = dist_model_coordinates
@@ -83,13 +84,17 @@ class BroadbandPolynomials:
                 design, names = self._design_matrix(term,
                                                     self._coords(pos_type))
                 self.designs[key] = (design, names)
-                self._design_t[key] = to_tensor(design, self.device)
-        # rt, rp of each position's coordinates for the sky term
-        self._sky_grids = {
-            position: tuple(to_tensor(grid, self.device) for grid in (
-                self._coords(position).rt_grid,
-                self._coords(position).rp_grid))
-            for position in ('pre', 'post')}
+                self._design_t[key] = to_tensor(design, self.device, dtype)
+        # rt of each position's coordinates for the sky term, and its
+        # support 0 <= rp < the rp bin size, taken on the host grids
+        self._sky_grids = {}
+        for position in ('pre', 'post'):
+            coords = self._coords(position)
+            support = ((coords.rp_grid >= 0.)
+                       & (coords.rp_grid < coords.rp_binsize))
+            self._sky_grids[position] = (
+                to_tensor(coords.rt_grid, self.device, dtype),
+                torch.as_tensor(np.asarray(support), device=self.device))
 
     def _coords(self, pos_type):
         return (self.model_coordinates if 'pre' in pos_type
@@ -191,9 +196,7 @@ class BroadbandPolynomials:
         (B, n_bins)."""
         scale = col(params[bb_term_name + '-scale-sky'], 1)
         sigma = col(params[bb_term_name + '-sigma-sky'], 1)
-        rt, rp = self._sky_grids[position]
-        coords = self._coords(position)
+        rt, support = self._sky_grids[position]
         corr = scale / (sigma * math.sqrt(2. * math.pi))
         corr = corr * torch.exp(-0.5 * (rt / sigma) ** 2)
-        w = (rp >= 0.) & (rp < coords.rp_binsize)
-        return torch.where(w, corr, 0.)
+        return torch.where(support, corr, 0.)

@@ -86,8 +86,11 @@ class CorrelationFunction:
         self.dtype = dtype
         self._config = config
         self._z = coordinates.z_grid
-        self._r = to_tensor(coordinates.r_grid, self.device, dtype)
-        self._mu = to_tensor(coordinates.mu_grid, self.device, dtype)
+        # the host grids stay f64 (vega_tpu's host work reads them)
+        self._r_host = np.asarray(coordinates.r_grid, dtype=np.float64)
+        self._mu_host = np.asarray(coordinates.mu_grid, dtype=np.float64)
+        self._r = to_tensor(self._r_host, self.device, dtype)
+        self._mu = to_tensor(self._mu_host, self.device, dtype)
         self._tracer1 = tracer1
         self._tracer2 = tracer2
         self._corr_name = f'{tracer1["name"]}x{tracer2["name"]}'
@@ -115,6 +118,9 @@ class CorrelationFunction:
                                    for a in compute_shotnoise_A())
         self._croom = {name: 'croom' in self._evol_model(name)
                        for name in (tracer1['name'], tracer2['name'])}
+        # the f32 mode carries the QSO radiation and old_growth_func of
+        # the eBOSS DR16 and DESI models, not the reference's own terms
+        # below nor rescale-coords-systematics (ROADMAP.md item 10)
         for feature, on in (
                 ('relativistic correction', self.relativistic_flag),
                 ('standard asymmetry', self.asymmetry_flag),
@@ -135,14 +141,8 @@ class CorrelationFunction:
                                  'cross (QSOxLya)')
         self._rescale_coords_systematics = config.getboolean(
             'rescale-coords-systematics', False)
-        for feature, on in (
-                ('QSO radiation', self.radiation_flag),
-                ('rescale-coords-systematics',
-                 self._rescale_coords_systematics),
-                ('old_growth_func',
-                 config.getboolean('old_growth_func', False))):
-            if on:
-                refuse_f32(dtype, feature)
+        if self._rescale_coords_systematics:
+            refuse_f32(dtype, 'rescale-coords-systematics')
 
         # delta rp only for the cross (reference: correlation_func.py:64-69)
         self._delta_rp_name = None
@@ -191,7 +191,7 @@ class CorrelationFunction:
                   'using mean redshift evolution.')
             return
         z = np.asarray(self._z)
-        rp = self._r.cpu().numpy() * self._mu.cpu().numpy()
+        rp = self._r_host * self._mu_host
         dist_hubble = cosmo.get_dist_hubble(z)
         z_q = z - rp / (2 * dist_hubble)
         z_f = z + rp / (2 * dist_hubble)
@@ -428,8 +428,7 @@ class CorrelationFunction:
         if self._tracer1['type'] != self._tracer2['type']:
             raise ValueError('DESI instrumental systematics model only '
                              'applies to auto-correlation functions.')
-        r = self._r.cpu().numpy()
-        mu = self._mu.cpu().numpy()
+        r, mu = self._r_host, self._mu_host
         rp = r * mu
         rt = r * np.sqrt(1 - mu ** 2)
         w = (rp > 0) & (rp < bin_size_rp)

@@ -30,8 +30,9 @@ are computed once on the host from the stacked-delta weights files:
 pair histograms of the assumed against the true line-of-sight
 separation (native/pair_hist.cpp, built with g++; the numpy route only
 when a caller asks for it), an rt distortion from the distance-ratio
-histogram, and each pair's effective coordinates. Each pair's matrix is
-then a device f64 tensor applied after the combine: the full
+histogram, and each pair's effective coordinates. Each pair's matrix,
+built in f64 on the host and cast once to the model's dtype (f32 in the
+f32 mode, with TF32 off), is then applied after the combine: the full
 (rp x rt) matrix as one GEMM (xi @ D^T), or with `rp_only_metal_mats`
 the (rp, rp) matrix along the line of sight (D @ xi.reshape(rp, rt)),
 a configuration the stacking plan refuses, as vega_tpu's does.
@@ -73,8 +74,10 @@ class Metals:
     """Metal correlations for one correlation component
     (reference: metals.py:13-142 for the configuration surface)."""
 
-    def __init__(self, corr_item, fiducial, scale_params, data, *, device):
+    def __init__(self, corr_item, fiducial, scale_params, data, *, device,
+                 dtype=torch.float64):
         self.device = torch.device(device)
+        self.dtype = dtype
         self._corr_item = corr_item
         self._data = data
         self._scale_params = scale_params
@@ -150,7 +153,8 @@ class Metals:
                          else self.compute_metal_dmat)
                 dmat, rp, rt, z = build(*corr_hash)
                 self.matrix_build_s += time.perf_counter() - t0
-                self._metal_mats[corr_hash] = to_tensor(dmat, self.device)
+                self._metal_mats[corr_hash] = to_tensor(dmat, self.device,
+                                                        dtype)
                 metal_coordinates = Coordinates.init_from_grids(
                     self._coordinates, rp, rt, z)
             elif corr_hash in data.metal_coordinates:
@@ -159,7 +163,7 @@ class Metals:
                 metal_coordinates = data.metal_coordinates[corr_hash[::-1]]
             self.Pk_metal[corr_hash] = power_spectrum.PowerSpectrum(
                 config['metals'], fiducial, tracer1, tracer2, corr_item.name,
-                device=self.device)
+                device=self.device, dtype=dtype)
             # every pair has the same (k, mu_k) grids and [model] options:
             # one transform plan serves them all
             if shared_pktoxi is None:
@@ -169,7 +173,7 @@ class Metals:
             self.Xi_metal[corr_hash] = corr_func.CorrelationFunction(
                 config['metals'], fiducial, metal_coordinates, scale_params,
                 tracer1, tracer2, metal_corr=True, device=self.device,
-                cosmo=self.cosmo)
+                dtype=dtype, cosmo=self.cosmo)
 
         if self.new_metals:
             print(f'INFO: {corr_item.name}: {len(self._metal_mats)} '
@@ -248,7 +252,7 @@ class Metals:
             # of the shared grid per class, whatever the number of pairs
             pktoxi_rep = self.PktoXi[hashes[0]]
             pk_rep = self.Pk_metal[hashes[0]]
-            muk = to_tensor(pk_rep.muk_grid.ravel(), self.device)
+            muk = to_tensor(pk_rep.muk_grid.ravel(), self.device, self.dtype)
             plan = {
                 'hashes': hashes, 'drp_name': drp_name,
                 'arinyo_exp': arinyo_exp, 'sym': sym,
@@ -281,7 +285,7 @@ class Metals:
                 if arrays[name].shape != tuple(plan[name].shape):
                     raise ValueError(f'{name} has shape {arrays[name].shape}, '
                                      f'the plan {tuple(plan[name].shape)}')
-                plan[name] = to_tensor(arrays[name], self.device)
+                plan[name] = to_tensor(arrays[name], self.device, self.dtype)
 
     def _local_pars(self, pars):
         """The parameters the pairs read: with fast_metals the growth
@@ -371,7 +375,7 @@ class Metals:
         FactoredXi, bad (B',))."""
         local_pars = self._local_pars(pars)
         pair_scalars = self._pair_weights_and_betas(local_pars)
-        xi_metals = torch.zeros((1, self.size), dtype=torch.float64,
+        xi_metals = torch.zeros((1, self.size), dtype=self.dtype,
                                 device=self.device)
         bad = torch.zeros(1, dtype=torch.bool, device=self.device)
         # Factored accumulation (factored.py): with a sampled set only
@@ -614,7 +618,7 @@ class Metals:
         """The per-pair loop (vega_tpu/metals.py:553-603): the path of
         configurations the stacking plan refuses."""
         local_pars = self._local_pars(pars)
-        xi_metals = torch.zeros((1, self.size), dtype=torch.float64,
+        xi_metals = torch.zeros((1, self.size), dtype=self.dtype,
                                 device=self.device)
         bad = torch.zeros(1, dtype=torch.bool, device=self.device)
         use_fast_bias = self.fast_metals or self.fast_metal_bias
@@ -669,7 +673,7 @@ class Metals:
             if dmat is not None:
                 dmat = np.asarray(dmat, dtype=np.float64)
                 dmat = (None if np.array_equal(dmat, np.eye(*dmat.shape))
-                        else to_tensor(dmat, self.device))
+                        else to_tensor(dmat, self.device, self.dtype))
             self._metal_mats[corr_hash] = dmat
         dmat = self._metal_mats[corr_hash]
         return xi if dmat is None else xi @ dmat.T

@@ -63,16 +63,10 @@ class Model:
             str(corr_item.data_coordinates.rt_binsize)
 
         self.save_components = fiducial.get('save-components', False)
-        # the f32 mode carries synthetic-full's model alone (ROADMAP.md
-        # item 10 queues the rest)
-        config = corr_item.config['model']
-        for feature, on in (
-                ('save-components', self.save_components),
-                ('desi-instrumental-systematics', config.getboolean(
-                    'desi-instrumental-systematics', False))):
-            if on:
-                refuse_f32(dtype, feature)
+        # the f32 mode carries the DESI instrumental systematics and the
+        # broadband, and keeps no components (ROADMAP.md item 10)
         if self.save_components:
+            refuse_f32(dtype, 'save-components')
             self.pk = {'peak': {}, 'smooth': {}, 'full': {}}
             self.xi = {'peak': {}, 'smooth': {}, 'full': {}}
             self.xi_distorted = {'peak': {}, 'smooth': {}, 'full': {}}
@@ -82,7 +76,7 @@ class Model:
             self.broadband = BroadbandPolynomials(
                 corr_item.config['broadband'], corr_item.name,
                 corr_item.model_coordinates, corr_item.dist_model_coordinates,
-                device=self.device)
+                device=self.device, dtype=dtype)
 
         self.Pk_core = power_spectrum.PowerSpectrum(
             corr_item.config['model'], fiducial, corr_item.tracer1,
@@ -102,7 +96,8 @@ class Model:
                 'desi-instrumental-systematics', False):
             self._inst_sys_template = to_tensor(
                 self.Xi_core.desi_instrumental_systematics_template(
-                    corr_item.data_coordinates.rp_binsize), self.device)
+                    corr_item.data_coordinates.rp_binsize), self.device,
+                dtype)
 
         # Metals are added once to the smooth component, computed on the
         # full linear spectrum (no-metal-decomp, the default), or to each
@@ -110,7 +105,7 @@ class Model:
         self.metals = None
         if corr_item.has_metals:
             self.metals = metals.Metals(corr_item, fiducial, scale_params,
-                                        data, device=self.device)
+                                        data, device=self.device, dtype=dtype)
             self.no_metal_decomp = corr_item.config['model'].getboolean(
                 'no-metal-decomp', True)
 

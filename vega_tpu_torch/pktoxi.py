@@ -185,13 +185,12 @@ class PktoXi:
         self.ell_max = config.getint('ell_max', 6)
         self.old_fftlog = config.getboolean('old_fftlog', False)
         # mcfit's extrap=True: operators on the extended k grid and a
-        # power-law continuation of each multipole (old_fftlog wins)
+        # power-law continuation of each multipole (old_fftlog wins); the
+        # f32 mode carries old_fftlog's legacy operators, not this
         extrap = (config.getboolean('fht_extrap', False)
                   and not self.old_fftlog)
-        for feature, on in (('old_fftlog', self.old_fftlog),
-                            ('fht_extrap', extrap)):
-            if on:
-                refuse_f32(dtype, feature)
+        if extrap:
+            refuse_f32(dtype, 'fht_extrap')
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
                               np.arange(0, self.ell_max + 1, 2))

@@ -61,10 +61,32 @@ class FactoredPk:
         return out
 
 
+# host grid bundles by k grid, mu_k bins, quadrature, bin sizes and G(k):
+# a correlation's core model and each of its metal pairs, and every
+# interface of a process on the same template, share one, read-only
+# (vega_tpu/power_spectrum.py:63-106 keeps the same cache)
+_GRID_BUNDLE_CACHE = {}
+
+
 def _grid_bundle(k_grid, num_bins_muk, quadrature, bin_size_rp,
                  bin_size_rt, use_Gk):
     """(mu_k, weights, k_par, k_trans, G(k)) host grids
-    (vega_tpu/power_spectrum.py:66-106)."""
+    (vega_tpu/power_spectrum.py:66-106), built once per key."""
+    key = (np.asarray(k_grid, dtype=np.float64).tobytes(), num_bins_muk,
+           quadrature, bin_size_rp, bin_size_rt, use_Gk)
+    bundle = _GRID_BUNDLE_CACHE.get(key)
+    if bundle is None:
+        bundle = _build_grid_bundle(k_grid, num_bins_muk, quadrature,
+                                    bin_size_rp, bin_size_rt, use_Gk)
+        for array in bundle:
+            if array is not None:
+                array.flags.writeable = False
+        _GRID_BUNDLE_CACHE[key] = bundle
+    return bundle
+
+
+def _build_grid_bundle(k_grid, num_bins_muk, quadrature, bin_size_rp,
+                       bin_size_rt, use_Gk):
     if quadrature == 'midpoint':
         muk_grid = (np.arange(num_bins_muk) + 0.5) / num_bins_muk
         muk_weights = np.full(num_bins_muk, 1.0 / num_bins_muk)
@@ -132,12 +154,11 @@ class PowerSpectrum:
                 kind in self.small_scale_nl
                 for kind in ('arinyo', 'mcdonald')):
             raise ValueError("Incorrect 'small scale nl' specified")
-        # the f32 mode carries synthetic-full's model alone: Kaiser, the
-        # BAO peak's broadening, G(k) and the Lorentzian velocity
-        # dispersion (ROADMAP.md item 10 queues the rest)
+        # the f32 mode carries synthetic-full's model and the eBOSS DR16
+        # and DESI models: Kaiser, the BAO peak's broadening, G(k), the
+        # Lorentzian velocity dispersion, the HCD models and the
+        # small-scale NL (ROADMAP.md item 10 queues the rest)
         for feature, on in (
-                ('an HCD model', self.hcd_model is not None),
-                ('small scale nl', self.small_scale_nl is not None),
                 ('fullshape smoothing', self.fullshape_smoothing is not None),
                 ('mock binning', self.mock_bin_size is not None
                  or self.mock_los_smoothing is not None),

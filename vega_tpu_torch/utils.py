@@ -177,8 +177,33 @@ def find_file(path):
     raise RuntimeError(f'The path/file does not exist: {input_path}')
 
 
+# The masked inverse covariances and log-determinants of a process, by
+# content (vega_tpu/utils.py:210-283 keeps the same caches): the
+# interfaces a process builds on the same data (a fit's dense and grid
+# interfaces, the f64 and f32 ones, variants of one dataset) factorize
+# each covariance once. The inverses are read-only and held up to
+# INVCOV_CACHE_BYTES (vega_tpu's default budget), the oldest dropped
+# first.
+INVCOV_CACHE_BYTES = 4096 * 2 ** 20
+_INVCOV_CACHE = {}
+_LOGDET_CACHE = {}
+
+
+def _cov_key(cov_mat, data_mask):
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.ascontiguousarray(cov_mat).view(np.uint8))
+    h.update(np.ascontiguousarray(data_mask).view(np.uint8))
+    h.update(repr((cov_mat.shape, str(cov_mat.dtype))).encode())
+    return h.digest()
+
+
 def compute_masked_invcov(cov_mat, data_mask):
-    """Masked inverse covariance (reference: utils.py:271-298)."""
+    """Masked inverse covariance (reference: utils.py:271-298), computed
+    once per content and process; the array returned is read-only."""
+    key = _cov_key(cov_mat, data_mask)
+    if key in _INVCOV_CACHE:
+        return _INVCOV_CACHE[key]
     masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
     try:
         np.linalg.cholesky(cov_mat)
@@ -188,13 +213,24 @@ def compute_masked_invcov(cov_mat, data_mask):
         np.linalg.cholesky(masked_cov)
     except np.linalg.LinAlgError:
         print('WARNING: Reduced matrix is not positive definite')
-    return np.linalg.inv(masked_cov)
+    out = np.linalg.inv(masked_cov)
+    out.flags.writeable = False
+    if out.nbytes <= INVCOV_CACHE_BYTES:
+        held = sum(v.nbytes for v in _INVCOV_CACHE.values())
+        while held + out.nbytes > INVCOV_CACHE_BYTES:
+            held -= _INVCOV_CACHE.pop(next(iter(_INVCOV_CACHE))).nbytes
+        _INVCOV_CACHE[key] = out
+    return out
 
 
 def compute_log_cov_det(cov_mat, data_mask):
-    """log|C| of the masked covariance (reference: utils.py:301-318)."""
-    masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
-    return float(np.linalg.slogdet(masked_cov)[1])
+    """log|C| of the masked covariance (reference: utils.py:301-318),
+    computed once per content and process."""
+    key = _cov_key(cov_mat, data_mask)
+    if key not in _LOGDET_CACHE:
+        masked_cov = cov_mat[np.ix_(data_mask, data_mask)]
+        _LOGDET_CACHE[key] = float(np.linalg.slogdet(masked_cov)[1])
+    return _LOGDET_CACHE[key]
 
 
 def get_blinding(blind_pars, blinding_strat):

@@ -189,9 +189,14 @@ class VegaInterface:
     stays f64 in both: the inverse covariances, FFTLog and spline
     operators are built in f64 and cast once onto the device. The f32
     mode covers synthetic-full's model (Kaiser, the peak's broadening,
-    G(k), the Lorentzian velocity dispersion), dense and through the grid
-    collapse, and the fit; every other feature raises `not_ported` at
-    construction (ROADMAP.md item 10), never running in f64 instead.
+    G(k), the Lorentzian velocity dispersion) and the eBOSS DR16 and DESI
+    configurations' (the metals with their metal files or new-metals
+    matrices, the HCD models, Arinyo and McDonald NL, the QSO radiation,
+    the DESI instrumental systematics, the broadband and its sky
+    residual, old_fftlog, old_growth_func and the joint covariance),
+    dense, through the grid collapse or vega_tpu's route, and the fit;
+    every other feature raises `not_ported` at construction (ROADMAP.md
+    item 10), never running in f64 instead.
     """
 
     def __init__(self, main_path, device, dtype=None):
@@ -235,7 +240,6 @@ class VegaInterface:
                 ('use_full_pk_for_mc', bool(control) and control.getboolean(
                     'use_full_pk_for_mc', False)),
                 ('marginalize-in-fit', self.marginalize_in_fit),
-                ('a global covariance', global_cov_file is not None),
                 ('the samplers', bool(control)
                  and control.getboolean('run_sampler', False)),
                 ('Monte-Carlo', 'monte carlo' in self.main_config)):
@@ -248,10 +252,7 @@ class VegaInterface:
             name = config['data'].get('name')
             self.corr_items[name] = CorrelationItem(config, self.model_pk)
             self.corr_items[name].low_mem_mode = self.low_mem_mode
-            # before the data layer reads their files
-            for feature in ('metals', 'broadband'):
-                if feature in config:
-                    refuse_f32(self.dtype, feature)
+            # before the data layer reads its files
             if self.corr_items[name].marginalize_small_scales:
                 refuse_f32(self.dtype, 'Small-scale marginalization')
 
