@@ -18,7 +18,8 @@ fits within 1e-2 of the JAX errors:
 - the dtype's selection, TF32 off, the payload cache's separation of the
   dtypes, the penalty (inf in f32, as vega_tpu's 1e100 rounds) and the
   refusal of what the f32 mode does not cover (the eBOSS DR16 and DESI
-  configurations it covers: tests/test_torch_f32_models.py).
+  configurations it covers: tests/test_torch_f32_models.py; the samplers,
+  scans and Monte-Carlo campaigns: tests/test_torch_f32_campaigns.py).
 
 The grid chi^2 and both fits of synthetic-full run against the goldens on
 the card (chip_smoke.py's f32 phase): the 1,024-node sweep alone takes
@@ -264,19 +265,20 @@ def test_penalty_is_inf_as_in_vega_tpu(interfaces):
     ('qsoxlya', 'model', 'relativistic correction = True'),
     ('lyaxlya', 'model', 'marginalize-all-rmin-cuts = True'),
     ('main', 'control', 'model_pk = True'),
-    ('main', 'control', 'run_sampler = True'),
-    ('main', 'monte carlo', 'bias_LYA = True'),
+    ('lyaxlya', 'model', 'rescale-coords-systematics = True'),
+    ('lyaxlya', 'model', 'fht_extrap = True'),
     ('main', 'output', 'write_cf = True'),
 ], ids=['pk_damping', 'mock_binning', 'gauss_dispersion', 'uv',
         'smoothing', 'relativistic', 'marginalization', 'model_pk',
-        'sampler', 'monte_carlo', 'components'])
+        'rescale_coords', 'fht_extrap', 'components'])
 def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
                                               text):
     """What the f32 mode does not cover raises not_ported at construction,
     naming ROADMAP.md item 10, before it reads a file the option names:
     it never runs in f64 instead. The HCD, NL, old_fftlog, radiation,
     metals, broadband and joint-covariance cases this test held until
-    the f32 mode covered them run in tests/test_torch_f32_models.py."""
+    the f32 mode covered them run in tests/test_torch_f32_models.py, the
+    sampler and Monte-Carlo cases in tests/test_torch_f32_campaigns.py."""
     src = Path(tiny).parent
     for path in src.iterdir():
         body = path.read_bytes()

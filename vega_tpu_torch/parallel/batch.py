@@ -16,8 +16,11 @@ row is the joint quadratic form over the concatenated masked model, one
 (B, n) x (n, n) f64 GEMM and a row-wise dot (VegaInterface._chi2_rows),
 for the chi^2, its derivatives and the traceable log-likelihood alike;
 MonteCarloEngine draws per-correlation mocks and refuses a global
-covariance (vega_tpu's engine has none either). Sharding over several
-cards is not ported yet.
+covariance (vega_tpu's engine has none either). Everything runs in the
+interface's dtype: under vega_tpu's f32 mode (VEGA_TPU_X64=0) the Newton
+carries its f64 constants (the bound slack, the damping ladder, the
+stopping and validity tests) as vega_tpu's f32 run carries them, in f32.
+Sharding over several cards is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import mocks as mock_tools
-from ..utils import refuse_f32
+from ..utils import to_tensor
 
 
 class BatchedLikelihood:
@@ -76,7 +79,6 @@ class TraceableLogLik:
     built again."""
 
     def __init__(self, vega, names):
-        refuse_f32(vega.dtype, 'the samplers')
         self.vega = vega
         self.names = tuple(names)
         self._key = frozenset(self.names)
@@ -290,7 +292,6 @@ def batched_chi2_scan(vega, grids, sample_params=None, max_iterations=100,
     fixed value, 'fval': chi^2}. The chi^2 is served by
     get_collapsed(free + scan names), with the data terms. stats as in
     _newton_minimize_batched."""
-    refuse_f32(vega.dtype, 'profile scans')
     if sample_params is None:
         sample_params = vega.sample_params
     scan_names = list(grids.keys())
@@ -312,8 +313,7 @@ def batched_chi2_scan(vega, grids, sample_params=None, max_iterations=100,
 
     x, _, _, chi2, _ = _newton_minimize_batched(
         derivatives, x0, lo, hi,
-        {'point': torch.as_tensor(scan_vals, dtype=vega.dtype,
-                                  device=vega.device)},
+        {'point': to_tensor(scan_vals, vega.device, vega.dtype)},
         max_iterations, stats=stats)
 
     x = x.cpu().numpy()
@@ -339,7 +339,6 @@ class MonteCarloEngine:
     packages are compared by fitting identical mocks."""
 
     def __init__(self, vega):
-        refuse_f32(vega.dtype, 'Monte-Carlo mock fits')
         if vega._use_global_cov:
             raise ValueError(
                 'MonteCarloEngine draws per-correlation mocks: under a '
@@ -363,10 +362,8 @@ class MonteCarloEngine:
                                                 data)[data.data_mask]
             noise = torch.randn((num_mocks, fid.size), generator=generator,
                                 dtype=vega.dtype, device=vega.device)
-            out[name] = (torch.as_tensor(fid, dtype=vega.dtype,
-                                         device=vega.device)[None, :]
-                         + noise @ torch.as_tensor(chol, dtype=vega.dtype,
-                                                   device=vega.device).T)
+            out[name] = (to_tensor(fid, vega.device, vega.dtype)[None, :]
+                         + noise @ to_tensor(chol, vega.device, vega.dtype).T)
         return out
 
     def fit_mocks(self, mocks, sample_params=None, max_iterations=200,
@@ -388,8 +385,7 @@ class MonteCarloEngine:
         names = list(sample_params['limits'].keys())
         x0, lo, hi = _start_and_bounds(sample_params, names, vega.device,
                                        vega.dtype)
-        data_vecs = {name: torch.as_tensor(mocks[name], dtype=vega.dtype,
-                                           device=vega.device)
+        data_vecs = {name: to_tensor(mocks[name], vega.device, vega.dtype)
                      for name in vega.corr_items}
         cov_scales = {name: 1.0 for name in vega.corr_items}
 

@@ -26,7 +26,9 @@ block of trajectories runs with no host sync. A capture that fails
 raises; on a CPU device the same trajectory runs eagerly. The momenta
 and the acceptance uniforms come from a torch.Generator seeded with
 `seed`: they are not jax.random's, so a chain differs from vega_tpu's
-realization by realization.
+realization by realization. Everything on the device runs in the
+likelihood's dtype (f32 under vega_tpu's VEGA_TPU_X64=0, as vega_tpu's
+scan does); the host diagnostics take what comes back.
 """
 
 from __future__ import annotations
@@ -36,11 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.graphs import CapturedGraph
+from ..utils import resolve_dtype
 from .sampler_interface import Sampler
-
-# the samplers run in f64 alone: an f32 interface is refused
-# (sampler_interface.Sampler)
-DTYPE = torch.float64
 
 
 def make_hmc_step(pot_vg, n_leap):
@@ -115,11 +114,13 @@ class HMC(Sampler):
     device. A plain callable still works (the standalone hook): a torch
     function of (chains, ndim) physical values -> (chains,) chi^2 that
     autograd can differentiate, called with tensors on `device`, the card
-    unless the caller passes another.
+    unless the caller passes another, in `dtype`: torch.float64 or
+    torch.float32, else read from VEGA_TPU_X64 as VegaInterface reads it.
+    With an interface the dtype is the interface's.
     """
 
     def __init__(self, sampler_config, limits, batched_or_vega,
-                 derived_dict=None, device='cuda'):
+                 derived_dict=None, device='cuda', dtype=None):
         from ..parallel.batch import BatchedLikelihood
         from ..vega_interface import resolve_device
 
@@ -134,9 +135,10 @@ class HMC(Sampler):
         else:
             self._vega = batched_or_vega
         if self._vega is not None:
-            self.device = self._vega.device
+            self.device, self.dtype = self._vega.device, self._vega.dtype
         else:
             self.device = resolve_device(device)
+            self.dtype = resolve_dtype(dtype)
         super().__init__(sampler_config, limits,
                          log_lik_func=None, derived_dict=None)
 
@@ -162,10 +164,10 @@ class HMC(Sampler):
         (vega_tpu/samplers/hmc.py:77-114; its gradient written out
         instead of traced)."""
         names = list(self.names)
-        lo = torch.tensor([self.limits[n][0] for n in names], dtype=DTYPE,
-                          device=self.device)
-        span = torch.tensor([self.limits[n][1] for n in names], dtype=DTYPE,
-                            device=self.device) - lo
+        lo = torch.tensor([self.limits[n][0] for n in names],
+                          dtype=self.dtype, device=self.device)
+        span = torch.tensor([self.limits[n][1] for n in names],
+                            dtype=self.dtype, device=self.device) - lo
 
         if self._chi2_fn is not None:
             def chi2_and_gradient(x):
@@ -210,15 +212,15 @@ class HMC(Sampler):
         u, v, g = state
         n_chains, ndim = u.shape
         z = torch.randn((n_iters, n_chains, ndim), generator=generator,
-                        dtype=DTYPE, device=self.device)
+                        dtype=self.dtype, device=self.device)
         log_unif = torch.log(torch.rand((n_iters, n_chains),
-                                        generator=generator, dtype=DTYPE,
+                                        generator=generator, dtype=self.dtype,
                                         device=self.device))
-        us = torch.empty((n_iters, n_chains, ndim), dtype=DTYPE,
+        us = torch.empty((n_iters, n_chains, ndim), dtype=self.dtype,
                          device=self.device)
-        vs = torch.empty((n_iters, n_chains), dtype=DTYPE,
+        vs = torch.empty((n_iters, n_chains), dtype=self.dtype,
                          device=self.device)
-        accs = torch.empty(n_iters, dtype=DTYPE, device=self.device)
+        accs = torch.empty(n_iters, dtype=self.dtype, device=self.device)
         h_bar, log_eps_bar, mu = da_state
         delta = self.target_accept
         for it in range(n_iters):
@@ -257,7 +259,7 @@ class HMC(Sampler):
 
         def tensor(values):
             return torch.as_tensor(np.asarray(values, dtype=np.float64),
-                                   dtype=DTYPE, device=self.device)
+                                   dtype=self.dtype, device=self.device)
 
         # start chains jittered around the configured parameter values
         # (the reference's standard fit starting point): far better
@@ -275,8 +277,8 @@ class HMC(Sampler):
         u0 = tensor(u_center + 0.3 * rng.standard_normal((self.num_chains,
                                                           ndim)))
 
-        inv_mass = torch.eye(ndim, dtype=DTYPE, device=self.device)
-        chol_mass = torch.eye(ndim, dtype=DTYPE, device=self.device)
+        inv_mass = torch.eye(ndim, dtype=self.dtype, device=self.device)
+        chol_mass = torch.eye(ndim, dtype=self.dtype, device=self.device)
         log_eps = tensor(np.log(self.initial_step))
 
         pot_vg = self._build_potential()
@@ -298,7 +300,7 @@ class HMC(Sampler):
             return tensor(cov), tensor(np.linalg.cholesky(mass))
 
         def da_start(log_eps):
-            return (torch.zeros((), dtype=DTYPE, device=self.device),
+            return (torch.zeros((), dtype=self.dtype, device=self.device),
                     log_eps, log_eps + np.log(10.0))
 
         # Stan-style windowed warmup: three dual-averaging stages with

@@ -88,10 +88,14 @@ class DeviceEvolve:
     random numbers are an input, drawn before the call from a
     torch.Generator on the device seeded seed * 1_000_003 + it: they are
     not jax.random's, so a chain differs from vega_tpu's realization by
-    realization while targeting the same constrained distribution. On a
-    CUDA device the function is captured once in a torch.cuda.CUDAGraph
-    with static input and output buffers and replayed once per call: the
-    host inputs go up in one copy, the four results come back in one. A
+    realization while targeting the same constrained distribution. The
+    inputs, the random numbers and the packed results are in the
+    likelihood's dtype, as vega_tpu's jitted evolve holds them (f32 under
+    VEGA_TPU_X64=0, where the clamp's 1 - 1e-12 is 1.0 in both packages).
+    On a CUDA device the function is captured once in a
+    torch.cuda.CUDAGraph with static input and output buffers and
+    replayed once per call: the host inputs go up in one copy, the four
+    results come back in one. A
     capture or replay that fails raises; nothing falls back to the host
     loop. On a CPU device the same function runs eagerly."""
 
@@ -99,11 +103,12 @@ class DeviceEvolve:
                  seed):
         self.log_lik = batched.traceable_log_lik(names)
         self.device = batched.vega.device
+        self.dtype = batched.vega.dtype
         self.n, self.ndim = int(n), len(names)
         self.seed = seed
 
         def tensor(values):
-            return torch.tensor(values, dtype=torch.float64,
+            return torch.tensor(values, dtype=self.dtype,
                                 device=self.device)
 
         lo = tensor([limits[name][0] for name in names])
@@ -113,15 +118,15 @@ class DeviceEvolve:
         # static buffers: the host inputs (u0, l_min, width, chol) in one
         # flat tensor, the random numbers, and the packed results
         n_u, n_c = self.n * self.ndim, self.ndim ** 2
-        self._host_in = torch.empty(n_u + 2 + n_c, dtype=torch.float64,
+        self._host_in = torch.empty(n_u + 2 + n_c, dtype=self.dtype,
                                     pin_memory=self.device.type == 'cuda')
-        self._in = torch.empty(n_u + 2 + n_c, dtype=torch.float64,
+        self._in = torch.empty(n_u + 2 + n_c, dtype=self.dtype,
                                device=self.device)
         self.inputs = (self._in[:n_u].view(self.n, self.ndim),
                        self._in[n_u], self._in[n_u + 1],
                        self._in[n_u + 2:].view(self.ndim, self.ndim))
         self.randoms = tuple(
-            torch.empty(shape, dtype=torch.float64, device=self.device)
+            torch.empty(shape, dtype=self.dtype, device=self.device)
             for shape in ((num_repeats, self.n, self.ndim),
                           (num_repeats, self.n),
                           (num_repeats, max_shrink, self.n)))
@@ -130,7 +135,7 @@ class DeviceEvolve:
             # a run on placeholder inputs warms up, a second is captured
             self._in.zero_()
             self.inputs[0].fill_(0.5)
-            self.inputs[3].copy_(torch.eye(self.ndim, dtype=torch.float64))
+            self.inputs[3].copy_(torch.eye(self.ndim, dtype=self.dtype))
             self.draw(0)
             self.graph = CapturedGraph(self.evolve, self.device)
 
@@ -142,11 +147,13 @@ class DeviceEvolve:
 
     def evolve(self):
         """`slice_evolve` on the static inputs, results packed as one
-        (n ndim + n + 2,) f64 tensor: u, logl, steps, moves."""
+        (n ndim + n + 2,) tensor of the likelihood's dtype: u, logl,
+        steps, moves (the counts exact up to 2^24 in f32: an iteration
+        takes at most n num_repeats max_shrink steps)."""
         u, logl, steps, moves = slice_evolve(self.log_lik_u, *self.inputs,
                                              *self.randoms)
         return torch.cat([u.reshape(-1), logl,
-                          torch.stack([steps, moves]).to(torch.float64)])
+                          torch.stack([steps, moves]).to(self.dtype)])
 
     def draw(self, it):
         """Fill the static random-number buffers for iteration `it`."""
@@ -157,7 +164,8 @@ class DeviceEvolve:
         shrinks.uniform_(generator=self.generator)
 
     def load(self, start_u, l_min, width, chol):
-        """Copy the host inputs into their static buffer, in one copy."""
+        """Copy the host inputs into their static buffer, in one copy (the
+        f64 host values rounded to the buffer's dtype)."""
         n_u = self.n * self.ndim
         host = self._host_in.numpy()
         host[:n_u] = np.asarray(start_u, dtype=np.float64).reshape(-1)
@@ -176,7 +184,9 @@ class DeviceEvolve:
         return self.graph.replay()
 
     def __call__(self, start_u, l_min, width, chol, it):
-        """(u (n, ndim), logl (n,), steps, moves) as host numpy."""
+        """(u (n, ndim), logl (n,), steps, moves): u and logl as host
+        numpy arrays of the likelihood's dtype, as vega_tpu's evolve
+        returns them."""
         self.load(start_u, l_min, width, chol)
         self.draw(it)
         out = self.run().cpu().numpy()

@@ -63,10 +63,17 @@ def refuse_f32(dtype, feature):
 
 
 def to_tensor(x, device, dtype=torch.float64):
-    """Copy of the host array `x`, taken as f64, on `device` in `dtype`
-    (explicit: torch's default is f32): host arrays stay f64 and are cast
-    once."""
-    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+    """Copy of the host array `x`, taken as f64 and rounded to `dtype` on
+    the host, on `device` (explicit: torch's default is f32): host arrays
+    stay f64 and are cast once, and an f32 copy reaches the device with
+    no f64 tensor made on the way (as vega_tpu's jnp.asarray of an f64
+    array under VEGA_TPU_X64=0). A tensor `x` is cast where it lies and
+    then moved (itself when it already has the dtype and device)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype).to(device)
+    host = np.asarray(x, dtype=np.float64)
+    return torch.tensor(host.astype({torch.float64: np.float64,
+                                     torch.float32: np.float32}[dtype]),
                         device=device)
 
 

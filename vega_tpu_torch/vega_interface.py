@@ -194,9 +194,10 @@ class VegaInterface:
     matrices, the HCD models, Arinyo and McDonald NL, the QSO radiation,
     the DESI instrumental systematics, the broadband and its sky
     residual, old_fftlog, old_growth_func and the joint covariance),
-    dense, through the grid collapse or vega_tpu's route, and the fit;
-    every other feature raises `not_ported` at construction (ROADMAP.md
-    item 10), never running in f64 instead.
+    dense, through the grid collapse or vega_tpu's route, in fits, the
+    native samplers, profile scans and Monte-Carlo campaigns; every other
+    feature raises `not_ported` at construction (ROADMAP.md item 10),
+    never running in f64 instead.
     """
 
     def __init__(self, main_path, device, dtype=None):
@@ -239,10 +240,7 @@ class VegaInterface:
                 ('model_pk', self.model_pk),
                 ('use_full_pk_for_mc', bool(control) and control.getboolean(
                     'use_full_pk_for_mc', False)),
-                ('marginalize-in-fit', self.marginalize_in_fit),
-                ('the samplers', bool(control)
-                 and control.getboolean('run_sampler', False)),
-                ('Monte-Carlo', 'monte carlo' in self.main_config)):
+                ('marginalize-in-fit', self.marginalize_in_fit)):
             if on:
                 refuse_f32(self.dtype, feature)
 
