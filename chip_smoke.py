@@ -355,6 +355,31 @@ configuration, with no JAX:
    - minimize() over the six names against the JAX dense fit (1e-2 / 1e-3
      of the JAX errors); it fails unless the fit launched F_d (d >= 1),
      P_d and Ft_d.
+13b. The f32 mode on every model term (phase f32_terms), under
+   VEGA_TPU_X64=0 (dense) or dtype=torch.float32, on the files phases
+   desi_mock, lyacolore, uv, desi and table6 wrote (written here when
+   they did not run), against vega_tpu's f32 dense chi^2 of
+   tests/data/torch_port_f32_terms_goldens.json and the f64 goldens of
+   those phases within the f32 ladder:
+   - desi_mock (full-shape smoothing beside the new-metals stacks),
+     lyacolore (per-row smoothing on old_fftlog's legacy grid) and uv
+     (UV fluctuations and shotnoise, the relativistic and asymmetry
+     pair, Croom): dense chi2_batch(8192) with only f32 kernels launched
+     (F_0 from the metal stacks, the transform, or the pair's two
+     tables), chi^2 at the goldens' 8 points (`f32_models_hold`), one
+     timed round beside the f64 phase's evals/s and the device shares;
+     the grid (desi_mock's 12 names) or vega_tpu's route (uv: the auto
+     from the payload; lyacolore: every call dense), cold, against
+     vega_tpu's f64 grid, route or dense chi^2; vega_tpu's f64 fit held
+     as the f32 minimum (`check_golden_minimum`, regime 'f32'; uv's
+     launches F_d, P_d and Ft_d of two tables);
+   - uv's single_multipole (one table, a weight of 1) and fht_extrap
+     variants and desi's rescale-coords-systematics variant, dense at
+     their goldens' rows;
+   - table6's 4-dimension payload swept in f32, cold, its route chi^2
+     held to phase table6's f64 route (`check_f32_route`);
+   - the six edge layouts in f32 on the legacy knot grid of the
+     relativistic pair (L = 2) and on fht_extrap's knot grid.
 14. A fit from the command line (phase run_vega), configuration
    synthetic-dr16-published-full with the components written
    (make_dr16_published_dataset(..., components=True): [output] write_pk
@@ -649,11 +674,17 @@ def build_kernels():
     return built
 
 
+SECOND_DERIVATIVES = {}
+
+
 def random_case(rng, device, grid, layout):
     """Random inputs of one recorded launch layout: tables with their
     not-a-knot second derivatives, queries with about 5% outside the
     knot range, Legendre weights (or the transpose's g) in [-1, 1];
-    shared rows with row stride 0."""
+    shared rows with row stride 0. The second derivatives are an f64
+    product on `device` with the grid's matrix, built once per grid (on
+    the host, the product of a B = 15,360 layout took seconds), then
+    cast to the grid's dtype."""
     from vega_tpu_torch.ops.spline import notaknot_second_derivative_matrix
     n_b, n_ell, n_knots, group, n_x, n_q, x_shared, leg_shared = layout[:8]
     logr = grid.values
@@ -662,9 +693,15 @@ def random_case(rng, device, grid, layout):
     def tensor(a):
         return torch.as_tensor(a, dtype=grid.dtype, device=device)
 
+    key = (len(logr), float(logr[0]), float(logr[-1]), str(device))
+    if key not in SECOND_DERIVATIVES:
+        SECOND_DERIVATIVES[key] = torch.as_tensor(
+            notaknot_second_derivative_matrix(logr).T, dtype=torch.float64,
+            device=device)
     y_np = rng.normal(size=(n_b, n_ell, n_knots))
     y = tensor(y_np)
-    m = tensor(y_np @ notaknot_second_derivative_matrix(logr).T)
+    m = (torch.as_tensor(y_np, dtype=torch.float64, device=device)
+         @ SECOND_DERIVATIVES[key]).to(grid.dtype)
     x = tensor(rng.uniform(logr[0] - 0.025 * span, logr[-1] + 0.025 * span,
                            (1 if x_shared else n_x, n_q))).expand(n_x, n_q)
     leg = tensor(rng.uniform(-1, 1, (1 if leg_shared else n_x, n_ell,
@@ -1054,8 +1091,9 @@ def profile_call(label, fn, device):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the kernels are all it reads (with the
+    # host's ops too, events() took 1.5-2.3x as long)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
     kernels = [e for e in prof.events()
@@ -3274,6 +3312,15 @@ def value_gradients(device, vega, points, names, label):
     return out
 
 
+def uv_rows(params, names):
+    """BATCH rows 1% around the configuration's values, the shotnoise
+    amplitude (0 there) 1e-4 around it; seed 0."""
+    rng = np.random.default_rng(0)
+    spread = {n: 0.01 * abs(v) for n, v in params.items()}
+    spread['uv_shotnoise_amp'] = 1e-4
+    return {n: params[n] + spread[n] * rng.normal(size=BATCH) for n in names}
+
+
 def run_uv_path(device, work, card):
     """Phase uv (see the module docstring); returns the kernel launches
     of its paths, the kernel checks at their layouts and the edge checks
@@ -3292,11 +3339,7 @@ def run_uv_path(device, work, card):
         f'{time.perf_counter() - t_phase:.2f} s')
     with switch('VEGA_TPU_FACTORED', '0'):
         dense_vega = VegaInterface(main_ini, device=device)
-    rng = np.random.default_rng(0)
-    spread = {n: 0.01 * abs(v) for n, v in dense_vega.params.items()}
-    spread['uv_shotnoise_amp'] = 1e-4
-    batches = {n: dense_vega.params[n] + spread[n] * rng.normal(size=BATCH)
-               for n in names}
+    batches = uv_rows(dense_vega.params, names)
     launches, checks = {}, []
 
     # --- the dense regime: counts from zero
@@ -3339,6 +3382,7 @@ def run_uv_path(device, work, card):
         fail(f'uv dense chi2 vs the JAX goldens differ by {rel:.3e} > '
              f'{GOLDEN_RTOL}')
     rate, times = timed_rows(device, dense_vega, batches, UV_ROUNDS)
+    F64_DENSE_RATES['uv'] = rate
     log(f'uv dense chi2_batch({BATCH}): {rate:.1f} evals/s (median of '
         f'{UV_ROUNDS}, s per call {", ".join(f"{t:.4f}" for t in times)}; '
         f'{card})')
@@ -4490,6 +4534,7 @@ def run_table6_path(device, work, card, fit_ini):
         fail(f'table6 dense chi2 / gradient vs the JAX goldens differ by '
              f'{rel:.3e} / {max(grads):.3e} > {GOLDEN_RTOL}')
     grid = got_cold.cpu().numpy()
+    F64_ROUTE_CHI2['table6'] = grid
     d_grid = np.abs(grid - dense_want)
     bound = TABLE6_DENSE_ABS + TABLE6_DENSE_REL * np.abs(dense_want)
     within = bool(np.all(d_grid <= bound))
@@ -4830,8 +4875,9 @@ def run_dr16pub_path(device, work, card):
 # The f32 throughput mode on the eBOSS DR16 and DESI configurations
 # ----------------------------------------------------------------------
 F32_MODELS = ('dr16', 'desi', 'dr16pub')
-F32_MODELS_ROUNDS = {'dr16': TIMED_ROUNDS, 'desi': DESI_TIMED_ROUNDS,
-                     'dr16pub': DESI_TIMED_ROUNDS}
+# one timed round of each dense f32 chi2_batch(8192) in the f32_models and
+# f32_terms phases: the f64 phase's rate of the same run is the yardstick
+F32_ROUNDS = 1
 # the f64 phases' numbers of this run that the f32_models phase reads:
 # dense chi2_batch(8192) evals/s by configuration, and dr16pub's f64
 # route chi^2 at its goldens' points
@@ -4892,20 +4938,21 @@ def f32_models_hold(label, got, jax32, jax64):
 
 
 def check_f32_route(name, got, route64, dense64):
-    """dr16pub's f32 route, for which vega_tpu has no route goldens,
-    against the f64 route of phase dr16pub in the same run: the ladder
-    reported, and enforced that f32 adds at most F32_ROUTE_SHARE of the
-    route's own distance from the JAX f64 dense chi^2 (the sigma_velo
-    node convergence, ROADMAP.md section 3). On this 4-dimension payload
-    the interpolated data term s(g) loses ~3e-4 of chi^2 in f32 (its
-    Chebyshev coefficients sum to ~1e4 x s; ROADMAP.md section 3)."""
+    """The f32 route of dr16pub or table6, for which vega_tpu has no
+    route goldens, against the f64 route of phase `name` in the same run:
+    the ladder reported, and enforced that f32 adds at most
+    F32_ROUTE_SHARE of the route's own distance from the JAX f64 dense
+    chi^2 (the sigma_velo node convergence, ROADMAP.md section 3). On a
+    4-dimension payload the interpolated data term s(g) loses ~3e-4 of
+    chi^2 in f32 (its Chebyshev coefficients sum to ~1e4 x s; ROADMAP.md
+    section 3)."""
     f32_ladder(f'f32 {name} grid route vs vega_tpu\'s f64 dense', got,
                dense64, enforce=False)
     if route64 is None:
-        log(f'f32 {name} grid route: phase dr16pub did not run, no f64 route '
+        log(f'f32 {name} grid route: phase {name} did not run, no f64 route '
             'to hold it to')
         return
-    f32_ladder(f'f32 {name} grid route vs the f64 route of phase dr16pub',
+    f32_ladder(f'f32 {name} grid route vs the f64 route of phase {name}',
                got, route64, enforce=False)
     own = np.abs(np.asarray(route64) - np.asarray(dense64))
     share = float(np.max(np.abs(np.asarray(got) - np.asarray(route64))
@@ -4980,7 +5027,7 @@ def run_f32_models_path(device, work, card):
         f32_models_hold(f'f32 {name} dense', dense.chi2_batch(
             points).cpu().numpy(), jax32['chi2'], goldens['chi2_dense'])
         times = []
-        for _ in range(F32_MODELS_ROUNDS[name]):
+        for _ in range(F32_ROUNDS):
             for n in batches:
                 batches[n] = batches[n] + 1e-6
             torch.cuda.synchronize(device)
@@ -5429,10 +5476,27 @@ def mock_dense_regime(device, label, vega, goldens, launches, checks,
     return rate
 
 
+def mock_hooks(name, vega):
+    """The parts whose device shares a mock phase reads
+    (`device_shares`): desi_mock's metal matrices, the metal stacks'
+    combine and the power-spectrum grids (the smoothing among them);
+    lyacolore's grids and the combine."""
+    import vega_tpu_torch.metals as metals_mod
+    from vega_tpu_torch import pktoxi as pktoxi_mod
+    models = list(vega.models.values())
+    grids = {'power-spectrum grids (smoothing included)': [
+        (m.Pk_core, 'compute_peak_smooth') for m in models]}
+    if name == 'desi_mock':
+        return {'metal matrices': [(m.metals, 'apply_metal_matrix')
+                                   for m in models],
+                'metal combine': [(metals_mod, 'spline_legendre_combine')],
+                **grids}
+    return {**grids, 'combine': [(pktoxi_mod, 'spline_legendre_combine')]}
+
+
 def run_desi_mock_path(device, work, card):
     """Phase desi_mock (see the module docstring); returns the kernel
     launches of its paths and the kernel checks at their layouts."""
-    import vega_tpu_torch.metals as metals_mod
     from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
                                                    recorded_launches)
     from vega_tpu_torch.testing import (DESI_MOCK_FIT_SAMPLE,
@@ -5456,16 +5520,9 @@ def run_desi_mock_path(device, work, card):
         f'{dense_vega.models[n].metals.matrix_build_s:.3f} s'
         for n, item in dense_vega.corr_items.items()))
     launches, checks = {}, []
-    models = list(dense_vega.models.values())
-    mock_dense_regime(device, 'desi_mock', dense_vega, goldens, launches,
-                      checks, hooks={
-                          'metal matrices': [(m.metals, 'apply_metal_matrix')
-                                             for m in models],
-                          'metal combine': [(metals_mod,
-                                             'spline_legendre_combine')],
-                          'power-spectrum grids (smoothing included)': [
-                              (m.Pk_core, 'compute_peak_smooth')
-                              for m in models]})
+    F64_DENSE_RATES['desi_mock'] = mock_dense_regime(
+        device, 'desi_mock', dense_vega, goldens, launches, checks,
+        hooks=mock_hooks('desi_mock', dense_vega))
 
     # --- the grid regime: the fixed widths keep both correlations
     # factored; counts from zero
@@ -5562,7 +5619,6 @@ def run_desi_mock_path(device, work, card):
 def run_lyacolore_path(device, work, card):
     """Phase lyacolore (see the module docstring); returns the kernel
     launches of its paths and the kernel checks at their layouts."""
-    from vega_tpu_torch import pktoxi as pktoxi_mod
     from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
                                                    recorded_launches)
     from vega_tpu_torch.testing import (LYACOLORE_FIT_SAMPLE,
@@ -5616,14 +5672,9 @@ def run_lyacolore_path(device, work, card):
 
     with switch('VEGA_TPU_FACTORED', '0'):
         dense_vega = VegaInterface(main_ini, device=device)
-    models = list(dense_vega.models.values())
-    mock_dense_regime(device, 'lyacolore', dense_vega, goldens, launches,
-                      checks, hooks={
-                          'power-spectrum grids (smoothing included)': [
-                              (m.Pk_core, 'compute_peak_smooth')
-                              for m in models],
-                          'combine': [(pktoxi_mod,
-                                       'spline_legendre_combine')]})
+    F64_DENSE_RATES['lyacolore'] = mock_dense_regime(
+        device, 'lyacolore', dense_vega, goldens, launches, checks,
+        hooks=mock_hooks('lyacolore', dense_vega))
 
     # --- the dense fit: its gradient and Hessian run F_d, P_d and Ft_d;
     # counts from zero
@@ -5644,6 +5695,334 @@ def run_lyacolore_path(device, work, card):
         fail('the lyacolore dense fit launched no F_d (d >= 1), P_d or Ft_d')
     log(f'lyacolore phase: {time.perf_counter() - t_phase:.1f} s')
     return launches, checks
+
+
+# ----------------------------------------------------------------------
+# The f32 mode on every model term: the mocks' smoothing, UV, the
+# relativistic and asymmetry pair, Croom, the variants, table6's sweep
+# ----------------------------------------------------------------------
+F32_TERMS = ('desi_mock', 'lyacolore', 'uv')
+F32_TERMS_GOLDENS = (ROOT / 'tests' / 'data'
+                     / 'torch_port_f32_terms_goldens.json')
+F32_TERMS_UV_VARIANTS = ('uv_single_multipole', 'uv_fht_extrap')
+
+
+def f32_terms_files(device, work, name):
+    """(main ini, grid ini) of the configuration the f64 phase `name`
+    wrote under `work` (desi_mock: its main_grid.ini), written here with
+    the same arguments when that phase did not run (the phase alone)."""
+    from vega_tpu_torch.testing import (DESI_MOCK_FIT_SAMPLE, DR16_METALS,
+                                        LYACOLORE_FIT_SAMPLE, TABLE6_SAMPLE,
+                                        dr16_extra_model,
+                                        make_desi_mock_dataset,
+                                        make_dr16_uv_dataset,
+                                        make_lyacolore_dataset,
+                                        make_synthetic_dataset, with_sample)
+    root = Path(work) / name
+    main_ini = root / 'main.ini'
+    if name == 'desi':
+        return f32_model_files(device, work, 'desi')
+    if not main_ini.exists():
+        if name == 'desi_mock':
+            make_desi_mock_dataset(root, size='full', device=device,
+                                   sample=DESI_MOCK_FIT_SAMPLE)
+        elif name == 'lyacolore':
+            make_lyacolore_dataset(root, size='full', device=device,
+                                   sample=LYACOLORE_FIT_SAMPLE)
+        elif name == 'uv':
+            make_dr16_uv_dataset(
+                root, size='full', device=device,
+                sample=json.loads(UV_GOLDENS.read_text())['sample'])
+        else:
+            make_synthetic_dataset(
+                root, cross=True, size='full', device=device,
+                sample=TABLE6_SAMPLE, extra_model=dr16_extra_model(),
+                metals=list(DR16_METALS))
+    if name != 'desi_mock':
+        return main_ini, main_ini
+    grid_ini = root / 'main_grid.ini'
+    if not grid_ini.exists():
+        names = json.loads(MOCKS_GOLDENS.read_text())['desi_mock'][
+            'grid_names']
+        with_sample(main_ini, {n: DESI_MOCK_FIT_SAMPLE[n] for n in names},
+                    grid_ini)
+    return main_ini, grid_ini
+
+
+def f32_variant_files(work, main_ini, label, changes):
+    """The variant's main ini under `work` (the f64 phase's copy where it
+    wrote one)."""
+    from vega_tpu_torch.testing import dataset_variant
+    path = Path(work) / label / 'main.ini'
+    return path if path.exists() else dataset_variant(
+        main_ini, Path(work) / label, **changes)
+
+
+def f32_terms_dense(device, label, vega, names, points, jax32, jax64,
+                    launches, checks, hooks, watch):
+    """The dense f32 regime of one configuration, counts from zero:
+    chi2_batch(BATCH) with only f32 kernels launched (and, through
+    `watch`, {(owner, attribute)} whose launches it must contain), the
+    chi^2 at the goldens' points held by `f32_models_hold`, evals/s
+    beside the f64 phase's of the same run, and the device shares of
+    `hooks`."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    batches = (uv_rows(vega.params, names) if label == 'uv' else
+               desi_rows(vega.params, names, BATCH,
+                         np.random.default_rng(0)))
+    seen = watch_calls(watch)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        chi2 = vega.chi2_batch(batches)
+        torch.cuda.synchronize(device)
+        first_s = time.perf_counter() - t0
+    path = f'f32_{label}_dense'
+    launches[path] = dict(LAUNCHES)
+    f32_only(f'f32 {label} dense', launches[path])
+    chi2_np = chi2.cpu().numpy()
+    log(f'f32 {label} dense chi2_batch({BATCH}), {len(names)} names: '
+        f'{chi2.dtype}, first call {first_s:.3f} s, peak device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, chi2 in '
+        f'[{chi2_np.min():.6g}, {chi2_np.max():.6g}], kernel launches '
+        f'{launches[path]}; of them {metal_launches(seen, "F")} F_0 at '
+        + '; '.join(layout_label(k[0], k[1], k[2:]) for k in seen))
+    # a penalised f32 row is inf (vega_tpu's 1e100 rounded to f32)
+    if chi2.dtype != torch.float32 or not np.all(np.isfinite(chi2_np)):
+        fail(f'f32 {label} dense chi2_batch is not a finite float32 batch '
+             'without a penalty')
+    if not metal_launches(seen, 'F'):
+        fail(f'f32 {label} dense: no F_0 launched from {watch}')
+    checks += check_launches(device, path, layouts)
+    f32_models_hold(f'f32 {label} dense', vega.chi2_batch(points)
+                    .cpu().numpy(), jax32, jax64)
+    rate, times = timed_rows(device, vega, batches, F32_ROUNDS)
+    f64_rate = F64_DENSE_RATES.get(label)
+    log(f'f32 {label} dense chi2_batch({BATCH}): {rate:.1f} evals/s (s '
+        f'per call {", ".join(f"{t:.4f}" for t in times)}); the f64 '
+        'phase\'s ' + ('not measured in this run' if f64_rate is None else
+                       f'{f64_rate:.1f} evals/s, f32 / f64 '
+                       f'{rate / f64_rate:.3f}'))
+    total_ms, parts = device_shares(device, vega, batches, hooks=hooks)
+    log(f'f32 {label} dense chi2_batch({BATCH}) on CUDA events: '
+        f'{total_ms:.1f} ms; ' + ', '.join(
+            f'{key} {ms:.1f} ms ({ms / total_ms:.1%})'
+            for key, ms in parts.items())
+        + f'; the rest {total_ms - sum(parts.values()):.1f} ms')
+
+
+def run_f32_terms_path(device, work, card):
+    """Phase f32_terms (see the module docstring); returns the kernel
+    launches of its paths, the kernel checks at their layouts and the
+    edge checks on the uv path's two knot grids in f32."""
+    from vega_tpu_torch.gridcollapse import plan_components
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    terms = json.loads(F32_TERMS_GOLDENS.read_text())['full']
+    mocks = json.loads(MOCKS_GOLDENS.read_text())
+    f64_goldens = {'desi_mock': mocks['desi_mock'],
+                   'lyacolore': mocks['lyacolore'],
+                   'uv': json.loads(UV_GOLDENS.read_text())}
+    t_phase = time.perf_counter()
+    launches, checks, edges = {}, [], []
+    for name in F32_TERMS:
+        t_config = time.perf_counter()
+        goldens = f64_goldens[name]
+        names, points = goldens['names'], goldens['params']
+        jax32 = terms[name]['f32']
+        if 'chi2' not in jax32:
+            fail(f'f32 {name}: vega_tpu\'s f32 goldens hold no chi^2 '
+                 f'({jax32})')
+        main_ini, grid_ini = f32_terms_files(device, work, name)
+        with switch('VEGA_TPU_FACTORED', '0'), switch('VEGA_TPU_X64', '0'):
+            dense = VegaInterface(main_ini, device=device)
+        if dense.dtype != torch.float32:
+            fail(f'f32 {name}: VEGA_TPU_X64=0 gave {dense.dtype}')
+        if name == 'uv':
+            hooks = {'power-spectrum grids': [
+                (m.Pk_core, 'compute_peak_smooth')
+                for m in dense.models.values()],
+                'metal stacks': [(m.metals, 'compute')
+                                 for m in dense.models.values()
+                                 if m.metals is not None],
+                'relativistic and asymmetry': legacy_targets(dense)}
+            watch = legacy_targets(dense)
+        else:
+            hooks = mock_hooks(name, dense)
+            watch = ([(m.metals, 'compute') for m in dense.models.values()]
+                     if name == 'desi_mock' else
+                     [(m.PktoXi, 'compute') for m in dense.models.values()])
+        f32_terms_dense(device, name, dense, names, points, jax32['chi2'],
+                        goldens['chi2_dense'], launches, checks, hooks,
+                        watch)
+
+        # --- the grid or vega_tpu's route, cold: counts from zero
+        grid_names = goldens.get('grid_names', names)
+        with switch('VEGA_TPU_FACTORED', None), \
+                switch('VEGA_TPU_GRID_COLLAPSE', None), \
+                switch('VEGA_TPU_GRID_CACHE', '0'):
+            grid = VegaInterface(grid_ini, device=device,
+                                 dtype=torch.float32)
+            LAUNCHES.clear()
+            with recorded_launches() as layouts:
+                t0 = time.perf_counter()
+                payload = grid.get_collapsed(frozenset(grid_names))
+                torch.cuda.synchronize(device)
+                collapse_s = time.perf_counter() - t0
+                got = grid.chi2_batch({n: points[n] for n in grid_names})
+            path = f'f32_{name}_grid'
+            launches[path] = dict(LAUNCHES)
+            f32_only(f'f32 {name} grid', launches[path])
+            checks += check_launches(device, path, layouts)
+        got = got.cpu().numpy()
+        log(f'f32 {name} grid or route ({len(grid_names)} names): '
+            f'{payload.get("__grid__")}, serves '
+            f'{sorted(set(payload) - {"__grid__"})}, cold '
+            f'{collapse_s:.3f} s, kernel launches {launches[path]}')
+        if not np.all(np.isfinite(got)):
+            fail(f'f32 {name} grid chi2 is not finite')
+        if name == 'desi_mock':
+            f32_ladder('f32 desi_mock grid vs vega_tpu\'s f64 grid', got,
+                       goldens['chi2_grid'])
+            minimum = (grid, grid_names, goldens['fit_grid'])
+        elif name == 'uv':
+            if sorted(payload) != goldens['route_keys']:
+                fail(f'f32 uv route serves {sorted(payload)}, vega_tpu '
+                     f'{goldens["route_keys"]}')
+            f32_ladder('f32 uv route vs vega_tpu\'s f64 route', got,
+                       goldens['chi2_route'])
+            minimum = (dense, names, goldens['fit_dense'])
+        else:
+            if payload != {}:
+                fail(f'f32 lyacolore: the route serves {sorted(payload)}, '
+                     'vega_tpu\'s nothing')
+            f32_ladder('f32 lyacolore route (every call dense) vs '
+                       'vega_tpu\'s f64 dense', got, goldens['chi2_dense'])
+            minimum = (dense, names, goldens['fit_dense'])
+
+        # --- vega_tpu's f64 fit held as the f32 minimum: counts from zero
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            vega, fit_names, want = minimum
+            check_golden_minimum(f'f32 {name}', device, vega, fit_names,
+                                 want, 'f32')
+        path = f'f32_{name}_fit'
+        launches[path] = dict(LAUNCHES)
+        if vega is dense:
+            f32_only(f'f32 {name} fit', launches[path])
+        elif any(len(k) == 2 and n for k, n in launches[path].items()):
+            # desi_mock's grid chi^2 and its derivatives read the payload
+            # and launch no combine
+            fail(f'f32 {name} fit on the payload launched f64 kernels: '
+                 f'{launches[path]}')
+        checks += check_launches(device, path, layouts)
+        log(f'f32 {name} at the JAX best fit: kernel launches '
+            f'{launches[path]}')
+        if name == 'uv':
+            pair_ft = sum(r.launches for key, r in layouts.items()
+                          if key[0] == 'Ft' and key[3] == 2)
+            pair_d = sum(r.launches for key, r in layouts.items()
+                         if key[0] in ('F', 'P') and key[1] >= 1
+                         and key[3] == 2)
+            log(f'f32 uv fit: Ft_d / F_d (d >= 1), P_d of two tables: '
+                f'{pair_ft} / {pair_d}')
+            if not pair_ft or not pair_d:
+                fail('the f32 uv derivatives launched no Ft_d or no F_d / '
+                     'P_d of two tables (the relativistic and asymmetry '
+                     'terms\' backward)')
+            legacy_grid = dense.models['qsoxlya'].PktoXi.legacy_operators(
+                (1, 3), 1)[0]
+        del grid, vega, dense
+        log(f'f32 {name}: {time.perf_counter() - t_config:.1f} s')
+
+    # --- uv's card variants and desi's rescale-coords-systematics, dense
+    # at their goldens' rows: counts from zero
+    uv_main = f32_terms_files(device, work, 'uv')[0]
+    uv_changes = {f'uv_{label}': entry['changes'] for label, entry in
+                  f64_goldens['uv']['variants'].items()}
+    # the files first: writing desi's (the phase alone) evaluates its
+    # model in f64
+    mains = {label: f32_variant_files(work, uv_main, label,
+                                      uv_changes[label])
+             for label in F32_TERMS_UV_VARIANTS}
+    mains['desi_rescale'] = f32_variant_files(
+        work, f32_terms_files(device, work, 'desi')[0], 'desi_rescale',
+        {'cross': 'rescale-coords-systematics = True\n'})
+    variant_grids = {}
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        for label, main in mains.items():
+            t0 = time.perf_counter()
+            with switch('VEGA_TPU_FACTORED', '0'):
+                vega = VegaInterface(main, device=device,
+                                     dtype=torch.float32)
+            want = terms[label]
+            f32_models_hold(f'f32 {label} dense', vega.chi2_batch(
+                want['points']).cpu().numpy(), want['f32']['chi2'],
+                want['chi2_dense_f64'])
+            if label == 'uv_fht_extrap':
+                variant_grids['fht_extrap'] = \
+                    vega.models['lyaxlya'].PktoXi.knot_grid
+            log(f'f32 {label}: {time.perf_counter() - t0:.2f} s')
+            del vega
+    launches['f32_variants'] = dict(LAUNCHES)
+    f32_only('f32 variants', launches['f32_variants'])
+    checks += check_launches(device, 'f32_variants', layouts)
+    single = sum(r.launches for key, r in layouts.items()
+                 if key[0] == 'F' and key[3] == 1)
+    if not single:
+        fail('the f32 single_multipole variant launched no F_0 of one '
+             'table')
+
+    # --- table6's 4-dimension sweep in f32, cold: counts from zero
+    t0 = time.perf_counter()
+    table6 = json.loads(TABLE6_GOLDENS.read_text())
+    main_ini = f32_terms_files(device, work, 'table6')[0]
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None), \
+            switch('VEGA_TPU_GRID_CACHE', '0'):
+        vega = VegaInterface(main_ini, device=device, dtype=torch.float32)
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            t1 = time.perf_counter()
+            payload = vega.get_collapsed(frozenset(table6['names']))
+            torch.cuda.synchronize(device)
+            cold_s = time.perf_counter() - t1
+            got = vega.chi2_batch(table6['params']).cpu().numpy()
+        launches['f32_table6_sweep'] = dict(LAUNCHES)
+        f32_only('f32 table6 sweep', launches['f32_table6_sweep'])
+        checks += check_launches(device, 'f32_table6_sweep', layouts)
+    spec = payload['__grid__']
+    components = plan_components(spec)
+    log(f'f32 table6 cold sweep: {spec}; {len(components)} components, '
+        f'{sum(int(np.prod(d)) for d, _ in components)} swept nodes, '
+        f'device sweep {vega.grid_stats["sweep_s"]:.3f} s, host payload '
+        f'build {vega.grid_stats["host_s"]:.3f} s, total {cold_s:.3f} s; '
+        f'kernel launches {launches["f32_table6_sweep"]}')
+    if spec.degrees != (32, 32, 12, 12) or sorted(payload) != [
+            '__grid__', 'lyaxlya', 'qsoxlya']:
+        fail(f'f32 table6: the grid is {spec}, serving {sorted(payload)}')
+    if not np.all(np.isfinite(got)):
+        fail('f32 table6 route chi2 is not finite')
+    check_f32_route('table6', got, F64_ROUTE_CHI2.get('table6'),
+                    table6['chi2_dense'])
+    del vega
+    log(f'f32 table6: {time.perf_counter() - t0:.1f} s')
+
+    # --- edge layouts in f32 on the uv path's two knot grids
+    if legacy_grid.dtype != torch.float32:
+        fail('the f32 uv interface built its legacy knot grid in '
+             f'{legacy_grid.dtype}')
+    edges += check_edge_layouts(device, legacy_grid, 2,
+                                'legacy, relativistic pair')
+    edges += check_edge_layouts(device, variant_grids['fht_extrap'], 4,
+                                'fht_extrap')
+    log(f'f32_terms phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks, edges
 
 
 # (name, primitive, orders, dtype, the TPU code it replaces: file:line,
@@ -5812,6 +6191,10 @@ def main():
         lyacolore_launches, lyacolore_checks = run_lyacolore_path(
             device, work, card)
         mark('lyacolore')
+        f32t_launches, f32t_checks, f32t_edges = run_f32_terms_path(
+            device, work, card)
+        edge_checks += f32t_edges
+        mark('f32_terms')
         run_vega_launches, run_vega_checks = run_run_vega_path(
             device, work, card)
         mark('run_vega')
@@ -5824,7 +6207,7 @@ def main():
               + desi_checks + marg_checks + options_checks
               + table6_checks + dr16pub_checks + f32_models_checks
               + desi_mock_checks
-              + lyacolore_checks + run_vega_checks)
+              + lyacolore_checks + f32t_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          **f32_launches,
@@ -5832,7 +6215,7 @@ def main():
          **f32c_launches, **dr16_launches, **uv_launches, **desi_launches,
          **marg_launches, **options_launches, **table6_launches,
          **dr16pub_launches, **f32_models_launches, **desi_mock_launches,
-         **lyacolore_launches,
+         **lyacolore_launches, **f32t_launches,
          **run_vega_launches},
         {**sampler_replays, **f32c_replays}, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))

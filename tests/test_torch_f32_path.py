@@ -19,7 +19,9 @@ fits within 1e-2 of the JAX errors:
   dtypes, the penalty (inf in f32, as vega_tpu's 1e100 rounds) and the
   refusal of what the f32 mode does not cover (the eBOSS DR16 and DESI
   configurations it covers: tests/test_torch_f32_models.py; the samplers,
-  scans and Monte-Carlo campaigns: tests/test_torch_f32_campaigns.py).
+  scans and Monte-Carlo campaigns: tests/test_torch_f32_campaigns.py; the
+  mocks' and the reference's own model terms:
+  tests/test_torch_f32_terms.py).
 
 The grid chi^2 and both fits of synthetic-full run against the goldens on
 the card (chip_smoke.py's f32 phase): the 1,024-node sweep alone takes
@@ -256,28 +258,41 @@ def test_penalty_is_inf_as_in_vega_tpu(interfaces):
     assert torch.isinf(got32[1]) and got32[1] > 0
 
 
-@pytest.mark.parametrize('ini, section, text', [
-    ('lyaxlya', 'model', 'pk-damping-scale = 10.'),
-    ('lyaxlya', 'model', 'mock-bin-size = 4.'),
-    ('lyaxlya', 'model', 'velocity dispersion = gauss'),
-    ('lyaxlya', 'model', 'UVB-fluctuations = True'),
-    ('lyaxlya', 'model', 'fullshape smoothing = gauss'),
-    ('qsoxlya', 'model', 'relativistic correction = True'),
-    ('lyaxlya', 'model', 'marginalize-all-rmin-cuts = True'),
-    ('main', 'control', 'model_pk = True'),
-    ('lyaxlya', 'model', 'rescale-coords-systematics = True'),
-    ('lyaxlya', 'model', 'fht_extrap = True'),
-    ('main', 'output', 'write_cf = True'),
+# the parameters the model terms below read (a few unused by each case)
+TERM_PARAMETERS = ('par_sigma_smooth = 2.4\nper_sigma_smooth = 2.4\n'
+                   'sigma_velo_disp_gauss_QSO = 3.1\nbias_gamma = 0.1125\n'
+                   'bias_prim = -0.66\nlambda_uv = 300.\nArel1 = -13.5\n'
+                   'Arel3 = 1.\n')
+
+
+@pytest.mark.parametrize('ini, section, text, refused', [
+    ('lyaxlya', 'model', 'pk-damping-scale = 10.', False),
+    ('lyaxlya', 'model', 'mock-bin-size = 4.', False),
+    ('qsoxlya', 'model', 'velocity dispersion = gauss', False),
+    ('lyaxlya', 'model', 'UVB-fluctuations = True', False),
+    ('lyaxlya', 'model', 'fullshape smoothing = gauss', False),
+    ('qsoxlya', 'model', 'relativistic correction = True', False),
+    ('lyaxlya', 'model', 'marginalize-all-rmin-cuts = True', True),
+    ('main', 'control', 'model_pk = True', True),
+    ('lyaxlya', 'model', 'rescale-coords-systematics = True', False),
+    ('lyaxlya', 'model', 'fht_extrap = True', False),
+    ('main', 'output', 'write_cf = True', True),
 ], ids=['pk_damping', 'mock_binning', 'gauss_dispersion', 'uv',
         'smoothing', 'relativistic', 'marginalization', 'model_pk',
         'rescale_coords', 'fht_extrap', 'components'])
 def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
-                                              text):
-    """What the f32 mode does not cover raises not_ported at construction,
-    naming ROADMAP.md item 10, before it reads a file the option names:
-    it never runs in f64 instead. The HCD, NL, old_fftlog, radiation,
-    metals, broadband and joint-covariance cases this test held until
-    the f32 mode covered them run in tests/test_torch_f32_models.py, the
+                                              text, refused):
+    """What the f32 mode does not cover (small-scale marginalization,
+    model_pk, save-components) raises not_ported at construction, naming
+    ROADMAP.md item 10, before it reads a file the option names: it never
+    runs in f64 instead. The model terms this test refused until the f32
+    mode carried them (Pk damping, mock binning, the Gaussian velocity
+    dispersion, UV fluctuations, full-shape smoothing, the relativistic
+    correction, rescale-coords-systematics, fht_extrap) now build in f32
+    and give a finite f32 chi^2 within the ladder of the f64 interface's
+    on the same files (tests/test_torch_f32_terms.py holds them against
+    vega_tpu). The HCD, NL, old_fftlog, radiation, metals, broadband and
+    joint-covariance cases run in tests/test_torch_f32_models.py, the
     sampler and Monte-Carlo cases in tests/test_torch_f32_campaigns.py."""
     src = Path(tiny).parent
     for path in src.iterdir():
@@ -287,10 +302,25 @@ def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
         (tmp_path / path.name).write_bytes(body)
     target = tmp_path / f'{ini}.ini'
     lines = target.read_text()
+    if text.startswith('velocity dispersion'):
+        # the cross's own velocity dispersion line gives way to the case's
+        lines = lines.replace('velocity dispersion = lorentz\n', '')
     header = f'[{section}]\n'
     lines = (lines.replace(header, header + text + '\n', 1)
              if header in lines else lines + f'\n{header}{text}\n')
     target.write_text(lines)
-    with pytest.raises(NotImplementedError, match=r'f32 mode.*item 10'):
-        VegaInterface(tmp_path / 'main.ini', device='cpu',
-                      dtype=torch.float32)
+    main = tmp_path / 'main.ini'
+    main.write_text(main.read_text().replace(
+        '[parameters]\n', '[parameters]\n' + TERM_PARAMETERS, 1))
+    if refused:
+        with pytest.raises(NotImplementedError,
+                           match=r'f32 mode.*item 10'):
+            VegaInterface(main, device='cpu', dtype=torch.float32)
+        return
+    chi2 = {dtype: VegaInterface(main, device='cpu', dtype=dtype).chi2_batch(
+        {n: POINTS[n] for n in ('bias_LYA', 'beta_LYA')})
+        for dtype in (torch.float32, torch.float64)}
+    assert chi2[torch.float32].dtype == torch.float32
+    assert np.all(np.isfinite(chi2[torch.float32].numpy()))
+    assert within_ladder(chi2[torch.float32].numpy(),
+                         chi2[torch.float64].numpy())

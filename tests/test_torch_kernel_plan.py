@@ -186,6 +186,21 @@ def test_recorded_layouts_count_their_launches(plain_kernels):
     assert len(layouts) == 2
 
 
+def test_nested_recorders_leave_by_identity(plain_kernels):
+    """A recorder nested in another, whose launches are all the outer one
+    has seen (equal dicts when it closes), leaves the outer one recording:
+    a later launch counts there, and both close."""
+    grid, y, m, x, leg, _ = small_inputs(2, 30)
+    key = ('F', 0, 2, N_ELL, 40, 1, 2, 30, False, False)
+    with sc.recorded_launches() as outer:
+        with sc.recorded_launches() as inner:
+            sc.combine_forward(grid, y, m, x, leg)
+        assert inner == outer
+        sc.combine_forward(grid, y, m, x, leg)
+    assert outer[key].launches == 2 and inner[key].launches == 1
+    assert sc._recorders == []
+
+
 def test_kernel_route_refuses_too_many_multipoles(plain_kernels):
     grid, y, m, x, _, _ = small_inputs(1, 5)
     wide = [torch.cat([a] * 3, dim=1) for a in (y, m)]

@@ -470,7 +470,7 @@ def test_croom_with_new_bias_evolution_raises_as_jax(uv_main, golden,
 
 
 # ----------------------------------------------------------------------
-# 5. The f32 mode refuses each option
+# 5. The f32 mode carries each option
 # ----------------------------------------------------------------------
 F32_CASES = {
     'UVB-fluctuations': ('lyaxlya', 'UVB-fluctuations = True\n'),
@@ -484,6 +484,15 @@ F32_CASES = {
     'single_multipole': ('lyaxlya', 'single_multipole = 0\n'),
     'fht_extrap': ('lyaxlya', 'fht_extrap = True\n'),
 }
+# the parameters of the options (parameter_defaults.ini's, as
+# DR16_UV_PARAMETERS), added to the main ini's [parameters]
+F32_PARAMETERS = ('bias_gamma = 0.1125\nbias_prim = -0.66\n'
+                  'lambda_uv = 300.\nbias_gamma_e = 0.08\n'
+                  'lambda_HeII = 100.\nuv_shotnoise_amp = 0.001\n'
+                  'Arel1 = -13.5\nArel3 = 1.\nAasy0 = 1.\nAasy2 = 1.\n'
+                  'Aasy3 = 1.\ncroom_par0 = 0.53\ncroom_par1 = 0.289\n')
+F32_ROWS = {'bias_LYA': [-0.117, -0.12], 'beta_LYA': [1.67, 1.6]}
+F32_LADDER_ABS, F32_LADDER_REL = 0.3, 3e-4
 
 
 @pytest.fixture(scope='module')
@@ -495,13 +504,23 @@ def f32_main(tmp_path_factory):
 
 @pytest.mark.parametrize('option', list(F32_CASES))
 def test_f32_mode_refuses_each_option(f32_main, tmp_path, option):
-    """On the f32 mode's own configuration, each option raises
-    not_ported(... in the f32 mode, 10) at construction, never running
-    in f64 instead."""
+    """On the f32 mode's own configuration, each option, which the f32
+    mode refused until it carried the reference's own terms, builds in
+    f32: chi2_batch gives a finite float32 batch within vega_tpu's f32
+    ladder (|d chi2| <= max(0.3, 3e-4 |chi2|)) of the f64 interface's on
+    the same files (tests/test_torch_f32_terms.py holds each against
+    vega_tpu's f32 and f64)."""
     corr, line = F32_CASES[option]
     lines = {'auto' if corr == 'lyaxlya' else 'cross': line or ''}
     main = dataset_variant(f32_main, tmp_path / 'w', **lines,
                            qso_z_evol='croom' if line is None else None)
-    with pytest.raises(NotImplementedError,
-                       match=f'{option} in the f32 mode'):
-        VegaInterface(main, device='cpu', dtype=torch.float32)
+    main.write_text(main.read_text().replace(
+        '[parameters]\n', '[parameters]\n' + F32_PARAMETERS, 1))
+    chi2 = {dtype: VegaInterface(main, device='cpu', dtype=dtype)
+            .chi2_batch(F32_ROWS) for dtype in (torch.float32, torch.float64)}
+    assert chi2[torch.float32].dtype == torch.float32
+    chi2 = {dtype: c.double().numpy() for dtype, c in chi2.items()}
+    assert np.all(np.isfinite(chi2[torch.float32]))
+    assert np.all(np.abs(chi2[torch.float32] - chi2[torch.float64])
+                  <= np.maximum(F32_LADDER_ABS,
+                                F32_LADDER_REL * np.abs(chi2[torch.float64])))

@@ -27,7 +27,7 @@ from scipy.special import expn
 
 from .cosmo import growth_function
 from .factored import FactoredXi, RecordingParams, Sampling, densify
-from .utils import col, find_file, interp, refuse_f32, to_tensor
+from .utils import col, find_file, interp, to_tensor
 
 # the instrumental systematics' amplitude when the parameters carry none
 # (vega_tpu/correlation_func.py:414)
@@ -118,20 +118,6 @@ class CorrelationFunction:
                                    for a in compute_shotnoise_A())
         self._croom = {name: 'croom' in self._evol_model(name)
                        for name in (tracer1['name'], tracer2['name'])}
-        # the f32 mode carries the QSO radiation and old_growth_func of
-        # the eBOSS DR16 and DESI models, not the reference's own terms
-        # below nor rescale-coords-systematics (ROADMAP.md item 10)
-        for feature, on in (
-                ('relativistic correction', self.relativistic_flag),
-                ('standard asymmetry', self.asymmetry_flag),
-                ('UVB-shotnoise', self.uv_shotnoise_flag),
-                ('single_multipole', self._multipole >= 0),
-                ('new-bias-evolution',
-                 config.getboolean('new-bias-evolution', False)),
-                ('Croom bias evolution', any(self._croom.values()))):
-            if on:
-                refuse_f32(dtype, feature)
-
         # QSO radiation (vega_tpu/correlation_func.py:66-71)
         self.radiation_flag = config.getboolean('radiation effects', False)
         if self.radiation_flag:
@@ -141,8 +127,6 @@ class CorrelationFunction:
                                  'cross (QSOxLya)')
         self._rescale_coords_systematics = config.getboolean(
             'rescale-coords-systematics', False)
-        if self._rescale_coords_systematics:
-            refuse_f32(dtype, 'rescale-coords-systematics')
 
         # delta rp only for the cross (reference: correlation_func.py:64-69)
         self._delta_rp_name = None

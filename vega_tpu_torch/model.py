@@ -63,8 +63,8 @@ class Model:
             str(corr_item.data_coordinates.rt_binsize)
 
         self.save_components = fiducial.get('save-components', False)
-        # the f32 mode carries the DESI instrumental systematics and the
-        # broadband, and keeps no components (ROADMAP.md item 10)
+        # the f32 mode carries every model term but keeps no components
+        # yet (ROADMAP.md item 10, the likelihood options' slice)
         if self.save_components:
             refuse_f32(dtype, 'save-components')
             self.pk = {'peak': {}, 'smooth': {}, 'full': {}}

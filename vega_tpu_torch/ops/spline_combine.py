@@ -113,7 +113,10 @@ def recorded_launches():
     try:
         yield layouts
     finally:
-        _recorders.remove(layouts)
+        # by identity: a nested recorder may hold the same launches, and
+        # list.remove would take the first equal dict
+        del _recorders[next(i for i, r in enumerate(_recorders)
+                            if r is layouts)]
 
 
 class CapturedLaunches:

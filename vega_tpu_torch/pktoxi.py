@@ -54,7 +54,7 @@ from .ops.fftlog import FFTLogP2Xi, default_pad_size
 from .ops.spline import notaknot_second_derivative_matrix
 from .ops.spline_combine import KnotGrid, spline_legendre_combine
 from .power_spectrum import FactoredPk
-from .utils import col, refuse_f32, to_tensor
+from .utils import col, to_tensor
 
 # scipy.special.legendre(ell) monomial coefficients (poly1d order,
 # highest power first); exact binary fractions, so Horner evaluation
@@ -185,12 +185,9 @@ class PktoXi:
         self.ell_max = config.getint('ell_max', 6)
         self.old_fftlog = config.getboolean('old_fftlog', False)
         # mcfit's extrap=True: operators on the extended k grid and a
-        # power-law continuation of each multipole (old_fftlog wins); the
-        # f32 mode carries old_fftlog's legacy operators, not this
+        # power-law continuation of each multipole (old_fftlog wins)
         extrap = (config.getboolean('fht_extrap', False)
                   and not self.old_fftlog)
-        if extrap:
-            refuse_f32(dtype, 'fht_extrap')
         lowring = config.getboolean('fht_lowring', True)
         self.ell_vals = tuple(int(e) for e in
                               np.arange(0, self.ell_max + 1, 2))

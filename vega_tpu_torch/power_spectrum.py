@@ -34,7 +34,7 @@ import torch
 
 from . import utils
 from .factored import RecordingParams
-from .utils import col, refuse_f32, to_tensor
+from .utils import col, to_tensor
 
 
 class FactoredPk:
@@ -154,22 +154,6 @@ class PowerSpectrum:
                 kind in self.small_scale_nl
                 for kind in ('arinyo', 'mcdonald')):
             raise ValueError("Incorrect 'small scale nl' specified")
-        # the f32 mode carries synthetic-full's model and the eBOSS DR16
-        # and DESI models: Kaiser, the BAO peak's broadening, G(k), the
-        # Lorentzian velocity dispersion, the HCD models and the
-        # small-scale NL (ROADMAP.md item 10 queues the rest)
-        for feature, on in (
-                ('fullshape smoothing', self.fullshape_smoothing is not None),
-                ('mock binning', self.mock_bin_size is not None
-                 or self.mock_los_smoothing is not None),
-                ('Pk damping', self.pk_damping_scale is not None),
-                (f'velocity dispersion = {self.velocity_dispersion}',
-                 self.velocity_dispersion not in (None, 'lorentz')),
-                ('UVB-fluctuations', self._add_uvb),
-                ('HeII-reionization', self._add_heii)):
-            if on:
-                refuse_f32(dtype, feature)
-
         # Fvoigt HCD profile table (vega_tpu/power_spectrum.py:145-155),
         # read from the JAX package's models directory by path
         self._fvoigt = None

@@ -188,16 +188,21 @@ class VegaInterface:
     reads VEGA_TPU_X64 as vega_tpu does ('0': f32, else f64). Host numpy
     stays f64 in both: the inverse covariances, FFTLog and spline
     operators are built in f64 and cast once onto the device. The f32
-    mode covers synthetic-full's model (Kaiser, the peak's broadening,
-    G(k), the Lorentzian velocity dispersion) and the eBOSS DR16 and DESI
-    configurations' (the metals with their metal files or new-metals
-    matrices, the HCD models, Arinyo and McDonald NL, the QSO radiation,
-    the DESI instrumental systematics, the broadband and its sky
-    residual, old_fftlog, old_growth_func and the joint covariance),
-    dense, through the grid collapse or vega_tpu's route, in fits, the
-    native samplers, profile scans and Monte-Carlo campaigns; every other
-    feature raises `not_ported` at construction (ROADMAP.md item 10),
-    never running in f64 instead.
+    mode carries every model term: Kaiser, the peak's broadening, the
+    binning windows, the velocity dispersions, the metals with their
+    metal files or new-metals matrices, the HCD models, Arinyo and
+    McDonald NL, the full-shape smoothing, mock binning, Pk damping, UV
+    fluctuations and HeII reionization, the UV shotnoise, the QSO
+    radiation, the relativistic and asymmetry terms, Croom's and the
+    split bias evolution, the DESI instrumental systematics, the
+    broadband and its sky residual, single_multipole, fht_extrap,
+    old_fftlog, old_growth_func, rescale-coords-systematics and the joint
+    covariance; dense, through the grid collapse (2-4 dimensions) or
+    vega_tpu's route, in fits, the native samplers, profile scans and
+    Monte-Carlo campaigns. save-components, small-scale marginalization
+    (with or without marginalize-in-fit), model_pk, use_full_pk_for_mc
+    and correlations without a data file raise `not_ported` at
+    construction (ROADMAP.md item 10), never running in f64 instead.
     """
 
     def __init__(self, main_path, device, dtype=None):
