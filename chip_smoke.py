@@ -380,6 +380,37 @@ configuration, with no JAX:
      held to phase table6's f64 route (`check_f32_route`);
    - the six edge layouts in f32 on the legacy knot grid of the
      relativistic pair (L = 2) and on fht_extrap's knot grid.
+13c. The f32 mode's likelihood options (phase f32_options), each
+   interface built with dtype=torch.float32 on files phases marg, mc,
+   options and dr16pub wrote (it fails if they did not), against
+   vega_tpu's f32 numbers in
+   tests/data/torch_port_f32_options_goldens.json ('full') and the f64
+   goldens of phases marg, options and run_vega, within the
+   f32 ladder:
+   - synthetic-desi-marg-full (phase marg's files), the templates in the
+     covariance: dense chi2_batch(8192) with only f32 kernels launched
+     (F_0 from the metal stacks), the chi^2 at the goldens' 8 points,
+     one timed round beside phase marg's f64 evals/s and the device
+     shares; compute_marg_coeff at the JAX best fit (1e-4 of the
+     largest coefficient); vega_tpu's grid route, cold, against
+     vega_tpu's f64 grid chi^2;
+   - the same with marginalize-in-fit (no collapse): the chi^2 at the 8
+     points, value and gradient at the first derivative point against
+     vega_tpu's f32 and f64, vega_tpu's f64 best fit held as the f32
+     minimum (`check_golden_minimum`, regime 'f32'), the value there,
+     and the coefficients the chi^2 fitted (float32) and
+     compute_marg_coeff's (float64) against vega_tpu's;
+   - save-components on phase dr16pub's files (make_dr16_published_
+     dataset(..., components=True, files_from=...)): compute_model at
+     the run_vega goldens' point, dense, the metals unrolled (F_0 at B =
+     1 per pair), every saved component in float32 against vega_tpu's f32
+     and f64 (1e-5 of max|f64| at the goldens' 64 indices), and the
+     results file written through Output: every PK_ / Xi_ column float32
+     and equal to the in-memory component;
+   - model_pk's multipoles and use_full_pk_for_mc's fiducial on phase
+     mc's files (phase options' inis) against vega_tpu's f32 and f64
+     (1e-5 of max|f64|); correlations without a data file raising
+     vega_tpu's f32 exception types.
 14. A fit from the command line (phase run_vega), configuration
    synthetic-dr16-published-full with the components written
    (make_dr16_published_dataset(..., components=True): [output] write_pk
@@ -3906,6 +3937,32 @@ def run_options_desi_dr3(device, work, want, blind_seeds, launches, checks):
     checks += check_launches(device, 'options_desi_dr3_fit', layouts)
 
 
+def option_inis(work):
+    """The option inis on phase mc's files (work/mc/main.ini), written
+    into work/options: direct.ini (use_full_pk_for_mc, no [sample]),
+    model_pk.ini and data_free.ini (each correlation's ini copied with
+    has_datafile = False). Phases options and f32_options read them."""
+    from vega_tpu_torch.testing import with_control, with_sample
+    mc_ini = Path(work) / 'mc' / 'main.ini'
+    options = Path(work) / 'options'
+    options.mkdir(parents=True, exist_ok=True)
+    inis = {'direct': options / 'direct.ini',
+            'model_pk': options / 'model_pk.ini',
+            'data_free': options / 'data_free.ini'}
+    with_control(with_sample(mc_ini, {}, inis['direct']),
+                 'use_full_pk_for_mc = True', inis['direct'])
+    with_control(mc_ini, 'model_pk = True', inis['model_pk'])
+    text = mc_ini.read_text()
+    for ini in re.findall(r'^ini files = (.*)$', text, re.MULTILINE
+                          )[0].split():
+        copy = options / f'data_free_{Path(ini).name}'
+        copy.write_text(Path(ini).read_text().replace(
+            '[data]\n', '[data]\nhas_datafile = False\n', 1))
+        text = text.replace(ini, str(copy))
+    inis['data_free'].write_text(text)
+    return inis
+
+
 def run_options_path(device, work, card):
     """Phase options (see the module docstring); returns the kernel
     launches of its paths and the kernel checks at their layouts."""
@@ -3913,7 +3970,6 @@ def run_options_path(device, work, card):
     from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
                                                    recorded_launches)
     from vega_tpu_torch.parallel import MonteCarloEngine
-    from vega_tpu_torch.testing import with_control, with_sample
     from vega_tpu_torch.vega_interface import VegaInterface
 
     goldens = json.loads(OPTIONS_GOLDENS.read_text())
@@ -3926,14 +3982,11 @@ def run_options_path(device, work, card):
     # (b) use_full_pk_for_mc on the mc phase's files: no [sample], so no
     # initial fit; counts from zero
     t0 = time.perf_counter()
-    mc_ini = Path(work) / 'mc' / 'main.ini'
+    inis = option_inis(work)
     options = Path(work) / 'options'
-    direct_ini = with_control(with_sample(mc_ini, {}, options / 'direct.ini'),
-                              'use_full_pk_for_mc = True',
-                              options / 'direct.ini')
     with switch('VEGA_TPU_FACTORED', None), \
             switch('VEGA_TPU_GRID_COLLAPSE', None):
-        vega = VegaInterface(direct_ini, device=device)
+        vega = VegaInterface(inis['direct'], device=device)
     want = goldens['direct']
     LAUNCHES.clear()
     with recorded_launches() as layouts:
@@ -3992,9 +4045,7 @@ def run_options_path(device, work, card):
 
     # (c) model_pk on the same files
     t0 = time.perf_counter()
-    vega = VegaInterface(with_control(mc_ini, 'model_pk = True',
-                                      options / 'model_pk.ini'),
-                         device=device)
+    vega = VegaInterface(inis['model_pk'], device=device)
     LAUNCHES.clear()
     multipoles = vega.compute_model(run_init=False)
     launches['options_model_pk'] = dict(LAUNCHES)
@@ -4014,15 +4065,7 @@ def run_options_path(device, work, card):
     del vega
 
     # (d) correlations without a data file
-    text = mc_ini.read_text()
-    for ini in re.findall(r'^ini files = (.*)$', text, re.MULTILINE
-                          )[0].split():
-        copy = options / f'data_free_{Path(ini).name}'
-        copy.write_text(Path(ini).read_text().replace(
-            '[data]\n', '[data]\nhas_datafile = False\n', 1))
-        text = text.replace(ini, str(copy))
-    (options / 'data_free.ini').write_text(text)
-    vega = VegaInterface(options / 'data_free.ini', device=device)
+    vega = VegaInterface(inis['data_free'], device=device)
     want = goldens['data_free']
     got = {'has_data': vega._has_data,
            'data': {n: d is None for n, d in vega.data.items()},
@@ -4227,15 +4270,13 @@ def run_marg_path(device, work, card):
     models = list(dense_vega.models.values())
 
     # --- the templates in the covariance, dense: counts from zero
-    mock_dense_regime(device, 'marg', dense_vega, cov_goldens, launches,
-                      checks, hooks={
-                          'metal matrices': [(m.metals, 'apply_metal_matrix')
-                                             for m in models],
-                          'metal combine': [(metals_mod,
-                                             'spline_legendre_combine')],
-                          'power-spectrum grids': [
-                              (m.Pk_core, 'compute_peak_smooth')
-                              for m in models]})
+    F64_DENSE_RATES['marg'] = mock_dense_regime(
+        device, 'marg', dense_vega, cov_goldens, launches, checks, hooks={
+            'metal matrices': [(m.metals, 'apply_metal_matrix')
+                               for m in models],
+            'metal combine': [(metals_mod, 'spline_legendre_combine')],
+            'power-spectrum grids': [(m.Pk_core, 'compute_peak_smooth')
+                                     for m in models]})
     marg_coefficients('marg dense', dense_vega,
                       cov_goldens['derivative_points'][0],
                       cov_goldens['coeff'])
@@ -6025,6 +6066,347 @@ def run_f32_terms_path(device, work, card):
     return launches, checks, edges
 
 
+# ----------------------------------------------------------------------
+# The f32 mode's likelihood options (phase f32_options)
+# ----------------------------------------------------------------------
+F32_OPTIONS_GOLDENS = (ROOT / 'tests' / 'data'
+                       / 'torch_port_f32_options_goldens.json')
+# an f32 model array (a saved component, the multipoles, the Monte-Carlo
+# fiducial) against vega_tpu's, of max|f64|; the template coefficients,
+# of their largest f64 entry (vega_tpu's own f32 at full size: 4.2e-6 and
+# 5.4e-6, tests/data/torch_port_f32_options_goldens.json)
+F32_ARRAY_RTOL = 1e-5
+F32_COEFF_RTOL = 1e-4
+
+
+def f32_option_files(device, work):
+    """The inis phase f32_options reads: phase marg's synthetic-desi-marg-
+    full (main.ini, main_in_fit.ini), option_inis on phase mc's files and
+    phase dr16pub's files with the components written (into
+    work/f32_options/components, only inis; the one file set this phase
+    writes). Fails if phase marg, mc or dr16pub has not written its
+    files."""
+    from vega_tpu_torch.testing import make_dr16_published_dataset
+    work = Path(work)
+    inis = {'marg': work / 'marg' / 'main.ini',
+            'marg_in_fit': work / 'marg' / 'main_in_fit.ini'}
+    for ini in (inis['marg_in_fit'], work / 'mc' / 'main.ini',
+                work / 'dr16pub' / 'main.ini'):
+        if not ini.exists():
+            fail(f'f32_options reads {ini}: run its phase first')
+    inis.update(option_inis(work))
+    inis['components'] = Path(make_dr16_published_dataset(
+        work / 'f32_options' / 'components', size='full', device=device,
+        components=True, files_from=work / 'dr16pub'))
+    return inis
+
+
+def f32_coefficients(label, got, want64, want32=None):
+    """Template coefficients ({name: array}) against vega_tpu's f64 (and
+    its f32 record {name: {'dtype', 'values'}}: the same dtype, values
+    within F32_COEFF_RTOL too)."""
+    if sorted(got) != sorted(want64):
+        fail(f'{label}: coefficients of {sorted(got)}, vega_tpu '
+             f'{sorted(want64)}')
+    worst = max(rel_err(got[n], w) for n, w in want64.items())
+    dtypes = {n: str(np.asarray(v).dtype) for n, v in got.items()}
+    line = (f'{label}: {dtypes}, max relative diff {worst:.3e} from '
+            'vega_tpu\'s f64')
+    if want32 is not None:
+        worst32 = max(rel_err(got[n], w['values'])
+                      for n, w in want32.items())
+        line += f', {worst32:.3e} from its f32'
+        worst = max(worst, worst32)
+        if dtypes != {n: w['dtype'] for n, w in want32.items()}:
+            fail(f'{label}: dtypes {dtypes}, vega_tpu\'s f32 '
+                 f'{ {n: w["dtype"] for n, w in want32.items()} }')
+    log(line + f' (bound {F32_COEFF_RTOL:g})')
+    if not worst <= F32_COEFF_RTOL:
+        fail(f'{label}: coefficients differ by {worst:.3e}')
+
+
+def f32_summaries(label, got, want64, want32):
+    """Arrays ({key: array}) against vega_tpu's summaries ({key: {size,
+    max_abs, index, values}}) of its f64 and f32: the keys, float32 as
+    vega_tpu's f32 keeps them, the values at the summaries' indices
+    within F32_ARRAY_RTOL of max|f64|."""
+    if sorted(got) != sorted(want64) or sorted(got) != sorted(want32):
+        fail(f'{label}: keys {sorted(got)}, vega_tpu {sorted(want64)}')
+    worst = 0.
+    for key, value in got.items():
+        value = np.asarray(value)
+        w64, w32 = want64[key], want32[key]
+        if str(value.dtype) != w32['dtype'] or value.size != w64['size']:
+            fail(f'{label} {key}: {value.dtype} of {value.size}, vega_tpu '
+                 f'{w32["dtype"]} of {w64["size"]}')
+        picked = value.ravel()[w64['index']]
+        worst = max(worst, *(float(np.max(np.abs(picked - w['values'])))
+                             / w64['max_abs'] for w in (w64, w32)))
+    log(f'{label}: {len(got)} arrays, float32, max diff {worst:.3e} of '
+        f'max|f64| from vega_tpu\'s f64 and f32 (bound {F32_ARRAY_RTOL:g})')
+    if not worst <= F32_ARRAY_RTOL:
+        fail(f'{label}: differ from vega_tpu by {worst:.3e} of max|f64|')
+
+
+def run_f32_options_path(device, work, card):
+    """Phase f32_options (see the module docstring); returns the kernel
+    launches of its paths and the kernel checks at their layouts."""
+    import vega_tpu_torch.metals as metals_mod
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.vega_interface import VegaInterface
+
+    full = json.loads(F32_OPTIONS_GOLDENS.read_text())['full']
+    marg = json.loads(MARG_GOLDENS.read_text())
+    names = marg['names']
+    cov, in_fit = marg['cov'], marg['in_fit']
+    t_phase = time.perf_counter()
+    inis = f32_option_files(device, work)
+    log(f'f32_options: files in {time.perf_counter() - t_phase:.2f} s')
+    launches, checks = {}, []
+
+    # --- (a) the templates in the covariance, dense: counts from zero
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense = VegaInterface(inis['marg'], device=device,
+                              dtype=torch.float32)
+    modes = dict(dense.corr_num_marg_modes)
+    log(f'f32 marg dense: interface in {time.perf_counter() - t0:.2f} s, '
+        f'retained modes {modes} (JAX {cov["modes"]})')
+    if modes != cov['modes'] or dense.dtype != torch.float32:
+        fail('f32 marg: the modes or the dtype differ')
+    models = list(dense.models.values())
+    f32_terms_dense(device, 'marg', dense, names, cov['params'],
+                    full['marg']['f32']['chi2'], cov['chi2_dense'], launches,
+                    checks, hooks={
+                        'metal matrices': [(m.metals, 'apply_metal_matrix')
+                                           for m in models],
+                        'metal combine': [(metals_mod,
+                                           'spline_legendre_combine')],
+                        'power-spectrum grids': [
+                            (m.Pk_core, 'compute_peak_smooth')
+                            for m in models]},
+                    watch=[(m.metals, 'compute') for m in models])
+    best = dict(zip(names, cov['fit_dense']['values']))
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        f32_coefficients('f32 marg best-fit coefficients (compute_marg_coeff '
+                         'at the JAX best fit)',
+                         dense.compute_marg_coeff(dense.compute_model(
+                             best, run_init=False)),
+                         cov['fit_dense']['bestfit_marg_coeff'])
+    launches['f32_marg_coeff'] = dict(LAUNCHES)
+    f32_only('f32 marg coefficients', launches['f32_marg_coeff'])
+    checks += check_launches(device, 'f32_marg_coeff', layouts)
+    del dense
+
+    # --- (b) vega_tpu's grid route on the updated covariance, cold:
+    # counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None), \
+            switch('VEGA_TPU_GRID_CACHE', '0'):
+        grid = VegaInterface(inis['marg'], device=device,
+                             dtype=torch.float32)
+        LAUNCHES.clear()
+        with recorded_launches() as layouts:
+            t0 = time.perf_counter()
+            payload = grid.get_collapsed(frozenset(names))
+            torch.cuda.synchronize(device)
+            cold_s = time.perf_counter() - t0
+            got = grid.chi2_batch(cov['params']).cpu().numpy()
+    launches['f32_marg_grid'] = dict(LAUNCHES)
+    f32_only('f32 marg grid', launches['f32_marg_grid'])
+    checks += check_launches(device, 'f32_marg_grid', layouts)
+    log(f'f32 marg grid cold build: {payload.get("__grid__")}, serves '
+        f'{sorted(set(payload) - {"__grid__"})}, {cold_s:.3f} s; kernel '
+        f'launches {launches["f32_marg_grid"]}')
+    if sorted(payload) != ['__grid__', 'lyaxlya', 'qsoxlya'] \
+            or not np.all(np.isfinite(got)):
+        fail('f32 marg grid: the payload does not serve both correlations, '
+             'or its chi2 is not finite')
+    f32_ladder('f32 marg grid vs vega_tpu\'s f64 grid', got,
+               cov['chi2_grid'])
+    del grid
+
+    # --- (c) marginalize-in-fit: every call dense; counts from zero
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        t0 = time.perf_counter()
+        fit_vega = VegaInterface(inis['marg_in_fit'], device=device,
+                                 dtype=torch.float32)
+    log(f'f32 marg in-fit: interface in {time.perf_counter() - t0:.2f} s')
+    if fit_vega.get_collapsed(frozenset(names)) != {}:
+        fail('f32 marg in-fit: a collapse serves marginalize-in-fit')
+    want = full['marg_in_fit']
+    best = dict(zip(names, in_fit['fit_dense']['values']))
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        chi2 = fit_vega.chi2_batch(in_fit['params']).cpu().numpy()
+        f32_models_hold('f32 marg in-fit dense', chi2, want['f32']['chi2'],
+                        in_fit['chi2_dense'])
+        value, grad = fit_vega.chi2_value_and_gradient(
+            in_fit['derivative_points'][0])
+        g = [grad[n] for n in names]
+        for label, want_value, want_grad in (
+                ('f64', in_fit['dense']['chi2'][0],
+                 in_fit['dense']['gradient'][0]),
+                ('f32', want['f32']['value/derivative_0'],
+                 [want['f32']['gradient/derivative_0'][n] for n in names])):
+            f32_ladder(f'f32 marg in-fit value at the first derivative '
+                       f'point vs vega_tpu\'s {label}', [value], [want_value])
+            bound = max(F32_CHI2_ABS,
+                        F32_CHI2_REL * float(np.max(np.abs(want_grad))))
+            worst = float(np.max(np.abs(np.asarray(g) - want_grad)))
+            log(f'f32 marg in-fit gradient there vs vega_tpu\'s {label}: '
+                f'max |d| {worst:.4g} (gate {bound:.4g})')
+            if not worst <= bound:
+                fail('f32 marg in-fit gradient outside the ladder')
+        check_golden_minimum('f32 marg in-fit', device, fit_vega, names,
+                             in_fit['fit_dense'], 'f32')
+        value, grad = fit_vega.chi2_value_and_gradient(best)
+        f32_ladder('f32 marg in-fit value at the JAX best fit vs vega_tpu\'s '
+                   'f64', [value], [want['f64']['value/bestfit']])
+        f32_ladder('f32 marg in-fit value at the JAX best fit vs vega_tpu\'s '
+                   'f32', [value], [want['f32']['value/bestfit']])
+        log('f32 marg in-fit gradient at the JAX best fit: port '
+            + ', '.join(f'{n} {grad[n]:.4g}' for n in names)
+            + '; vega_tpu f32 ' + ', '.join(
+                f'{n} {want["f32"]["gradient/bestfit"][n]:.4g}'
+                for n in names)
+            + '; vega_tpu f64 ' + ', '.join(
+                f'{n} {want["f64"]["gradient/bestfit"][n]:.3g}'
+                for n in names)
+            + ' (held by the Newton step above: f32 round-off of a '
+            'gradient that vanishes there)')
+        _, coeffs = fit_vega.chi2(best, return_marg_coeff=True)
+        f32_coefficients('f32 marg in-fit coefficients the chi^2 fitted at '
+                         'the JAX best fit', coeffs,
+                         in_fit['fit_dense']['bestfit_marg_coeff'],
+                         want['f32']['coeff'])
+        f32_coefficients('f32 marg in-fit compute_marg_coeff at the JAX best '
+                         'fit', fit_vega.compute_marg_coeff(
+                             fit_vega.compute_model(best, run_init=False)),
+                         in_fit['fit_dense']['bestfit_marg_coeff'],
+                         want['f32']['compute_marg_coeff'])
+        torch.cuda.synchronize(device)
+        in_fit_s = time.perf_counter() - t0
+    launches['f32_marg_in_fit'] = dict(LAUNCHES)
+    f32_only('f32 marg in-fit', launches['f32_marg_in_fit'])
+    checks += check_launches(device, 'f32_marg_in_fit', layouts)
+    log(f'f32 marg in-fit: {in_fit_s:.2f} s, kernel launches '
+        f'{launches["f32_marg_in_fit"]}')
+    del fit_vega
+
+    # --- (d) save-components on phase dr16pub's files, dense: counts from
+    # zero
+    rv = json.loads(RUN_VEGA_GOLDENS.read_text())
+    t0 = time.perf_counter()
+    with switch('VEGA_TPU_FACTORED', '0'):
+        vega = VegaInterface(inis['components'], device=device,
+                             dtype=torch.float32)
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        model = vega.compute_model(rv['point'], run_init=False)
+        torch.cuda.synchronize(device)
+    launches['f32_components'] = dict(LAUNCHES)
+    f32_only('f32 components', launches['f32_components'])
+    checks += check_launches(device, 'f32_components', layouts)
+    single = sum(r.launches for key, r in layouts.items()
+                 if key[0] == 'F' and key[1] == 0 and key[2] == 1)
+    log(f'f32 components: interface and compute_model at the run_vega '
+        f'goldens\' point in {time.perf_counter() - t0:.2f} s, kernel '
+        f'launches {launches["f32_components"]}, {single} of them F_0 at '
+        'B = 1')
+    if not single:
+        fail('f32 components: no F_0 at B = 1 (the unrolled metal pairs)')
+    for corr, m in vega.models.items():
+        saved = component_summaries(m)
+        f32_summaries(f'f32 components {corr}', {**saved, 'model':
+                                                 model[corr]},
+                      rv['components'][corr],
+                      {**full['components']['f32']['components'][corr],
+                       'model': full['components']['f32']['model'][corr]})
+    vega.output.outfile = str(Path(work) / 'f32_options' / 'components'
+                              / 'f32_results')
+    vega.output.write_results(model, vega.params, models=vega.models)
+    path = vega.output.outfile + '.fits'
+    hdus = {h.name: h for h in read_fits(path) if getattr(h, 'name', '')}
+    for corr, m in vega.models.items():
+        for hdu, columns in (
+                (f'PK_{corr}', vega.output._get_components(m.pk)),
+                (f'Xi_{corr}', vega.output._cf_hdu(corr, m)['columns'])):
+            for column, value in columns.items():
+                read = np.asarray(hdus[hdu][column])
+                if read.dtype != np.float32 or \
+                        not np.array_equal(read, value):
+                    fail(f'f32 components: {hdu} {column} is not the '
+                         'float32 in-memory component')
+    log(f'f32 components: {path} ({os.path.getsize(path) / 1e6:.1f} MB) '
+        f'holds {len(hdus)} HDUs; every PK_ / Xi_ column float32 and equal '
+        'to the in-memory component')
+    del vega
+
+    # --- (e) model_pk and use_full_pk_for_mc on phase mc's files: counts
+    # from zero
+    options = json.loads(OPTIONS_GOLDENS.read_text())
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        t0 = time.perf_counter()
+        vega = VegaInterface(inis['model_pk'], device=device,
+                             dtype=torch.float32)
+        multipoles = vega.compute_model(run_init=False)
+        f32_summaries('f32 model_pk multipoles', multipoles, {
+            n: f32_full_summary(v) for n, v in options['model_pk'].items()},
+            {n: f32_full_summary(v['values'], v['dtype']) for n, v in
+             full['model_pk']['f32']['multipoles'].items()})
+        del vega
+        vega = VegaInterface(inis['direct'], device=device,
+                             dtype=torch.float32)
+        fiducial = vega.get_fiducial_for_monte_carlo(print_func=log)
+        f32_summaries('f32 use_full_pk_for_mc fiducial', fiducial, {
+            n: f32_full_summary(v)
+            for n, v in options['direct']['fiducial'].items()},
+            {n: f32_full_summary(v['values'], v['dtype']) for n, v in
+             full['direct']['f32']['fiducial'].items()})
+        del vega
+        options_s = time.perf_counter() - t0
+    launches['f32_options_model'] = dict(LAUNCHES)
+    f32_only('f32 model_pk and use_full_pk_for_mc',
+             launches['f32_options_model'])
+    checks += check_launches(device, 'f32_options_model', layouts)
+    log(f'f32 model_pk and use_full_pk_for_mc: {options_s:.2f} s '
+        f'(interfaces included), kernel launches '
+        f'{launches["f32_options_model"]}')
+
+    # --- (f) correlations without a data file
+    vega = VegaInterface(inis['data_free'], device=device,
+                         dtype=torch.float32)
+    got = {
+        'compute_model': raised(
+            lambda: vega.compute_model({'bias_LYA': -0.11})),
+        'compute_model_no_init': raised(lambda: vega.compute_model(
+            {'bias_LYA': -0.11}, run_init=False)),
+        'chi2': raised(lambda: vega.chi2({'bias_LYA': -0.11})),
+        'chi2_batch': raised(lambda: vega.chi2_batch(
+            {'bias_LYA': np.array([-0.11, -0.12])}))}
+    want = full['data_free']['f32']['raises']
+    log(f'f32 data-free: raises {got} (vega_tpu\'s f32 {want})')
+    if got != want:
+        fail('f32 data-free: the evaluations do not raise as vega_tpu\'s')
+    log(f'f32_options phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, checks
+
+
+def f32_full_summary(values, dtype='float64'):
+    """A whole array as a summary of every index (f32_summaries' form)."""
+    x = np.asarray(values, dtype=float).ravel()
+    return {'size': int(x.size), 'max_abs': float(np.max(np.abs(x))),
+            'index': list(range(x.size)), 'values': x, 'dtype': dtype}
+
+
 # (name, primitive, orders, dtype, the TPU code it replaces: file:line,
 # and which part of it); the f32 kernels (the Pallas kernels' own dtype)
 # are rows of their own
@@ -6195,6 +6577,9 @@ def main():
             device, work, card)
         edge_checks += f32t_edges
         mark('f32_terms')
+        f32o_launches, f32o_checks = run_f32_options_path(device, work,
+                                                          card)
+        mark('f32_options')
         run_vega_launches, run_vega_checks = run_run_vega_path(
             device, work, card)
         mark('run_vega')
@@ -6207,7 +6592,8 @@ def main():
               + desi_checks + marg_checks + options_checks
               + table6_checks + dr16pub_checks + f32_models_checks
               + desi_mock_checks
-              + lyacolore_checks + f32t_checks + run_vega_checks)
+              + lyacolore_checks + f32t_checks + f32o_checks
+              + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          **f32_launches,
@@ -6215,7 +6601,7 @@ def main():
          **f32c_launches, **dr16_launches, **uv_launches, **desi_launches,
          **marg_launches, **options_launches, **table6_launches,
          **dr16pub_launches, **f32_models_launches, **desi_mock_launches,
-         **lyacolore_launches, **f32t_launches,
+         **lyacolore_launches, **f32t_launches, **f32o_launches,
          **run_vega_launches},
         {**sampler_replays, **f32c_replays}, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))

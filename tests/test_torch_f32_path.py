@@ -17,11 +17,12 @@ fits within 1e-2 of the JAX errors:
   path;
 - the dtype's selection, TF32 off, the payload cache's separation of the
   dtypes, the penalty (inf in f32, as vega_tpu's 1e100 rounds) and the
-  refusal of what the f32 mode does not cover (the eBOSS DR16 and DESI
-  configurations it covers: tests/test_torch_f32_models.py; the samplers,
-  scans and Monte-Carlo campaigns: tests/test_torch_f32_campaigns.py; the
-  mocks' and the reference's own model terms:
-  tests/test_torch_f32_terms.py).
+  options and terms it once refused, each now a finite f32 result within
+  the ladder of the f64 interface (the eBOSS DR16 and DESI
+  configurations: tests/test_torch_f32_models.py; the samplers, scans and
+  Monte-Carlo campaigns: tests/test_torch_f32_campaigns.py; the mocks'
+  and the reference's own model terms: tests/test_torch_f32_terms.py;
+  the likelihood options: tests/test_torch_f32_options.py).
 
 The grid chi^2 and both fits of synthetic-full run against the goldens on
 the card (chip_smoke.py's f32 phase): the 1,024-node sweep alone takes
@@ -47,10 +48,13 @@ from vega_tpu_torch.vega_interface import PENALTY_CHI2, VegaInterface
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
 
+from make_torch_port_f32_options_goldens import with_rmin_cut  # noqa: E402
 from make_torch_port_fit_goldens import SAMPLE  # noqa: E402
 
 GOLDENS = Path(__file__).parent / 'data' / 'torch_port_f32_goldens.json'
 LADDER_ABS, LADDER_REL = 0.3, 3e-4
+# model_pk's f32 multipoles against the f64 interface's, of max|f64|
+MULTIPOLE_RTOL = 1e-5
 FIT_SIGMA = 1e-2
 NAMES = ('ap', 'at', 'bias_LYA', 'beta_LYA')
 # points inside the tiny configuration's node domain (ap, at in [0.77,
@@ -282,16 +286,19 @@ TERM_PARAMETERS = ('par_sigma_smooth = 2.4\nper_sigma_smooth = 2.4\n'
         'rescale_coords', 'fht_extrap', 'components'])
 def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
                                               text, refused):
-    """What the f32 mode does not cover (small-scale marginalization,
-    model_pk, save-components) raises not_ported at construction, naming
-    ROADMAP.md item 10, before it reads a file the option names: it never
-    runs in f64 instead. The model terms this test refused until the f32
-    mode carried them (Pk damping, mock binning, the Gaussian velocity
-    dispersion, UV fluctuations, full-shape smoothing, the relativistic
-    correction, rescale-coords-systematics, fht_extrap) now build in f32
-    and give a finite f32 chi^2 within the ladder of the f64 interface's
-    on the same files (tests/test_torch_f32_terms.py holds them against
-    vega_tpu). The HCD, NL, old_fftlog, radiation, metals, broadband and
+    """What the f32 mode refused until it carried it builds in f32 and
+    gives a finite f32 result within the ladder of the f64 interface's
+    on the same files, never an f64 run: the model terms (Pk damping,
+    mock binning, the Gaussian velocity dispersion, UV fluctuations,
+    full-shape smoothing, the relativistic correction,
+    rescale-coords-systematics, fht_extrap) and, `refused` until the
+    likelihood options joined the f32 mode, small-scale marginalization
+    (all-rmin; the r-min cut at 40, since at size='tiny' no bin lies
+    below the default), save-components (the chi^2, and compute_model's
+    saved components in float32) and model_pk (its multipoles, within
+    MULTIPOLE_RTOL of max|f64|; it has no chi^2). tests/test_torch_f32_
+    terms.py and tests/test_torch_f32_options.py hold them against
+    vega_tpu; the HCD, NL, old_fftlog, radiation, metals, broadband and
     joint-covariance cases run in tests/test_torch_f32_models.py, the
     sampler and Monte-Carlo cases in tests/test_torch_f32_campaigns.py."""
     src = Path(tiny).parent
@@ -309,18 +316,33 @@ def test_uncovered_configurations_are_refused(tiny, tmp_path, ini, section,
     lines = (lines.replace(header, header + text + '\n', 1)
              if header in lines else lines + f'\n{header}{text}\n')
     target.write_text(lines)
+    if text.startswith('marginalize-all-rmin-cuts'):
+        # all-rmin marginalizes the bins the r-min cut leaves out
+        with_rmin_cut(target)
     main = tmp_path / 'main.ini'
     main.write_text(main.read_text().replace(
         '[parameters]\n', '[parameters]\n' + TERM_PARAMETERS, 1))
-    if refused:
-        with pytest.raises(NotImplementedError,
-                           match=r'f32 mode.*item 10'):
-            VegaInterface(main, device='cpu', dtype=torch.float32)
+    vegas = {dtype: VegaInterface(main, device='cpu', dtype=dtype)
+             for dtype in (torch.float32, torch.float64)}
+    if text.startswith('model_pk'):
+        models = {dtype: vega.compute_model(run_init=False)
+                  for dtype, vega in vegas.items()}
+        for name, got in models[torch.float32].items():
+            want = models[torch.float64][name]
+            assert got.dtype == np.float32 and np.all(np.isfinite(got))
+            assert (np.max(np.abs(got - want)) <= MULTIPOLE_RTOL
+                    * np.max(np.abs(want)))
         return
-    chi2 = {dtype: VegaInterface(main, device='cpu', dtype=dtype).chi2_batch(
+    chi2 = {dtype: vega.chi2_batch(
         {n: POINTS[n] for n in ('bias_LYA', 'beta_LYA')})
-        for dtype in (torch.float32, torch.float64)}
+        for dtype, vega in vegas.items()}
     assert chi2[torch.float32].dtype == torch.float32
     assert np.all(np.isfinite(chi2[torch.float32].numpy()))
     assert within_ladder(chi2[torch.float32].numpy(),
                          chi2[torch.float64].numpy())
+    if refused and text.startswith('write_cf'):
+        vega = vegas[torch.float32]
+        vega.compute_model(run_init=False)
+        for model in vega.models.values():
+            xi = model.xi_distorted['smooth']['core']
+            assert xi.dtype == np.float32 and np.all(np.isfinite(xi))

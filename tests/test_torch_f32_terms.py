@@ -25,8 +25,9 @@ tool). The ladder is vega_tpu's f32 one (tests/test_f32_mode.py:106-109):
 - each new term in f32 against the port's f64 on the same inputs,
   within TERM_RTOL of max|f64|;
 - no float64 tensor on the path (`F64Ops`);
-- the options the f32 mode still refuses (ROADMAP.md item 10) raise
-  NotImplementedError at construction.
+- the likelihood options the f32 mode refused until it carried them
+  build in f32, each within the ladder (or TERM_RTOL) of the f64
+  interface on the same files.
 
 The configurations at full size run on the card (chip_smoke.py's
 f32_terms phase).
@@ -43,6 +44,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
 
+from make_torch_port_f32_options_goldens import with_rmin_cut  # noqa: E402
 from make_torch_port_f32_terms_goldens import (CONFIGS,  # noqa: E402
                                                VARIANTS, make_tiny)
 from test_torch_f32_models import (gradient_within,  # noqa: E402
@@ -421,15 +423,52 @@ REFUSED = {
 
 @pytest.mark.parametrize('case', REFUSED)
 def test_remaining_refusals_name_item_10(files, tmp_path, case):
-    """What the f32 mode does not carry yet (save-components, small-scale
-    marginalization with or without marginalize-in-fit, model_pk,
-    use_full_pk_for_mc, correlations without a data file) still raises
-    not_ported at construction, naming ROADMAP.md item 10, on the DESI
-    mock's files: it never runs in f64 instead."""
+    """What the f32 mode refused until the likelihood options joined it
+    (save-components, small-scale marginalization with or without
+    marginalize-in-fit, model_pk, use_full_pk_for_mc, correlations
+    without a data file) builds in f32 on the DESI mock's files, never
+    an f64 run: the chi^2 is a finite float32 batch within the ladder of
+    the f64 interface's on the same files; model_pk's multipoles and
+    use_full_pk_for_mc's compute_direct model within TERM_RTOL of
+    max|f64|; without data files both dtypes raise the same exception at
+    the chi^2 (tests/test_torch_f32_options.py holds each option against
+    vega_tpu)."""
     main = files('desi_mock')[0]
     change = REFUSED[case]
-    main = (with_control(main, change, tmp_path / 'main.ini')
-            if isinstance(change, str) else
-            edited(main, tmp_path / 'w', change))
-    with pytest.raises(NotImplementedError, match=r'f32 mode.*item 10'):
-        VegaInterface(main, device='cpu', dtype=torch.float32)
+    if isinstance(change, str):
+        main = with_control(main, change, tmp_path / 'main.ini')
+    else:
+        main = edited(main, tmp_path / 'w', change)
+    if case == 'marginalization':
+        # all-rmin marginalizes the bins the r-min cut leaves out: at
+        # size='tiny' none lies below the default cut of 10
+        with_rmin_cut(Path(main).parent / 'lyaxlya.ini')
+    vegas = {dtype: VegaInterface(main, device='cpu', dtype=dtype)
+             for dtype in (torch.float32, torch.float64)}
+    points = {n: [-0.11, -0.12] if n.startswith('bias') else [1.6, 1.7]
+              for n in ('bias_LYA', 'beta_LYA')}
+    if case == 'data_free':
+        raised = []
+        for vega in vegas.values():
+            with pytest.raises(Exception) as error:
+                vega.chi2_batch(points)
+            raised.append(type(error.value))
+        assert raised[0] is raised[1]
+        return
+    if case == 'model_pk':
+        models = {dtype: vega.compute_model(run_init=False)
+                  for dtype, vega in vegas.items()}
+    else:
+        chi2 = {dtype: vega.chi2_batch(points)
+                for dtype, vega in vegas.items()}
+        assert chi2[torch.float32].dtype == torch.float32
+        assert np.all(np.isfinite(chi2[torch.float32].numpy()))
+        assert within_ladder(chi2[torch.float32].numpy(),
+                             chi2[torch.float64].numpy())
+        models = ({dtype: vega.compute_model(
+            run_init=False, direct_pk=vega.fiducial['pk_full'])
+            for dtype, vega in vegas.items()}
+            if case == 'use_full_pk_for_mc' else {})
+    for name, got in models.get(torch.float32, {}).items():
+        assert got.dtype == np.float32 and np.all(np.isfinite(got))
+        assert max_rel(got, models[torch.float64][name]) <= TERM_RTOL

@@ -4,7 +4,7 @@ by vega_tpu: model_pk (the models' power-spectrum multipoles),
 compute_direct (the model on one given linear spectrum) with
 use_full_pk_for_mc (the Monte-Carlo fiducial and a fit of its mock), the
 metals of compute_direct, a configuration whose correlations have no data
-file, and the f32 mode's refusals of them."""
+file, and the same options in the f32 mode."""
 
 import torch_threads  # noqa: F401  (one torch thread per test process)
 import sys
@@ -25,6 +25,7 @@ from vega_tpu_torch.testing import (DR16_METALS, DR16_PARAMETERS,  # noqa: E402
 from vega_tpu_torch.vega_interface import VegaInterface  # noqa: E402
 
 MODEL_RTOL = 1e-12      # a model vector: max|port - vega_tpu| / max|vega_tpu|
+F32_MODEL_RTOL = 1e-5   # an f32 model vector against the f64 interface's
 MOCK_RTOL = 1e-12       # a mock, the same numpy draw around each fiducial
 FIT_VALUE_SIGMA = 1e-3  # fit values within 1e-3 of vega_tpu's errors
 FIT_ERROR_RTOL = 1e-5   # fit errors, relative
@@ -285,15 +286,41 @@ def test_data_free_evaluations_raise_as_jax(data_free, call):
 @pytest.mark.parametrize('case', ['model_pk', 'use_full_pk_for_mc',
                                   'data_free'])
 def test_f32_mode_refuses_the_options(plain, data_free, tmp_path, case):
-    """The f32 mode (ROADMAP.md item 10) refuses each option at
-    construction rather than running it in f64."""
+    """The f32 mode, which refused each option until the likelihood
+    options joined it (ROADMAP.md item 10), builds it in f32 rather than
+    running it in f64: model_pk's multipoles and use_full_pk_for_mc's
+    fiducial model (compute_direct on the full linear spectrum at
+    [mc parameters]) in float32 within F32_MODEL_RTOL of the f64
+    interface's; without data files every evaluation raises what the f64
+    interface raises (tests/test_torch_f32_options.py holds each against
+    vega_tpu's f32)."""
     if case == 'data_free':
         main = Path(data_free[1].main_config['data sets']['ini files']
                     .split()[0]).parent / 'main.ini'
-        feature = 'Correlations without a data file'
     else:
         main = with_control(plain, f'{case} = True', tmp_path / 'main.ini')
-        feature = case
-    with pytest.raises(NotImplementedError,
-                       match=f'{feature} in the f32 mode.*item 10'):
-        VegaInterface(main, device='cpu', dtype=torch.float32)
+        if case == 'use_full_pk_for_mc':
+            main.write_text(main.read_text() + MC_SECTIONS)
+    vegas = [VegaInterface(main, device='cpu', dtype=dtype)
+             for dtype in (torch.float32, torch.float64)]
+    assert vegas[0].dtype == torch.float32
+    if case == 'data_free':
+        for call in (lambda v: v.compute_model(POINT),
+                     lambda v: v.chi2(POINT),
+                     lambda v: v.chi2_batch(
+                         {'bias_LYA': np.array([-0.11, -0.12])})):
+            raised = []
+            for vega in vegas:
+                with pytest.raises(Exception) as error:
+                    call(vega)
+                raised.append(type(error.value))
+            assert raised[0] is raised[1]
+        return
+    if case == 'model_pk':
+        models = [vega.compute_model(POINT, run_init=False)
+                  for vega in vegas]
+    else:
+        models = [vega.get_fiducial_for_monte_carlo() for vega in vegas]
+    for name, got in models[0].items():
+        assert got.dtype == np.float32 and np.all(np.isfinite(got))
+        assert max_rel(got, models[1][name]) <= F32_MODEL_RTOL

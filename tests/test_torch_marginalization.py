@@ -19,7 +19,7 @@ with a distortion matrix (the port's make_synthetic_dataset, noise 1):
   collapse;
 - a Monte-Carlo mock's coefficients, the joint covariance with the
   update, corr_num_marg_modes and the nested sampler's .paramnames, and
-  the f32 mode's refusal.
+  both routes in the f32 mode against the f64 interface.
 
 vega_tpu's likelihood numbers on these files are
 tests/data/torch_port_tiny_goldens.json ('marginalization', made by
@@ -584,13 +584,27 @@ def test_sampler_derived_columns_match_jax(cov, tmp_path):
 
 @pytest.mark.parametrize('case', ['cov', 'in_fit'])
 def test_f32_mode_refuses_marginalization(base, tmp_path, case):
-    """The f32 mode refuses both routes at construction, before any data
-    file is read."""
+    """The f32 mode, which refused both routes until the likelihood
+    options joined it, builds them in f32 rather than in f64: the dense
+    and the default route's chi^2 at ROWS are finite float32 batches
+    within vega_tpu's f32 ladder (|d chi2| <= max(0.3, 3e-4 |chi2|)) of
+    the f64 interface's on the same files (tests/test_torch_f32_options.py
+    holds them against vega_tpu's f32)."""
     main = (with_marg(base, tmp_path, BUILD_CONFIG_MARG) if case == 'cov'
             else with_marg(base, tmp_path, IN_FIT_MARG,
                            control='marginalize-in-fit = True'))
-    feature = ('Small-scale marginalization' if case == 'cov'
-               else 'marginalize-in-fit')
-    with pytest.raises(NotImplementedError,
-                       match=f'{feature} in the f32 mode'):
-        VegaInterface(main, device='cpu', dtype=torch.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('VEGA_TPU_DS_MATMUL', '0')
+        mp.setenv('VEGA_TPU_GRID_CACHE', '0')
+        for dense in (True, False):
+            if dense:
+                mp.setenv('VEGA_TPU_FACTORED', '0')
+            chi2 = [VegaInterface(main, device='cpu', dtype=dtype)
+                    .chi2_batch(ROWS) for dtype in (torch.float32,
+                                                    torch.float64)]
+            mp.delenv('VEGA_TPU_FACTORED', raising=False)
+            assert chi2[0].dtype == torch.float32
+            got, want = chi2[0].numpy(), chi2[1].numpy()
+            assert np.all(np.isfinite(got))
+            assert np.all(np.abs(got - want)
+                          <= np.maximum(0.3, 3e-4 * np.abs(want)))

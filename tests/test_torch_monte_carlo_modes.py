@@ -2,7 +2,8 @@
 each held against the JAX package on the same tiny synthetic files
 (vega_tpu's make_synthetic_dataset): initialize_monte_carlo, the
 forecast mode, run_monte_carlo's seeded mocks, the HDF5 results file,
-low_mem_mode under a joint covariance and mc_start_from_fit."""
+low_mem_mode under a joint covariance (with and without the data files'
+own covariances) and mc_start_from_fit."""
 
 import torch_threads  # noqa: F401  (one torch thread per test process)
 
@@ -150,6 +151,62 @@ def test_low_mem_global_cov(tmp_path):
     assert jax_vega.global_cov is None
     assert ([d.cov_mat is None for d in port.data.values()]
             == [d.cov_mat is None for d in jax_vega.data.values()])
+    assert ([d.has_cov_mat for d in port.data.values()]
+            == [d.has_cov_mat for d in jax_vega.data.values()])
+    chi2 = port.chi2()
+    assert np.isfinite(chi2)
+    assert abs(chi2 - jax_vega.chi2()) <= CHI2_RTOL * chi2
+
+
+def _without_covariance(main_path):
+    """Rewrite each correlation's data file of `main_path` without its
+    CO column: the global covariance is then the only one."""
+    import configparser
+    from vega_tpu_torch.io.fits import read_fits, write_fits
+    config = configparser.ConfigParser()
+    config.read(main_path)
+    for ini in config['data sets']['ini files'].split():
+        corr = configparser.ConfigParser()
+        corr.read(ini)
+        path = corr['data']['filename']
+        hdul = read_fits(path)
+        structural = ('XTENSION', 'BITPIX', 'NAXIS', 'PCOUNT', 'GCOUNT',
+                      'TFIELDS', 'TTYPE', 'TFORM', 'TUNIT', 'TDIM',
+                      'EXTNAME')
+        hdus = [{'name': hdu.name,
+                 'header': {k: v for k, v in hdu.header.items()
+                            if not k.startswith(structural)},
+                 'columns': {k: v for k, v in hdu.columns.items()
+                             if k != 'CO'}}
+                for hdu in hdul[1:]]
+        assert 'CO' in hdul[1].columns
+        write_fits(path, hdus)
+    return main_path
+
+
+def test_low_mem_global_cov_without_covariances(tmp_path):
+    """low_mem_mode beside a joint covariance, the data files holding no
+    covariance of their own: Data.cov_mat raises vega_tpu's
+    AttributeError ('No covariance matrix found. ...', vega_tpu/data.py:
+    145-159), has_cov_mat is False in both packages, and
+    Data.create_monte_carlo, which factors the covariance, raises
+    AttributeError too; the chi^2 on the joint covariance is vega_tpu's
+    (1e-12 relative)."""
+    jax_vega, port = both(_without_covariance(jax_make_dataset(
+        tmp_path, cross=True, size='tiny', noise=1.0, global_cov=True,
+        extra_control='low_mem_mode = True')))
+    assert port.low_mem_mode
+    for name, data in port.data.items():
+        ref = jax_vega.data[name]
+        assert data.has_cov_mat is ref.has_cov_mat is False
+        for vega_data in (data, ref):
+            with pytest.raises(AttributeError,
+                               match='No covariance matrix found'):
+                vega_data.cov_mat
+        fiducial = np.zeros(data.full_data_size)
+        for vega_data in (data, ref):
+            with pytest.raises(AttributeError):
+                vega_data.create_monte_carlo(fiducial, seed=1)
     chi2 = port.chi2()
     assert np.isfinite(chi2)
     assert abs(chi2 - jax_vega.chi2()) <= CHI2_RTOL * chi2

@@ -137,37 +137,38 @@ class CorrelationFunction:
 
         # Growth factor on the static z grid
         # (vega_tpu/correlation_func.py:290-307)
-        z_fid = fiducial['z_fiducial']
-        omega_m = fiducial.get('Omega_m', None)
-        omega_de = fiducial.get('Omega_de', None)
+        self._z_fid = fiducial['z_fiducial']
+        self._Omega_m = fiducial.get('Omega_m', None)
+        self._Omega_de = fiducial.get('Omega_de', None)
         if config.getboolean('old_growth_func', False):
-            growth = compute_growth_old(self._z, z_fid, omega_m, omega_de)
-        elif omega_de is None:
-            growth = ((1 + z_fid) / (1. + np.asarray(self._z))) ** 2
+            growth = compute_growth_old(self._z, self._z_fid, self._Omega_m,
+                                        self._Omega_de)
         else:
-            growth = (growth_function(self._z, omega_m, omega_de)
-                      / growth_function(z_fid, omega_m, omega_de)) ** 2
-        # mean relative z-evolution (vega_tpu/correlation_func.py:229)
+            growth = self.compute_growth()
         self._z_eff = fiducial['z_eff']
         self._z_t = to_tensor(self._z, self.device, dtype)
-        rel_z_evol = (1. + np.asarray(self._z)) / (1 + self._z_eff)
-        self.set_constants(xi_growth=growth, rel_z_evol=rel_z_evol)
-        self._init_split_evol(config, cosmo)
+        self.xi_growth = to_tensor(growth, self.device, dtype)
+        self.init_bias_evol(tracer1['type'], tracer2['type'], cosmo)
 
     def set_constants(self, xi_growth, rel_z_evol):
         """Install the host growth and z-evolution arrays as tensors."""
         self.xi_growth = to_tensor(xi_growth, self.device, self.dtype)
         self._rel_z_evol = to_tensor(rel_z_evol, self.device, self.dtype)
 
-    def _init_split_evol(self, config, cosmo):
-        """The split ("new") bias evolution of a cross
-        (vega_tpu/correlation_func.py:226-248): the quasar's and the
-        forest's redshifts z -/+ rp / (2 D_H(z)) in the data file's
-        cosmology, each tracer's relative evolution at its own. Without a
-        cosmology the mean evolution serves, with vega_tpu's warning."""
+    def init_bias_evol(self, type1, type2, cosmo=None):
+        """The relative z-evolution bases (vega_tpu/correlation_func.py:
+        226-248): the mean one, (1 + z) / (1 + z_eff), and with
+        new-bias-evolution for tracers of two types the split one: the
+        quasar's and the forest's redshifts z -/+ rp / (2 D_H(z)) in the
+        data file's cosmology, each tracer's relative evolution at its
+        own. Without a cosmology the mean evolution serves, with
+        vega_tpu's warning."""
+        self._rel_z_evol = to_tensor(
+            (1. + np.asarray(self._z)) / (1 + self._z_eff), self.device,
+            self.dtype)
         self._split_evol = None
-        kinds = (self._tracer1['type'], self._tracer2['type'])
-        if (not config.getboolean('new-bias-evolution', False)
+        kinds = (type1, type2)
+        if (not self._config.getboolean('new-bias-evolution', False)
                 or kinds[0] == kinds[1]):
             return
         if cosmo is None:
@@ -424,3 +425,64 @@ class CorrelationFunction:
         template = np.zeros(rt.shape)
         template[w] = interp(rt[w])
         return template
+
+    # ------------------------------------------------------------------
+    # vega_tpu's reference-named views (vega_tpu/correlation_func.py:
+    # 290-436): the terms `compute` assembles, one at a time
+    # ------------------------------------------------------------------
+    def compute_growth(self, z_grid=None, z_fid=None, Omega_m=None,
+                       Omega_de=None):
+        """D(z)^2 / D(z_fid)^2 on the host (vega_tpu/correlation_func.py:
+        290-307); without Omega_de the (1 + z_fid) / (1 + z) scaling."""
+        z_grid = self._z if z_grid is None else z_grid
+        z_fid = self._z_fid if z_fid is None else z_fid
+        Omega_m = self._Omega_m if Omega_m is None else Omega_m
+        Omega_de = self._Omega_de if Omega_de is None else Omega_de
+        if Omega_de is None:
+            return ((1 + z_fid) / (1. + np.asarray(z_grid))) ** 2
+        return (growth_function(z_grid, Omega_m, Omega_de)
+                / growth_function(z_fid, Omega_m, Omega_de)) ** 2
+
+    def _check_cross_term(self):
+        types = (self._tracer1['type'], self._tracer2['type'])
+        if 'continuous' not in types or types[0] == types[1]:
+            raise AssertionError('the relativistic and asymmetry terms '
+                                 'are terms of the cross')
+
+    def compute_xi_relativistic(self, pk, pktoxi_obj, params,
+                                use_kernel=True):
+        """The relativistic term of the (n_k,) linear spectrum `pk`
+        (vega_tpu/correlation_func.py:365-375)."""
+        self._check_cross_term()
+        return self._legacy_term(pktoxi_obj.pk_to_xi_relativistic, pk,
+                                 params, use_kernel)
+
+    def compute_xi_asymmetry(self, pk, pktoxi_obj, params, use_kernel=True):
+        """The standard-asymmetry term of the (n_k,) linear spectrum `pk`
+        (vega_tpu/correlation_func.py:377-387)."""
+        self._check_cross_term()
+        return self._legacy_term(pktoxi_obj.pk_to_xi_asymmetry, pk, params,
+                                 use_kernel)
+
+    def compute_desi_instrumental_systematics(self, params, bin_size_rp):
+        """amplitude x the template (vega_tpu/correlation_func.py:389-414),
+        the amplitude DESI_INST_SYS_AMP when the parameters carry none."""
+        template = to_tensor(
+            self.desi_instrumental_systematics_template(bin_size_rp),
+            self.device, self.dtype)
+        return col(params.get('desi_inst_sys_amp', DESI_INST_SYS_AMP),
+                   1) * template
+
+    compute_shotnoise_A = staticmethod(compute_shotnoise_A)
+
+    def uv_A(self, tau):
+        """A(tau) read linearly off its table, A[0] below it and 0 above
+        (vega_tpu/correlation_func.py:430-436); the table is built here
+        when the UV shotnoise is off."""
+        if self._uv_table is None:
+            self._uv_table = tuple(to_tensor(a, self.device, self.dtype)
+                                   for a in compute_shotnoise_A())
+        tab_tau, a_vals = self._uv_table
+        tau = to_tensor(tau, self.device, self.dtype)
+        return interp(tau.reshape(-1), tab_tau, a_vals, left=a_vals[0],
+                      right=0.).reshape(tau.shape)

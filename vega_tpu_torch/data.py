@@ -198,13 +198,28 @@ class Data:
         cov_update = np.dot(u * s ** 2, u.T)
         return templates, cov_update
 
+    def _require(self, attr, kind):
+        """The matrix `attr`, or vega_tpu's AttributeError where it is
+        not held (the covariance under low_mem_mode beside a global
+        covariance; vega_tpu/data.py:145-151)."""
+        mat = getattr(self, attr)
+        if mat is None:
+            raise AttributeError(
+                f'No {kind} found. Check the data file: ',
+                self.corr_item.config['data'].get('filename'))
+        return mat
+
     @property
     def cov_mat(self):
-        return self._cov_mat
+        return self._require('_cov_mat', 'covariance matrix')
 
     @property
     def distortion_mat(self):
-        return self._distortion_mat
+        return self._require('_distortion_mat', 'distortion matrix')
+
+    @property
+    def has_cov_mat(self):
+        return self._cov_mat is not None
 
     @property
     def has_cov_mat_org(self):

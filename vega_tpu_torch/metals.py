@@ -581,11 +581,12 @@ class Metals:
     # Unrolled per-pair loop
     # ------------------------------------------------------------------
     def compute_metal_corr(self, pars, pk_lin, corr_hash, fast_metals,
-                           use_kernel=True, component=None):
-        """One metal sub-correlation with its metal matrix applied
-        (vega_tpu/metals.py:491-517). Returns (xi (B', n), bad). With
-        save-components and a `component`, the pair's spectrum, xi and
-        distorted xi are saved under it."""
+                           use_kernel=True, component=None, *,
+                           add_metal_dmat=True):
+        """One metal sub-correlation with its metal matrix applied, unless
+        add_metal_dmat is False (vega_tpu/metals.py:491-517). Returns (xi
+        (B', n), bad). With save-components and a `component`, the pair's
+        spectrum, xi and distorted xi are saved under it."""
         pk, bad_pk = self.Pk_metal[corr_hash].compute(
             pk_lin, pars, fast_metals=fast_metals)
         xi, bad_xi = self.Xi_metal[corr_hash].compute(
@@ -599,10 +600,31 @@ class Metals:
                 raise AssertionError('You need to set fast_metal_bias=False.')
             self.pk[component][corr_hash] = host_row(pk, 2)
             self.xi[component][corr_hash] = host_row(xi, 1)
+        if not add_metal_dmat:
+            return xi, bad_pk | bad_xi
         xi = self.apply_metal_matrix(xi, corr_hash)
         if save:
             self.xi_distorted[component][corr_hash] = host_row(xi, 1)
         return xi, bad_pk | bad_xi
+
+    # vega_tpu's reference-named views of the per-pair computation
+    # (vega_tpu/metals.py:519-540): compute_metal_corr without its flag
+    def compute_metal_corr_slow(self, pars, pk_lin, corr_hash, fast_metals,
+                                add_metal_dmat=True, component=None):
+        return self.compute_metal_corr(pars, pk_lin, corr_hash, fast_metals,
+                                       component=component,
+                                       add_metal_dmat=add_metal_dmat)[0]
+
+    def compute_xi_metal_metal(self, pk_lin, pars, corr_hash):
+        return self.compute_metal_corr_slow(pars, pk_lin, corr_hash,
+                                            fast_metals=True)
+
+    def compute_xi_metal_cross_main(self, pk_lin, pars, corr_hash,
+                                    beta1, beta2):
+        del beta1, beta2    # the reference's cache keys; no cache here
+        xi, _ = self.compute_metal_corr(pars, pk_lin, corr_hash, True,
+                                        add_metal_dmat=False)
+        return self.apply_metal_matrix(xi, corr_hash)
 
     def compute(self, pars, pk_lin, use_kernel=True, sampling=None,
                 component=None):

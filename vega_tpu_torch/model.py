@@ -43,7 +43,7 @@ from . import correlation_func as corr_func
 from . import metals, pktoxi, power_spectrum
 from .broadband_poly import BroadbandPolynomials
 from .factored import FactoredXi, RecordingParams, densify, stack_coefficients
-from .utils import col, host_row, refuse_f32, to_tensor
+from .utils import col, host_row, to_tensor
 
 
 class Model:
@@ -63,10 +63,7 @@ class Model:
             str(corr_item.data_coordinates.rt_binsize)
 
         self.save_components = fiducial.get('save-components', False)
-        # the f32 mode carries every model term but keeps no components
-        # yet (ROADMAP.md item 10, the likelihood options' slice)
         if self.save_components:
-            refuse_f32(dtype, 'save-components')
             self.pk = {'peak': {}, 'smooth': {}, 'full': {}}
             self.xi = {'peak': {}, 'smooth': {}, 'full': {}}
             self.xi_distorted = {'peak': {}, 'smooth': {}, 'full': {}}

@@ -51,7 +51,7 @@ from scipy.special import loggamma
 
 from .factored import FactoredXi, stack_coefficients
 from .ops.fftlog import FFTLogP2Xi, default_pad_size
-from .ops.spline import notaknot_second_derivative_matrix
+from .ops.spline import notaknot_second_derivative_matrix, spline_eval
 from .ops.spline_combine import KnotGrid, spline_legendre_combine
 from .power_spectrum import FactoredPk
 from .utils import col, to_tensor
@@ -110,6 +110,35 @@ def hamilton_operators(k, ell_vals, n_exp, project_scale):
         xi_rows[:, -1] = 0.0
         ops.append(np.ascontiguousarray(xi_rows.T))
     return np.stack(ops), np.log(r_sorted) - dr / 2
+
+
+# (k bytes, ell_vals, n_exp, project_scale) -> (ops, logr, sd_ops), host
+# f64, as vega_tpu's _LEGACY_OPERATOR_CACHE (vega_tpu/pktoxi.py:384-392)
+_HOST_LEGACY = {}
+
+
+def host_legacy_operators(k, ell_vals, n_exp, project_scale):
+    """(ops, logr_knots, sd_ops) of hamilton_operators, sd_ops the
+    not-a-knot second derivatives fused in as one BLAS product; built
+    once per key."""
+    k = np.asarray(k, dtype=np.float64)
+    key = (k.tobytes(), tuple(ell_vals), n_exp, project_scale)
+    if key not in _HOST_LEGACY:
+        ops, logr = hamilton_operators(k, ell_vals, n_exp, project_scale)
+        _HOST_LEGACY[key] = (
+            ops, logr,
+            np.matmul(notaknot_second_derivative_matrix(logr), ops))
+    return _HOST_LEGACY[key]
+
+
+def legacy_multipoles(logr_knots, ops, sd_ops, spectra, log_r, knots=None):
+    """(n_ell, M): each multipole's plain spline of the tables ops[i] @
+    spectra[i] at log_r (vega_tpu/pktoxi.py:376-382)."""
+    vals, _ = spline_eval(
+        logr_knots, torch.einsum('lij,lj->li', ops, spectra)[:, None, :],
+        torch.einsum('lij,lj->li', sd_ops, spectra)[:, None, :],
+        log_r[None, :], knots=knots)
+    return vals[:, 0, :]
 
 
 def extrap_operators(k, ell_vals, lowring):
@@ -202,21 +231,22 @@ class PktoXi:
 
         self._extrap_geom = None
         if self.old_fftlog:
-            ops, logr = hamilton_operators(self.k_grid, self.ell_vals,
-                                           n_exp=2, project_scale=True)
-        elif extrap:
-            ops, logr, self._extrap_geom = extrap_operators(
-                self.k_grid, self.ell_vals, lowring)
+            # the operators pk_to_xi reads too
+            ops, logr, sd_ops = host_legacy_operators(
+                self.k_grid, self.ell_vals, n_exp=2, project_scale=True)
         else:
-            fftlogs = [FFTLogP2Xi(self.k_grid, ell, lowring=lowring)
-                       for ell in self.ell_vals]
-            logr = np.log(fftlogs[0].r_grid)
-            ops = np.stack([f.operator() for f in fftlogs])
-        s_mat = notaknot_second_derivative_matrix(logr)
-        # pk_ell -> spline second derivatives, fused into one operator
-        # (the JAX package's np.einsum('ij,ljk->lik', ...) as one BLAS
-        # product: equal to round-off, and seconds faster at n_k = 814)
-        sd_ops = np.matmul(s_mat, ops)
+            if extrap:
+                ops, logr, self._extrap_geom = extrap_operators(
+                    self.k_grid, self.ell_vals, lowring)
+            else:
+                fftlogs = [FFTLogP2Xi(self.k_grid, ell, lowring=lowring)
+                           for ell in self.ell_vals]
+                logr = np.log(fftlogs[0].r_grid)
+                ops = np.stack([f.operator() for f in fftlogs])
+            # pk_ell -> spline second derivatives, fused into one operator
+            # (the JAX package's np.einsum('ij,ljk->lik', ...) as one BLAS
+            # product: equal to round-off, and seconds faster at n_k = 814)
+            sd_ops = np.matmul(notaknot_second_derivative_matrix(logr), ops)
         self.set_constants(legendre_proj=legendre_proj, fft_ops=ops,
                            fft_sd_ops=sd_ops, logr_knots=logr)
         # the legacy operators of the relativistic and asymmetry terms,
@@ -328,15 +358,14 @@ class PktoXi:
     # linear spectrum, each term one combine of two tables on the legacy
     # knot grid, the amplitudes folded into the tables
     # ------------------------------------------------------------------
-    def legacy_operators(self, ell_vals, n_exp):
-        """(knot grid, ops, sd_ops) of the legacy transform of the raw
-        spectrum at `ell_vals` with k^n_exp, built once
-        (vega_tpu/pktoxi.py:399-409)."""
-        key = (ell_vals, n_exp)
+    def legacy_operators(self, ell_vals, n_exp, project_scale=False):
+        """(knot grid, ops, sd_ops) of the legacy transform at `ell_vals`
+        with k^n_exp, of the raw spectrum or, with project_scale, of its
+        multipoles; built once (vega_tpu/pktoxi.py:384-409)."""
+        key = (ell_vals, n_exp, project_scale)
         if key not in self._legacy:
-            ops, logr = hamilton_operators(self.k_grid, ell_vals, n_exp,
-                                           project_scale=False)
-            sd_ops = np.matmul(notaknot_second_derivative_matrix(logr), ops)
+            ops, logr, sd_ops = host_legacy_operators(
+                self.k_grid, ell_vals, n_exp, project_scale)
             self._legacy[key] = (
                 KnotGrid.build(logr, self.device, self.dtype),
                 to_tensor(ops, self.device, self.dtype),
@@ -394,6 +423,101 @@ class PktoXi:
                             [(params['Aasy3'], 1)]),
             r_grid, leg, use_kernel)
 
+    # ------------------------------------------------------------------
+    # vega_tpu's reference-named views (vega_tpu/pktoxi.py:421-515): the
+    # per-multipole interpolators of the transform above and the outdated
+    # Hamilton-2000 path, evaluated by the plain spline on the host (f64)
+    # as vega_tpu evaluates them, never through the combine kernel
+    # ------------------------------------------------------------------
+    def compute_xi_ell(self, pk, ell_vals, *cache_pars):
+        """{ell: Xi_ell(log r)} of `pk` (n_muk, n_k), each a host function
+        of log r that raises utils.VegaBoundsError out of the knot range
+        (vega_tpu/pktoxi.py:428-458). The knot tables are this
+        transform's, in its dtype; *cache_pars are accepted and ignored,
+        as there."""
+        del cache_pars
+        pk = to_tensor(pk, self.device, self.dtype)
+        pk_ells = torch.matmul(self.legendre_proj, pk)
+        if self._extrap_geom is not None:
+            pk_ells = extrap_pad(pk_ells[None], *self._extrap_geom)[0]
+        xi_knots = torch.einsum('lij,lj->li', self.fft_ops, pk_ells)
+        m_knots = torch.einsum('lij,lj->li', self.fft_sd_ops, pk_ells)
+        xi_knots = xi_knots.detach().cpu().double()
+        m_knots = m_knots.detach().cpu().double()
+        out = {}
+        for i, ell in enumerate(self.ell_vals):
+            if ell in ell_vals:
+                out[ell] = _HostInterpolator(self.logr_knots, xi_knots[i],
+                                             m_knots[i])
+        return out
+
+    @staticmethod
+    def compute_xi(xi_ell_interp, r_grid, mu_grid):
+        """sum_ell Xi_ell(log r) P_ell(mu) on the host, 0 at r = 0
+        (vega_tpu/pktoxi.py:460-471)."""
+        r_grid = np.asarray(r_grid, dtype=np.float64)
+        mu = torch.as_tensor(np.asarray(mu_grid, dtype=np.float64))
+        mask = r_grid != 0
+        full_xi = np.zeros(len(r_grid))
+        for ell, interp in xi_ell_interp.items():
+            xi_ell = np.zeros(len(r_grid))
+            xi_ell[mask] = interp(np.log(r_grid[mask]))
+            full_xi += xi_ell * legendre(ell, mu).numpy()
+        return full_xi
+
+    @staticmethod
+    def Pk2Mp(ar, k, pk, ell_vals, muk, dmuk, tform=None):
+        """The outdated Hamilton-2000 multipole transform
+        (vega_tpu/pktoxi.py:473-500): (n_ell, len(ar)) host array indexed
+        by ell // 2; tform 'rel' takes k^1 and 'rel' / 'asy' the raw
+        spectrum, else each multipole is projected first."""
+        ell_vals = tuple(int(e) for e in ell_vals)
+        project = tform not in ('rel', 'asy')
+        ops, logr, sd_ops = host_legacy_operators(
+            k, ell_vals, 1 if tform == 'rel' else 2, project)
+        muk = np.asarray(muk)
+        if project:
+            spectra = np.stack([
+                np.sum(dmuk * np.polyval(LEGENDRE_COEFFS[ell], muk) * pk,
+                       axis=0) * (2 * ell + 1) for ell in ell_vals])
+        else:
+            spectra = np.stack([np.asarray(pk, dtype=np.float64)]
+                               * len(ell_vals))
+        vals = legacy_multipoles(
+            logr, torch.as_tensor(ops), torch.as_tensor(sd_ops),
+            torch.as_tensor(spectra),
+            torch.as_tensor(np.log(np.asarray(ar, dtype=np.float64))))
+        xi = np.zeros((len(ell_vals), vals.shape[-1]))
+        for i, ell in enumerate(ell_vals):
+            xi[ell // 2] = vals[i].numpy()
+        return xi
+
+    def pk_to_xi(self, r_grid, mu_grid, pk, multipole=-1):
+        """The correlation of `pk` (n_muk, n_k) on (r, mu) by the
+        Hamilton-2000 conventions, or its multipole `multipole` alone
+        when that is >= 0 (vega_tpu/pktoxi.py:502-516): the projected
+        legacy operators, the plain spline in this transform's dtype on
+        its device."""
+        ell_vals = (self.ell_vals if multipole < 0
+                    else (int(multipole),))
+        grid, ops, sd_ops = self.legacy_operators(ell_vals, 2,
+                                                  project_scale=True)
+        muk = self.muk_grid.ravel()
+        proj = np.stack([np.polyval(LEGENDRE_COEFFS[ell], muk)
+                         * self.muk_weights * (2 * ell + 1)
+                         for ell in ell_vals])
+        pk_ells = torch.matmul(to_tensor(proj, self.device, self.dtype),
+                               to_tensor(pk, self.device, self.dtype))
+        r_grid = to_tensor(r_grid, self.device, self.dtype)
+        log_r = torch.log(torch.where(r_grid != 0, r_grid, 1.0))
+        vals = legacy_multipoles(grid.values, ops, sd_ops, pk_ells, log_r,
+                                 knots=grid.tensor)
+        if multipole >= 0:
+            return vals[0]
+        mu_grid = to_tensor(mu_grid, self.device, self.dtype)
+        return sum(vals[i] * legendre(ell, mu_grid)
+                   for i, ell in enumerate(ell_vals))
+
     def _oob(self, log_r, mask):
         """(B',) out-of-range flag of (M,) or (B', M) coordinates."""
         knots = self.knot_grid.values
@@ -425,3 +549,22 @@ class PktoXi:
         batched = log_r.dim() == 2 or knots_t.dim() == 4
         return (FactoredXi(pk.coeffs, rows if batched else rows[0]),
                 self._oob(log_r, mask).expand(n_c))
+
+
+class _HostInterpolator:
+    """One multipole's Xi_ell(log r) on the host in f64: the cubic spline
+    of its knot tables, raising VegaBoundsError out of the knot range
+    (vega_tpu/pktoxi.py:446-455)."""
+
+    def __init__(self, logr_knots, xi_knots, m_knots):
+        self._logr = logr_knots
+        self._xi, self._m = xi_knots, m_knots
+
+    def __call__(self, log_r_query):
+        from .utils import VegaBoundsError
+        q = torch.as_tensor(np.atleast_1d(np.asarray(log_r_query,
+                                                     dtype=np.float64)))
+        vals, oob = spline_eval(self._logr, self._xi, self._m, q)
+        if bool(oob.any()):
+            raise VegaBoundsError('Xi_ell interpolation out of range.')
+        return vals.numpy()

@@ -123,3 +123,38 @@ class ScaleParameters:
         if kind == 'none':
             return ()
         return self._names_for(kind, bool(peak), corr_name)
+
+    # -- vega_tpu's reference-named views of the routing table
+    # (vega_tpu/scale_parameters.py:118-160)
+    @staticmethod
+    def default():
+        return 1., 1.
+
+    @staticmethod
+    def ap_at(params, ap_name='ap', at_name='at'):
+        return _map_ap_at(params[ap_name], params[at_name])
+
+    @staticmethod
+    def aiso_epsilon(params, aiso_name='aiso', epsilon_name='epsilon'):
+        return _map_aiso_epsilon(params[aiso_name], params[epsilon_name])
+
+    @staticmethod
+    def phi_alpha(params, phi_name='phi', alpha_name='alpha'):
+        return _map_phi_alpha(params[phi_name], params[alpha_name])
+
+    def get_bao_params(self, params):
+        coord_map, bao_names, _ = _TABLE[self.parametrisation]
+        return coord_map(params[bao_names[0]], params[bao_names[1]])
+
+    def get_fullshape_params(self, params, corr_name=None):
+        coord_map, _, _ = _TABLE[self.parametrisation]
+        name1, name2 = self._names_for(
+            'fullshape', bool(params.get('peak', False)), corr_name)
+        return coord_map(params[name1], params[name2])
+
+    def get_fullshape_phi_alpha(self, params, corr_name=None):
+        """Meaningful under the phi_alpha parametrisation alone, as in
+        vega_tpu."""
+        name1, name2 = self._names_for(
+            'fullshape', bool(params['peak']), corr_name)
+        return _map_phi_alpha(params[name1], params[name2])

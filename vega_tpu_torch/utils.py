@@ -35,6 +35,15 @@ class VegaModelError(Exception):
     failures become the chi^2 = 1e100 penalty instead."""
 
 
+class VegaBoundsError(VegaModelError):
+    """A value outside the range a host interpolation covers
+    (vega_tpu/utils.py:36-37)."""
+
+
+class VegaArinyoError(VegaModelError):
+    """(vega_tpu/utils.py:39-40)"""
+
+
 def not_ported(feature, item):
     """NotImplementedError for a feature this port does not carry yet,
     naming its ROADMAP.md queue item."""
@@ -53,13 +62,6 @@ def resolve_dtype(dtype=None):
     if dtype not in (torch.float64, torch.float32):
         raise TypeError(f'the port runs in float64 or float32, not {dtype}')
     return dtype
-
-
-def refuse_f32(dtype, feature):
-    """Raise `not_ported` for a feature the f32 mode does not carry yet
-    (ROADMAP.md item 10): it never runs in f64 instead."""
-    if dtype == torch.float32:
-        raise not_ported(f'{feature} in the f32 mode', 10)
 
 
 def to_tensor(x, device, dtype=torch.float64):
@@ -189,9 +191,8 @@ def find_file(path):
 # interfaces a process builds on the same data (a fit's dense and grid
 # interfaces, the f64 and f32 ones, variants of one dataset) factorize
 # each covariance once. The inverses are read-only and held up to
-# INVCOV_CACHE_BYTES (vega_tpu's default budget), the oldest dropped
-# first.
-INVCOV_CACHE_BYTES = 4096 * 2 ** 20
+# VEGA_TPU_INVCOV_CACHE_MB MiB (vega_tpu's budget, default 4096), read at
+# each insertion as vega_tpu reads it, the oldest dropped first.
 _INVCOV_CACHE = {}
 _LOGDET_CACHE = {}
 
@@ -222,9 +223,11 @@ def compute_masked_invcov(cov_mat, data_mask):
         print('WARNING: Reduced matrix is not positive definite')
     out = np.linalg.inv(masked_cov)
     out.flags.writeable = False
-    if out.nbytes <= INVCOV_CACHE_BYTES:
+    budget = int(float(os.environ.get('VEGA_TPU_INVCOV_CACHE_MB', '4096'))
+                 * 2 ** 20)
+    if out.nbytes <= budget:
         held = sum(v.nbytes for v in _INVCOV_CACHE.values())
-        while held + out.nbytes > INVCOV_CACHE_BYTES:
+        while held + out.nbytes > budget:
             held -= _INVCOV_CACHE.pop(next(iter(_INVCOV_CACHE))).nbytes
         _INVCOV_CACHE[key] = out
     return out
@@ -286,3 +289,27 @@ def apply_blinding(params, blinding):
     for par, val in blinding.items():
         params[par] = params[par] + (np.pi - np.exp(val ** 2))
     return params
+
+
+def convert_instance_to_dictionary(inst):
+    """Public attributes of an object as a dict (vega_tpu/utils.py:
+    333-336)."""
+    return {name: getattr(inst, name) for name in dir(inst)
+            if not name.startswith('__')}
+
+
+def compute_gauss_smoothing(sigma_par, sigma_trans, k_par_grid, k_trans_grid):
+    """Anisotropic Gaussian smoothing factor (vega_tpu/utils.py:339-342)."""
+    return np.exp(-(k_par_grid ** 2 * sigma_par ** 2
+                    + k_trans_grid ** 2 * sigma_trans ** 2) / 2)
+
+
+def compute_kn_smoothing(scale_par, k_grid, n):
+    """k^n smoothing factor (vega_tpu/utils.py:345-347)."""
+    return np.exp(-scale_par ** 2 * k_grid ** n / 2)
+
+
+# the growth machinery lives in cosmo.py; re-exported from utils as
+# vega_tpu re-exports it (vega_tpu/utils.py:350-355)
+from .cosmo import (get_growth_interp, growth_function,  # noqa: E402,F401
+                    growth_integrand, hubble)

@@ -123,7 +123,7 @@ from .model import Model
 from .output import Output
 from .parameters.param_utils import get_default_values
 from .scale_parameters import ScaleParameters
-from .utils import refuse_f32, resolve_dtype, to_tensor
+from .utils import resolve_dtype, to_tensor
 
 PENALTY_CHI2 = 1e100
 
@@ -199,10 +199,11 @@ class VegaInterface:
     old_fftlog, old_growth_func, rescale-coords-systematics and the joint
     covariance; dense, through the grid collapse (2-4 dimensions) or
     vega_tpu's route, in fits, the native samplers, profile scans and
-    Monte-Carlo campaigns. save-components, small-scale marginalization
-    (with or without marginalize-in-fit), model_pk, use_full_pk_for_mc
-    and correlations without a data file raise `not_ported` at
-    construction (ROADMAP.md item 10), never running in f64 instead.
+    Monte-Carlo campaigns; and the likelihood options: save-components
+    (the components kept in the dtype), small-scale marginalization (the
+    covariance update host f64, cast once with the inverse; under
+    marginalize-in-fit the template GEMMs in the dtype), model_pk,
+    use_full_pk_for_mc and correlations without a data file.
     """
 
     def __init__(self, main_path, device, dtype=None):
@@ -241,13 +242,6 @@ class VegaInterface:
         # covariance (vega_interface.py:77-79)
         self.marginalize_in_fit = (
             bool(control) and control.getboolean('marginalize-in-fit', False))
-        for feature, on in (
-                ('model_pk', self.model_pk),
-                ('use_full_pk_for_mc', bool(control) and control.getboolean(
-                    'use_full_pk_for_mc', False)),
-                ('marginalize-in-fit', self.marginalize_in_fit)):
-            if on:
-                refuse_f32(self.dtype, feature)
 
         self.corr_items = {}
         for path in ini_files:
@@ -255,9 +249,6 @@ class VegaInterface:
             name = config['data'].get('name')
             self.corr_items[name] = CorrelationItem(config, self.model_pk)
             self.corr_items[name].low_mem_mode = self.low_mem_mode
-            # before the data layer reads its files
-            if self.corr_items[name].marginalize_small_scales:
-                refuse_f32(self.dtype, 'Small-scale marginalization')
 
         self.params = self._read_parameters(self.corr_items,
                                             self.main_config['parameters'])
@@ -287,8 +278,6 @@ class VegaInterface:
         # (vega_interface.py:136-153)
         self._has_data = all(item.has_data
                              for item in self.corr_items.values())
-        if not self._has_data:
-            refuse_f32(self.dtype, 'Correlations without a data file')
         self.data = {name: (Data(item,
                                  marginalize_in_fit=self.marginalize_in_fit)
                             if self._has_data else None)
@@ -475,9 +464,16 @@ class VegaInterface:
         marg = self._marg_data.get(name)
         if marg is None:
             return model
+        return model + self._marg_coeff_rows(name, model, data_vecs) \
+            @ marg['templates'].T
+
+    def _marg_coeff_rows(self, name, model, data_vecs):
+        """(B, n_t) coefficients D2C (d - m[mask]) of the marginalized
+        correlation `name`, in the interface's dtype
+        (vega_interface.py:532-544)."""
+        marg = self._marg_data[name]
         diff = data_vecs[name] - model[:, marg['model_index']]
-        coeff = diff @ marg['diff2coeff'].T
-        return model + coeff @ marg['templates'].T
+        return diff @ marg['diff2coeff'].T
 
     def _current_data_vecs(self):
         """The masked data vector each chi^2 compares with, host numpy:
@@ -787,14 +783,26 @@ class VegaInterface:
         """Full chi^2 at one parameter point (reference:
         vega_interface.py:1178-1226): a batch of one. return_marg_coeff
         also gives {name: the best-fit template coefficients} of the
-        model at the point (`compute_marg_coeff`), which under
-        marginalize-in-fit are the ones the chi^2 fitted."""
+        model at the point: `compute_marg_coeff`'s host f64 product, or
+        under marginalize-in-fit the ones the chi^2 fitted, in its
+        dtype."""
         self._no_data('chi2')
         chi2 = float(self.chi2_batch(params or {})[0])
-        if return_marg_coeff:
+        if not return_marg_coeff:
+            return chi2
+        if not self.marginalize_in_fit:
             return chi2, self.compute_marg_coeff(
                 self.compute_model(params, run_init=False))
-        return chi2
+        # the coefficients the chi^2 fitted, in its dtype, as vega_tpu's
+        # chi^2 graph returns them (vega_interface.py:1216-1225)
+        local, n_b = self._batch_params(params or {})
+        with torch.no_grad():
+            model_cf, _ = self._model_graph(local, n_b)
+            data_vecs = self._device_data_vecs()
+            return chi2, {
+                name: self._marg_coeff_rows(
+                    name, densify(model_cf[name]), data_vecs)[0].cpu().numpy()
+                for name in self.corr_items if name in self._marg_data}
 
     def log_lik(self, params=None, return_marg_coeff=False):
         """Full log-likelihood (reference: vega_interface.py:1270-1292): a
