@@ -411,6 +411,29 @@ configuration, with no JAX:
      mc's files (phase options' inis) against vega_tpu's f32 and f64
      (1e-5 of max|f64|); correlations without a data file raising
      vega_tpu's f32 exception types.
+13b. Several devices (phase devices), on the synthetic full
+   configuration (vega_tpu_torch.parallel): make_device_mesh() spans the
+   cards and make_device_mesh(2) cuts to them as vega_tpu cuts its
+   devices; over a mesh of cuda:0 listed twice, BatchedLikelihood.chi2
+   dense and on the grid payload at 8192 and 8191 rows against the
+   unsharded chi2_batch (1e-12 of |chi^2|), the three timed in turns;
+   batched_chi2_scan at the scan goldens' 16 points over the 2-entry mesh
+   against the 1-entry mesh (1e-8 in fval) and the JAX goldens (as phase
+   scan holds them); MonteCarloEngine.fit_mocks of 32 dense mocks over
+   the 2-entry mesh against the 1-entry mesh and of the goldens' numpy
+   mocks against the JAX fits (phase mc's gates); ShardedGlobalChi2 on
+   phase desi's joint covariance against the one-device f64 quadratic
+   form (1e-12); two processes (gloo, both on cuda:0) each holding
+   every gathered chi^2 of 8192 rows over global_mesh() on the grid
+   payload each swept, equal to the unsharded values (1e-12); this
+   process's cached device memory is released first (empty_cache), so
+   that the processes it starts find the card's memory; run_vega_mc
+   --n-devices 2 against
+   --n-devices 1 (one card: a mesh of one device; Bestfit 1e-10).
+13c. The examples (phase examples, started within phase devices once
+   its timed calls are done): the ten counterparts of the examples and
+   tutorials (EXAMPLES), each in its own process on the card at its own
+   settings, EXAMPLE_WORKERS at a time: exit 0 and its check printed.
 14. A fit from the command line (phase run_vega), configuration
    synthetic-dr16-published-full with the components written
    (make_dr16_published_dataset(..., components=True): [output] write_pk
@@ -422,10 +445,13 @@ configuration, with no JAX:
      file, and the wedge and shell plots where matplotlib is installed,
      decided before the call; vega_tpu's route for the 18 names would
      sweep the payload and find nothing factored once the metals run
-     unrolled, so every name is dense either way), timed, its fit started
+     unrolled, so every name is dense either way), timed, sampling six
+     of the 18 names (ap, at, bias_eta_LYA, beta_LYA, bias_hcd,
+     beta_hcd; the others at the configuration's values), its fit started
      at the JAX dense best fit moved by 2 JAX errors per name
-     (`shifted_start`); the best fit against the JAX dense fit of
-     the dr16pub goldens (1e-2 / 1e-3 of the JAX errors);
+     (`shifted_start`); the best fit against the JAX dense fit of the
+     same six names (tests/data/torch_port_run_vega_fit_goldens.json;
+     1e-2 / 1e-3 of the JAX errors);
    - the results file read back: MODEL_*, BESTFIT, PK_* and Xi_* of the
      four correlations, the MODEL_ models and BESTFIT's names, values,
      errors and covariance equal to the in-memory fit and every
@@ -494,6 +520,11 @@ TABLE6_REFERENCE = ROOT / 'benchmarks' / 'table6_accuracy.json'
 DR16PUB_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_dr16pub_goldens.json'
 MOCKS_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_mocks_goldens.json'
 RUN_VEGA_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_run_vega_goldens.json'
+# run_vega's `cli fit` samples these six of the published fit's 18 names
+# (the others at the configuration's values): its cost follows the names,
+# 76-130 s for the 18
+RUN_VEGA_FIT_GOLDENS = (ROOT / 'tests' / 'data'
+                        / 'torch_port_run_vega_fit_goldens.json')
 UV_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_uv_goldens.json'
 MARG_GOLDENS = ROOT / 'tests' / 'data' / 'torch_port_marg_goldens.json'
 OPTIONS_GOLDENS = (ROOT / 'tests' / 'data'
@@ -5258,12 +5289,12 @@ def run_run_vega_path(device, work, card):
     from vega_tpu_torch.testing import make_dr16_published_dataset
 
     goldens = json.loads(RUN_VEGA_GOLDENS.read_text())
-    fit_goldens = json.loads(DR16PUB_GOLDENS.read_text())
-    names = goldens['names']
+    fit_goldens = json.loads(RUN_VEGA_FIT_GOLDENS.read_text())
+    names = fit_goldens['names']
     t_phase = time.perf_counter()
     main_ini = make_dr16_published_dataset(
         Path(work) / 'run_vega', size='full', device=device, components=True,
-        files_from=Path(work) / 'dr16pub')
+        files_from=Path(work) / 'dr16pub', sample=fit_goldens['sample'])
     log(f'run_vega: configuration synthetic-dr16-published-full with the '
         f'components written, on phase dr16pub\'s files, in '
         f'{time.perf_counter() - t_phase:.2f} s')
@@ -5282,11 +5313,11 @@ def run_run_vega_path(device, work, card):
         return interfaces[-1]
 
     # the fit starts at vega_tpu's dense best fit moved by
-    # FIT_START_SIGMAS of its errors per name (from the config's start it
-    # took 71.6-103.0 s)
+    # FIT_START_SIGMAS of its errors per name (from the config's start the
+    # 18-name fit took 71.6-103.0 s)
     def start(vega):
         vega.sample_params['values'].update(shifted_start(
-            vega, fit_goldens['names'], fit_goldens['fit_dense']))
+            vega, names, fit_goldens['fit_dense']))
 
     run_vega.fit_and_write = keep
     try:
@@ -6407,6 +6438,430 @@ def f32_full_summary(values, dtype='float64'):
             'index': list(range(x.size)), 'values': x, 'dtype': dtype}
 
 
+# ----------------------------------------------------------------------
+# Several devices (phase devices) and the examples (phase examples)
+# ----------------------------------------------------------------------
+SHARD_RTOL = 1e-12      # sharded against unsharded chi^2, of |chi^2|
+SHARD_ROWS = (BATCH, BATCH - 1)
+SHARD_ROUNDS = 3
+DEVICES_MOCKS = 32
+DEVICES_MC_SCRIPT_MOCKS = 16
+TWO_PROCESS_TIMEOUT_S = 300
+EXAMPLE_TIMEOUT_S = 600
+EXAMPLE_WORKERS = 3
+# each example counterpart on the card at its own settings, and the line
+# its run must print (tests/test_torch_examples*.py hold their numbers
+# against vega_tpu's on the CPU)
+EXAMPLES = (
+    ('examples/eBOSS_DR16/run_synthetic_torch.py',
+     'All four fits recover the injected truth.'),
+    ('examples/tutorials_torch/06_samplers_and_batching.py',
+     'MC campaign:'),
+    ('examples/tutorials_torch/01_getting_started.py', '(valid=True)'),
+    ('examples/tutorials_torch/02_model_components.py',
+     'peak+smooth == full: True'),
+    ('examples/tutorials_torch/03_plots.py', 'wedge mu in (0.5, 1)'),
+    ('examples/tutorials_torch/04_fit_results_and_output.py',
+     'results file:'),
+    ('examples/tutorials_torch/05_sensitivity_and_scans.py',
+     'profile minimum at bias = -0.1170'),
+    ('examples/tutorials_torch/07_config_creation.py',
+     'chi2 on the generated setup:'),
+    ('examples/Monte_carlo_sims/run_mc_demo_torch.py', 'MC demo OK'),
+    ('examples/synthetic_tutorial_torch.py', 'wrote'),
+)
+
+
+def timed_turns(calls, rounds):
+    """{label: [s per round]}: each call synchronised, the calls in turns
+    round after round (one call's warm-up before the rounds)."""
+    times = {label: [] for label in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    return times
+
+
+def sharded_chi2(label, device, vega, meshes, launches, layouts_out):
+    """BatchedLikelihood over each mesh at SHARD_ROWS rows against the
+    unsharded chi2_batch (SHARD_RTOL of |chi^2|); the launches of the
+    sharded calls alone (counts from zero), then the sharded and
+    unsharded calls timed in turns."""
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import BatchedLikelihood
+    mesh2 = meshes['two']
+    LAUNCHES.clear()
+    with recorded_launches() as layouts:
+        got = {n: BatchedLikelihood(vega, mesh=mesh2).chi2(draw_batch(n))
+               for n in SHARD_ROWS}
+        torch.cuda.synchronize(device)
+    launches[f'devices_{label}'] = dict(LAUNCHES)
+    layouts_out.update(layouts)
+    for n_rows, chi2 in got.items():
+        want = vega.chi2_batch(draw_batch(n_rows))
+        err = float(torch.max(torch.abs(chi2 - want) / torch.abs(want)))
+        log(f'devices {label}: BatchedLikelihood over {mesh2} at {n_rows} '
+            f'rows against the unsharded chi2_batch: max |d chi2| / |chi2| '
+            f'{err:.3e} (bound {SHARD_RTOL:g}); finite '
+            f'{bool(torch.isfinite(chi2).all())}')
+        if chi2.shape != (n_rows,) or not err <= SHARD_RTOL or \
+                not bool(torch.isfinite(chi2).all()):
+            fail(f'devices {label}: the sharded chi^2 at {n_rows} rows '
+                 f'differs from the unsharded one by {err:.3e}')
+    batch = draw_batch(BATCH)
+    times = timed_turns({
+        'unsharded': lambda: vega.chi2_batch(batch),
+        'mesh of 1': lambda: BatchedLikelihood(
+            vega, mesh=meshes['one']).chi2(batch),
+        'mesh of cuda:0 twice': lambda: BatchedLikelihood(
+            vega, mesh=mesh2).chi2(batch)}, SHARD_ROUNDS)
+    base = float(np.median(times['unsharded']))
+    log(f'devices {label}: {BATCH} rows, s per call (median of '
+        f'{SHARD_ROUNDS}, in turns): ' + ', '.join(
+            f'{k} {float(np.median(v)):.4f} (x{float(np.median(v)) / base:.3f};'
+            f' rounds {", ".join(f"{t:.4f}" for t in v)})'
+            for k, v in times.items()) + f'; kernel launches '
+        f'{launches[f"devices_{label}"]}')
+    return times
+
+
+def devices_worker(rank, address, main_ini, out, device, n_rows):
+    """One process of the two-process run (phase devices): joins a gloo
+    group of two, builds the interface on `device` (the grid payload,
+    swept in this process) and writes the chi^2 of draw_batch(n_rows) over
+    global_mesh() (each process's `device`), with its kernel launches, to
+    `out` (npz)."""
+    from vega_tpu_torch.ops.spline_combine import LAUNCHES
+    from vega_tpu_torch.parallel import (BatchedLikelihood, global_mesh,
+                                         initialize, local_batch_slice)
+    from vega_tpu_torch.parallel.distributed import process_count
+    from vega_tpu_torch.vega_interface import VegaInterface
+    initialize(address, num_processes=2, process_id=rank)
+    mesh = global_mesh(devices=[device])
+    vega = VegaInterface(main_ini, device=device)
+    LAUNCHES.clear()
+    vega.chi2_batch(draw_batch(8))          # the payload, swept here
+    chi2 = BatchedLikelihood(vega, mesh=mesh).chi2(draw_batch(n_rows))
+    np.savez(out, chi2=chi2.cpu().numpy(), count=process_count(),
+             slice=np.asarray(local_batch_slice(n_rows)),
+             mesh=np.asarray([str(d) for d in mesh.devices]),
+             ranks=np.asarray(mesh.ranks),
+             launches=json.dumps({f'{k[0]}_{k[1]}': v
+                                  for k, v in LAUNCHES.items()}))
+
+
+def two_process_run(device, work, main_ini, grid_vega, launches):
+    """Two processes (subprocesses, gloo, both on cuda:0), each on the
+    grid path with the payload it swept itself (a dense chunk of 1,024
+    rows takes tens of GB in each process): each holds every gathered
+    chi^2, equal to this process's unsharded chi2_batch (SHARD_RTOL).
+    Their F_0 launches (the sweeps) are recorded under the path
+    devices_two_processes."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        address = f'localhost:{sock.getsockname()[1]}'
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('VEGA_TPU_FACTORED', 'VEGA_TPU_GRID_COLLAPSE')}
+    env['VEGA_TPU_GRID_CACHE'] = '0'     # each process sweeps its own
+    outs = [Path(work) / f'devices_rank{rank}.npz' for rank in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c',
+         'import chip_smoke as cs; cs.devices_worker('
+         f'{rank}, {address!r}, {str(main_ini)!r}, {str(outs[rank])!r}, '
+         f'{str(device)!r}, {BATCH})'],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=TWO_PROCESS_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    seconds = time.perf_counter() - t0
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            fail(f'devices: process {rank} of the two-process run exited '
+                 f'{proc.returncode}:\n{text[-3000:]}')
+    want = grid_vega.chi2_batch(draw_batch(BATCH)).cpu().numpy()
+    counts = {}
+    for rank, out in enumerate(outs):
+        got = np.load(out)
+        err = float(np.max(np.abs(got['chi2'] - want) / np.abs(want)))
+        log(f'devices two processes: rank {rank} of {int(got["count"])}, '
+            f'its slice {got["slice"].tolist()}, mesh '
+            f'{got["mesh"].tolist()} of ranks {got["ranks"].tolist()}, '
+            f'{got["chi2"].size} gathered chi^2 against the unsharded '
+            f'chi2_batch: max |d chi2| / |chi2| {err:.3e} (bound '
+            f'{SHARD_RTOL:g}); its launches {str(got["launches"])}')
+        if got['chi2'].shape != want.shape or not err <= SHARD_RTOL \
+                or int(got['count']) != 2:
+            fail(f'devices: process {rank} holds chi^2 {err:.3e} from the '
+                 'unsharded values')
+        for key, n in json.loads(str(got['launches'])).items():
+            primitive, order = key.split('_')
+            counts[(primitive, int(order))] = counts.get(
+                (primitive, int(order)), 0) + n
+    launches['devices_two_processes'] = counts
+    log(f'devices two processes: {seconds:.1f} s for both (start, '
+        f'interface, sharded call); kernel launches {counts}')
+
+
+def run_devices_path(device, work, main_ini, fit_ini, card):
+    """Phase devices (several devices in one process, and two
+    processes), on the synthetic full configuration, with phase examples
+    started in the background once its timed calls are done (the
+    examples' processes share the card and the host with the rest of
+    it); returns the kernel launches of its paths, the kernel checks at
+    their layouts, the timings of the sharded calls and the started
+    examples (`finish_examples`)."""
+    from vega_tpu_torch.io.fits import read_fits
+    from vega_tpu_torch.ops.spline_combine import (LAUNCHES,
+                                                   recorded_launches)
+    from vega_tpu_torch.parallel import (MonteCarloEngine,
+                                         ShardedGlobalChi2,
+                                         batched_chi2_scan,
+                                         make_device_mesh)
+    from vega_tpu_torch.scripts import run_vega_mc
+    from vega_tpu_torch.vega_interface import VegaInterface, parse_ini
+
+    every = make_device_mesh()
+    n_cards = torch.cuda.device_count()
+    log(f'devices: make_device_mesh() {every} ({n_cards} card(s) seen); '
+        f'make_device_mesh(2) {make_device_mesh(2)}')
+    if every.size != n_cards or make_device_mesh(2).size != min(2, n_cards):
+        fail('devices: make_device_mesh does not span the cards as '
+             'vega_tpu slices its devices')
+    meshes = {'one': make_device_mesh(devices=[device]),
+              'two': make_device_mesh(devices=[device, device])}
+    launches, layouts = {}, {}
+
+    # --- BatchedLikelihood, dense and on the grid payload
+    with switch('VEGA_TPU_FACTORED', '0'):
+        dense = VegaInterface(main_ini, device=device)
+    timings = {'dense': sharded_chi2('dense', device, dense, meshes,
+                                     launches, layouts)}
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        grid = VegaInterface(main_ini, device=device)
+        grid.chi2_batch(draw_batch(8))        # the payload, built once
+    timings['grid'] = sharded_chi2('grid', device, grid, meshes, launches,
+                                   layouts)
+    del dense
+    # the cache of this process's earlier phases (up to ~79 GB) back to
+    # the card for the processes started from here on
+    torch.cuda.empty_cache()
+
+    # --- two processes (gloo), both on cuda:0
+    two_process_run(device, work, main_ini, grid, launches)
+    del grid
+    examples = start_examples(device)
+
+    # --- the sharded batched Newton: the scan's 16 golden points
+    goldens = json.loads(MC_GOLDENS.read_text())
+    lo, hi, n_axis = goldens['scan']['axis']
+    axis = np.linspace(lo, hi, n_axis)
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        fit_vega = VegaInterface(fit_ini, device=device)
+    points = sorted({min(range(n_axis), key=lambda i: abs(axis[i] - r['ap']))
+                     for r in goldens['scan']['rows']})
+    grids = {'ap': axis[points], 'at': axis[points]}
+    scans = {}
+    for label, mesh, chunk in (('one', meshes['one'], len(points) ** 2),
+                               ('two', meshes['two'], len(points) ** 2 // 2)):
+        stats = {}
+        with switch('VEGA_TPU_FIT_CHUNK_PER_DEVICE', str(chunk)):
+            t0 = time.perf_counter()
+            scans[label] = batched_chi2_scan(fit_vega, grids, mesh=mesh,
+                                             stats=stats)
+            torch.cuda.synchronize(device)
+        log(f'devices scan over the mesh of {mesh.size}: '
+            f'{len(scans[label])} points, {chunk} per device, '
+            f'{time.perf_counter() - t0:.3f} s, Newton iterations '
+            f'{stats["iterations"]}, {stats["valid_rows"]} valid')
+        if stats['valid_rows'] != len(scans[label]):
+            fail('devices: a sharded scan row is not valid')
+    d_fval = max(abs(a['fval'] - b['fval'])
+                 for a, b in zip(scans['one'], scans['two']))
+    d_sigma = d_golden = 0.0
+    for want in goldens['scan']['rows']:
+        got = next(r for r in scans['two']
+                   if (r['ap'], r['at']) == (want['ap'], want['at']))
+        d_golden = max(d_golden, abs(got['fval'] - want['fval'])
+                       / (GRID_ABS_TOL + GRID_REL_TOL * abs(want['fval'])))
+        for name in goldens['scan']['free']:
+            d_sigma = max(d_sigma, abs(got[name] - want[name])
+                          / want['errors'][name])
+    log(f'devices scan: mesh of 2 vs mesh of 1 max |d fval| {d_fval:.3e} '
+        f'(bound {SCAN_CHUNK_FVAL_ABS:g}); vs the JAX goldens max |d fval| '
+        f'{d_golden:.3e} of its bound, values {d_sigma:.3e} errors (bound '
+        f'{FIT_VALUE_SIGMA["grid"]:g})')
+    if not (d_fval <= SCAN_CHUNK_FVAL_ABS and d_golden <= 1.0
+            and d_sigma <= FIT_VALUE_SIGMA['grid']):
+        fail('devices: the sharded scan misses the unsharded one or the '
+             'JAX goldens')
+    del fit_vega
+
+    # --- the sharded mock fits: dense, the goldens' numpy mocks and
+    # DEVICES_MOCKS drawn ones
+    with switch('VEGA_TPU_FACTORED', None), \
+            switch('VEGA_TPU_GRID_COLLAPSE', None):
+        mc_vega = VegaInterface(Path(work) / 'mc' / 'main.ini', device=device)
+    fiducial = mc_vega.compute_model(mc_vega.mc_config['params'],
+                                     run_init=False)
+    want = goldens['mc']['dense']
+    sample = {key: {n: mc_vega.mc_config['sample'][key][n]
+                    for n in want['names']}
+              for key in ('limits', 'values', 'errors', 'fix')}
+    drawn = MonteCarloEngine(mc_vega, mesh=meshes['one']).generate_mocks(
+        fiducial, DEVICES_MOCKS, seed=MC_SEED)
+    fits = {}
+    LAUNCHES.clear()
+    with recorded_launches() as mc_layouts:
+        fits['two'] = timed_mock_fits(
+            device, MonteCarloEngine(mc_vega, mesh=meshes['two']), drawn,
+            sample, DEVICES_MOCKS // 2, 'devices mc dense, mesh of 2')
+        golden = timed_mock_fits(
+            device, MonteCarloEngine(mc_vega, mesh=meshes['two']),
+            numpy_mocks(mc_vega, fiducial, want['n_mocks'], want['seed']),
+            sample, DEFAULT_FIT_CHUNK, 'devices mc dense golden, mesh of 2')
+    launches['devices_mc'] = dict(LAUNCHES)
+    layouts.update(mc_layouts)
+    check_mock_fits('devices mc dense golden, mesh of 2', golden, want)
+    fits['one'] = timed_mock_fits(
+        device, MonteCarloEngine(mc_vega, mesh=meshes['one']), drawn,
+        sample, DEVICES_MOCKS, 'devices mc dense, mesh of 1')
+    check_mock_fits('devices mc dense, mesh of 2 vs mesh of 1', fits['two'],
+                    {k: fits['one'][k].tolist()
+                     for k in ('values', 'errors', 'chisq', 'valid')})
+    del mc_vega
+    torch.cuda.empty_cache()
+
+    # --- ShardedGlobalChi2 at the size of the synthetic-desi joint
+    # covariance (phase desi's file)
+    cov = np.asarray([h for h in read_fits(Path(work) / 'desi' /
+                                           'global_cov.fits')
+                      if getattr(h, 'name', '') == 'COV'][0]['COV'],
+                     dtype=np.float64)
+    chol = torch.linalg.cholesky(torch.as_tensor(cov, device=device))
+    invcov = torch.cholesky_inverse(chol)
+    rng = np.random.default_rng(3)
+    diffs = torch.as_tensor(rng.normal(size=(64, cov.shape[0])) * np.sqrt(
+        np.diag(cov)), device=device)
+    sharded = ShardedGlobalChi2(invcov.cpu().numpy(), mesh=meshes['two'])
+    got = sharded.chi2_batch(diffs)
+    one = torch.sum(diffs * (diffs @ invcov), dim=-1)
+    err = float(torch.max(torch.abs(got.to(device) - one) / torch.abs(one)))
+    err1 = abs(float(sharded.chi2(diffs[0])) - float(one[0])) / abs(
+        float(one[0]))
+    log(f'devices ShardedGlobalChi2: the synthetic-desi joint covariance '
+        f'({cov.shape[0]} x {cov.shape[0]}), row blocks '
+        f'{[tuple(b.shape) for _, b in sharded._blocks]} on '
+        f'{meshes["two"]}; 64 diffs against the one-device f64 quadratic '
+        f'form: max relative {err:.3e}, one diff {err1:.3e} (bound '
+        f'{SHARD_RTOL:g})')
+    if not (err <= SHARD_RTOL and err1 <= SHARD_RTOL):
+        fail('devices: ShardedGlobalChi2 misses the one-device quadratic '
+             'form')
+    del cov, chol, invcov, sharded
+
+    # --- run_vega_mc --n-devices 2 against --n-devices 1
+    config = parse_ini(fit_ini)
+    config['control'].update({'run_montecarlo': 'True',
+                              'num_mc_mocks': str(DEVICES_MC_SCRIPT_MOCKS),
+                              'mc_seed': '0'})
+    config['monte carlo'] = {n: config['sample'][n]
+                             for n in ('bias_LYA', 'beta_LYA')}
+    config['mc parameters'] = {'bias_LYA': '-0.117', 'beta_LYA': '1.67'}
+    tables = {}
+    for n_devices in ('2', '1'):
+        out = Path(work) / f'devices_mc_{n_devices}'
+        out.mkdir()
+        config['output']['filename'] = str(out / 'output')
+        ini = out / 'main_mc.ini'
+        with open(ini, 'w') as fh:
+            config.write(fh)
+        t0 = time.perf_counter()
+        LAUNCHES.clear()
+        if run_vega_mc.main([str(ini), '--n-devices', n_devices]) != 0:
+            fail(f'run_vega_mc --n-devices {n_devices} exited non-zero')
+        launches[f'devices_mc_script_{n_devices}'] = dict(LAUNCHES)
+        tables[n_devices] = {h.name: h for h in read_fits(
+            out / 'monte_carlo' / 'monte_carlo.fits')
+            if getattr(h, 'name', '')}['Bestfit']
+        log(f'devices: run_vega_mc --n-devices {n_devices} '
+            f'({DEVICES_MC_SCRIPT_MOCKS} mocks; the mesh '
+            f'{run_vega_mc.device_mesh("cuda", int(n_devices))}) '
+            f'{time.perf_counter() - t0:.2f} s')
+    worst = max(float(np.max(np.abs(np.asarray(tables['2'][col])
+                                    - np.asarray(tables['1'][col]))
+                             / np.abs(np.asarray(tables['1'][col]))))
+                for col in ('values', 'errors'))
+    log(f'devices: run_vega_mc --n-devices 2 vs 1: Bestfit values and '
+        f'errors agree to {worst:.3e} relative (bound {MC_TABLE_RTOL:g})')
+    if not worst <= MC_TABLE_RTOL:
+        fail('devices: run_vega_mc --n-devices 2 differs from 1')
+    return (launches, check_launches(device, 'devices', layouts), timings,
+            examples)
+
+
+def start_examples(device):
+    """Phase examples, started: each counterpart of EXAMPLES in a process
+    of its own on the card at its own settings, EXAMPLE_WORKERS at a time
+    (the longest first), in the background; `finish_examples` waits for
+    them."""
+    from concurrent.futures import ThreadPoolExecutor
+    out_dir = ROOT / 'build' / 'examples'     # each script's output
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def run(example):
+        script, expect = example
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / script), '--device', str(device)],
+            cwd=str(ROOT), capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S,
+            env=dict(os.environ, OMP_NUM_THREADS='2'))
+        seconds = time.perf_counter() - t0
+        (out_dir / f'example_{Path(script).stem}.log').write_text(
+            proc.stdout + proc.stderr)
+        return script, expect, proc, seconds
+
+    pool = ThreadPoolExecutor(EXAMPLE_WORKERS)
+    return pool, [pool.submit(run, example) for example in EXAMPLES], \
+        time.perf_counter()
+
+
+def finish_examples(started):
+    """Wait for the examples' processes: each must exit 0 and print its
+    line."""
+    pool, futures, t0 = started
+    results = [future.result() for future in futures]
+    pool.shutdown()
+    for script, expect, proc, seconds in results:
+        lines = [ln for ln in proc.stdout.splitlines() if expect in ln]
+        log(f'examples: {script} exit {proc.returncode} in {seconds:.1f} s; '
+            + (f'printed "{lines[-1].strip()}"' if lines else
+               f'did not print "{expect}"'))
+        if proc.returncode != 0 or not lines:
+            fail(f'examples: {script} failed:\n'
+                 f'{(proc.stdout + proc.stderr)[-3000:]}')
+    log(f'examples: {len(EXAMPLES)} scripts in '
+        f'{time.perf_counter() - t0:.1f} s, {EXAMPLE_WORKERS} at a time')
+
+
 # (name, primitive, orders, dtype, the TPU code it replaces: file:line,
 # and which part of it); the f32 kernels (the Pallas kernels' own dtype)
 # are rows of their own
@@ -6580,6 +7035,11 @@ def main():
         f32o_launches, f32o_checks = run_f32_options_path(device, work,
                                                           card)
         mark('f32_options')
+        devices_launches, devices_checks, _, examples = run_devices_path(
+            device, work, main_ini, fit_ini, card)
+        mark('devices')
+        finish_examples(examples)
+        mark('examples (after devices, started within it)')
         run_vega_launches, run_vega_checks = run_run_vega_path(
             device, work, card)
         mark('run_vega')
@@ -6593,7 +7053,7 @@ def main():
               + table6_checks + dr16pub_checks + f32_models_checks
               + desi_mock_checks
               + lyacolore_checks + f32t_checks + f32o_checks
-              + run_vega_checks)
+              + devices_checks + run_vega_checks)
     kernels = kernel_records(
         {'dense': dense_launches, 'grid': grid_launches, **fit_launches,
          **f32_launches,
@@ -6602,7 +7062,7 @@ def main():
          **marg_launches, **options_launches, **table6_launches,
          **dr16pub_launches, **f32_models_launches, **desi_mock_launches,
          **lyacolore_launches, **f32t_launches, **f32o_launches,
-         **run_vega_launches},
+         **devices_launches, **run_vega_launches},
         {**sampler_replays, **f32c_replays}, checks, edge_checks)
     print(json.dumps({'kernels': kernels}))
     print(card)

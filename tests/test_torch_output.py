@@ -345,8 +345,37 @@ def test_mc_scripts_match_jax(mc_ini, monkeypatch):
         close(tables['port'][col], tables['jax'][col], MC_RTOL)
 
 
-def test_scripts_refuse_several_cards(mc_ini):
-    """Sharding the mocks over cards waits on ROADMAP.md section 1 item 8."""
-    for main in (run_vega_mc.main, run_vega_mc_fits.main):
-        with pytest.raises(NotImplementedError, match='item 8'):
-            main([str(mc_ini), '--n-devices', '2', '--device', 'cpu'])
+def test_scripts_shard_over_several_devices(mc_ini, monkeypatch):
+    """--n-devices 2 --device cpu (the mock fits over the CPU listed
+    twice): run_vega_mc's fits equal its run on one device (MC_RTOL; the
+    same seed draws the same mocks), and run_vega_mc_fits of each package
+    with --n-devices 2 (vega_tpu's over two of its eight CPU devices) on
+    those mocks gives the same fits (MC_RTOL)."""
+    monkeypatch.setenv('VEGA_TPU_FIT_CHUNK_PER_DEVICE', '1')
+    runs = {}
+    for n_devices in ('2', '1'):
+        ini = with_output(mc_ini, f'devices_{n_devices}')
+        assert run_vega_mc.main([str(ini), '--n-devices', n_devices,
+                                 '--device', 'cpu']) == 0
+        runs[n_devices] = bestfit_table(
+            mc_ini.parent / f'devices_{n_devices}' / 'monte_carlo' /
+            'monte_carlo.fits')
+    (sharded, mocks), (single, single_mocks) = runs['2'], runs['1']
+    assert np.array_equal(mocks['lyaxlya'], single_mocks['lyaxlya'])
+    assert np.asarray(mocks['lyaxlya']).shape[0] == 4
+    for col in ('values', 'errors'):
+        close(sharded[col], single[col], MC_RTOL)
+    mocks_file = mc_ini.parent / 'devices_2' / 'monte_carlo' / \
+        'monte_carlo.fits'
+    for package, main in (('port', run_vega_mc_fits.main),
+                          ('jax', jax_run_vega_mc_fits.main)):
+        ini = with_output(mc_ini, f'devices_refit_{package}',
+                          mc_mocks=str(mocks_file))
+        argv = [str(ini), '--n-devices', '2'] + (
+            ['--device', 'cpu'] if package == 'port' else [])
+        assert main(argv) == 0
+        table, _ = bestfit_table(
+            mc_ini.parent / f'devices_refit_{package}' / 'monte_carlo' /
+            'monte_carlo.fits')
+        for col in ('values', 'errors'):
+            close(table[col], sharded[col], MC_RTOL)

@@ -1,8 +1,10 @@
 """Console entry point: one command for the port's three scripts.
 
     python -m vega_tpu_torch.cli fit main.ini [--device cpu]
-    python -m vega_tpu_torch.cli sample main.ini [--device cpu]
-    python -m vega_tpu_torch.cli mc main.ini [--sequential] [--device cpu]
+    python -m vega_tpu_torch.cli sample main.ini [--n-devices N]
+        [--device cpu]
+    python -m vega_tpu_torch.cli mc main.ini [--sequential] [--n-devices N]
+        [--device cpu]
 
 Counterpart of vega_tpu/cli.py: `fit` runs scripts/run_vega.py, `sample`
 scripts/run_vega_sampler.py and `mc` scripts/run_vega_mc.py, each on the
@@ -27,6 +29,7 @@ def main(argv=None):
 
     sampler = sub.add_parser('sample', help='Run the sampler')
     sampler.add_argument('config', type=str)
+    sampler.add_argument('--n-devices', type=int, default=None)
     sampler.add_argument('--device', type=str, default='cuda',
                          help=DEVICE_HELP)
 
@@ -44,7 +47,10 @@ def main(argv=None):
         return 0
     if args.command == 'sample':
         from vega_tpu_torch.scripts.run_vega_sampler import main as sample
-        return sample([args.config, '--device', args.device])
+        argv2 = [args.config, '--device', args.device]
+        if args.n_devices:
+            argv2 += ['--n-devices', str(args.n_devices)]
+        return sample(argv2)
     if args.command == 'mc':
         from vega_tpu_torch.scripts.run_vega_mc import main as run_mc
         argv2 = [args.config, '--device', args.device]

@@ -26,19 +26,24 @@ class CapturedGraph:
     of the graph. A capture or replay that fails raises."""
 
     def __init__(self, fn, device, warmups=1):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmups):
-                fn()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with spline_combine.captured_launches() as self.launches:
-            with torch.cuda.graph(self.graph):
-                self.out = fn()
+        # captured with `device` current: the graph's pool, its capture
+        # stream and every launch inside belong to that device
+        self.device = torch.device(device)
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(warmups):
+                    fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with spline_combine.captured_launches() as self.launches:
+                with torch.cuda.graph(self.graph):
+                    self.out = fn()
 
     def replay(self):
-        """Replay the graph, count its kernel launches, and return the
-        static results."""
-        self.launches.replay(self.graph)
+        """Replay the graph on the device it was captured on, count its
+        kernel launches, and return the static results."""
+        with torch.cuda.device(self.device):
+            self.launches.replay(self.graph)
         return self.out

@@ -411,12 +411,17 @@ def _check_multipoles(n_ell):
 # Kernel launches (ctypes; csrc/spline_legendre_combine.cu)
 # ----------------------------------------------------------------------
 def _launch(entry, grid, device, *args):
-    """Launch `entry`'s f64 or f32 symbol, by the knot grid's dtype."""
+    """Launch `entry`'s f64 or f32 symbol, by the knot grid's dtype, on
+    `device`'s current stream with `device` made the current CUDA device
+    for the call: the stream handed to the runtime is that device's, and
+    the launcher's shared-memory attributes (cudaFuncSetAttribute, and
+    its record of them per device) are set for that device."""
     from ._build import load_library
     lib = load_library().lib
     entry = f'{entry}_{DTYPES[grid.dtype]}'
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, entry)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         # refused launches (e.g. too much shared memory) land here
         raise RuntimeError(

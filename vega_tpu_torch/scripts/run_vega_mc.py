@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Draw Monte-Carlo mocks and fit them on one GPU.
+"""Draw Monte-Carlo mocks and fit them on the GPU.
 
     python -m vega_tpu_torch.scripts.run_vega_mc main.ini [--sequential]
-        [--device cpu]
+        [--n-devices N] [--device cpu]
 
 Counterpart of vega_tpu/scripts/run_vega_mc.py: the num_mc_mocks
 realizations are drawn on the device from a torch generator seeded with
@@ -11,7 +11,10 @@ mc_seed and fit as rows of one batched Newton
 (Analysis.run_monte_carlo, numpy global RNG). The results go to
 `[output] mc_output` (default <filename's directory>/monte_carlo) as
 monte_carlo.fits (Output.write_monte_carlo): Bestfit, FitInfo, Mocks.
-Sharding over several cards is not ported: --n-devices takes 1 only.
+--n-devices N shards the fits over the first N cards from the one
+--device names (`device_mesh`; a host with fewer cards gives fewer, as
+vega_tpu cuts jax.devices()); with --device cpu, over the CPU listed N
+times.
 """
 
 import argparse
@@ -43,27 +46,36 @@ def store_fits(analysis, results, mocks):
     analysis.mc_failed_mask = list(~np.asarray(results['valid']))
 
 
-def check_devices(n_devices):
-    from vega_tpu_torch.utils import not_ported
-    if n_devices not in (None, 1):
-        raise not_ported(f'--n-devices {n_devices} (mock fits sharded over '
-                         'several cards)', 8)
+def device_mesh(device, n_devices):
+    """The scripts' mesh for --device and --n-devices
+    (vega_tpu/scripts/run_vega_mc.py:57): on a card, every card from the
+    named one on, cut to the first n_devices; on the CPU, the CPU listed
+    n_devices times (default once)."""
+    import torch
+
+    from vega_tpu_torch.parallel import make_device_mesh
+    from vega_tpu_torch.parallel.batch import cuda_devices
+    device = torch.device(device)
+    if device.type == 'cuda':
+        first = device.index if device.index is not None else 0
+        return make_device_mesh(n_devices, devices=cuda_devices()[first:])
+    return make_device_mesh(n_devices, devices=[device] * (n_devices or 1))
 
 
 def main(argv=None):
     pars = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
-        description='Run Monte-Carlo mock fits in one batch on one device.')
+        description='Run Monte-Carlo mock fits in one batch, sharded over '
+                    'the devices.')
     pars.add_argument('config', type=str, help='Config file')
     pars.add_argument('--sequential', action='store_true',
                       help='Reference-style sequential mock loop')
     pars.add_argument('--n-devices', type=int, default=None,
-                      help='Cards to shard the mocks over (1 only)')
+                      help='Devices to shard the mock fits over')
     pars.add_argument('--device', type=str, default='cuda',
                       help="Device the fits run on: 'cuda', 'cuda:N' or "
                            "'cpu'")
     args = pars.parse_args(argv)
-    check_devices(args.n_devices)
 
     from vega_tpu_torch.parallel import MonteCarloEngine
     from vega_tpu_torch.vega_interface import VegaInterface
@@ -95,7 +107,8 @@ def main(argv=None):
         vega.output.write_monte_carlo()
         return 0
 
-    engine = MonteCarloEngine(vega)
+    engine = MonteCarloEngine(vega, mesh=device_mesh(args.device,
+                                                     args.n_devices))
     mocks = engine.generate_mocks(fiducial_model, num_mc_mocks, seed=seed)
     mocks = {name: m.cpu().numpy() for name, m in mocks.items()}
     store_fits(vega.analysis,

@@ -1,15 +1,16 @@
 #!/usr/bin/env python
-"""Fit saved Monte-Carlo mocks on one GPU.
+"""Fit saved Monte-Carlo mocks on the GPU.
 
     python -m vega_tpu_torch.scripts.run_vega_mc_fits main.ini
-        [--device cpu]
+        [--n-devices N] [--device cpu]
 
 Counterpart of vega_tpu/scripts/run_vega_mc_fits.py: reads the MOCKS HDU
 of the file `[control] mc_mocks` names (per-correlation columns, full
 grid or masked, or one `global` column cut by `[control] slice_start1`
 .. `slice_end2` and split back into the correlations), fits every mock
 as one row of the batched Newton (parallel.MonteCarloEngine) and writes
-monte_carlo.fits as run_vega_mc does. --n-devices takes 1 only.
+monte_carlo.fits as run_vega_mc does. --n-devices shards the fits as
+run_vega_mc's does (run_vega_mc.device_mesh).
 """
 
 import argparse
@@ -54,20 +55,19 @@ def read_mocks(vega, mock_path, slices):
 def main(argv=None):
     pars = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
-        description='Fit saved Monte-Carlo mocks in one batch on one '
-                    'device.')
+        description='Fit saved Monte-Carlo mocks in one batch, sharded '
+                    'over the devices.')
     pars.add_argument('config', type=str, help='Config file')
     pars.add_argument('--n-devices', type=int, default=None,
-                      help='Cards to shard the mocks over (1 only)')
+                      help='Devices to shard the mock fits over')
     pars.add_argument('--device', type=str, default='cuda',
                       help="Device the fits run on: 'cuda', 'cuda:N' or "
                            "'cpu'")
     args = pars.parse_args(argv)
 
     from vega_tpu_torch.parallel import MonteCarloEngine
-    from vega_tpu_torch.scripts.run_vega_mc import check_devices, store_fits
+    from vega_tpu_torch.scripts.run_vega_mc import device_mesh, store_fits
     from vega_tpu_torch.vega_interface import VegaInterface
-    check_devices(args.n_devices)
 
     print('Initializing vega_tpu_torch')
     vega = VegaInterface(args.config, device=args.device)
@@ -89,7 +89,8 @@ def main(argv=None):
     slices = [control.getint(f'slice_{key}', None)
               for key in ('start1', 'end1', 'start2', 'end2')]
     mocks = read_mocks(vega, control.get('mc_mocks'), slices)
-    results = MonteCarloEngine(vega).fit_mocks(mocks)
+    results = MonteCarloEngine(
+        vega, mesh=device_mesh(args.device, args.n_devices)).fit_mocks(mocks)
     store_fits(vega.analysis, results, mocks)
     vega.output.write_monte_carlo()
     return 0

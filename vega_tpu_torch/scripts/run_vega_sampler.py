@@ -1,11 +1,14 @@
 #!/usr/bin/env python
 """Run the sampler a configuration names.
 
-    python -m vega_tpu_torch.scripts.run_vega_sampler main.ini [--device cpu]
+    python -m vega_tpu_torch.scripts.run_vega_sampler main.ini
+        [--n-devices N] [--device cpu]
 
 Counterpart of vega_tpu/scripts/run_vega_sampler.py: one process drives
-batched likelihood evaluations on one device (the card unless --device
-says otherwise), through the sampler [control] names.
+batched likelihood evaluations, sharded over the mesh of --n-devices
+devices (run_vega_mc.device_mesh; the card --device names unless it says
+cpu), through the sampler [control] names. The samplers' device loops
+run on the interface's own device, as vega_tpu's do.
 """
 
 import argparse
@@ -19,12 +22,15 @@ def run(argv=None):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
         description='Run the sampler with device-batched likelihoods.')
     pars.add_argument('config', type=str, help='Config file')
+    pars.add_argument('--n-devices', type=int, default=None,
+                      help='Limit the number of devices in the mesh')
     pars.add_argument('--device', type=str, default='cuda',
                       help="Device the likelihood runs on: 'cuda', "
                            "'cuda:N' or 'cpu'")
     args = pars.parse_args(argv)
 
     from vega_tpu_torch.parallel import BatchedLikelihood
+    from vega_tpu_torch.scripts.run_vega_mc import device_mesh
     from vega_tpu_torch.vega_interface import VegaInterface
 
     print('Initializing vega_tpu_torch')
@@ -44,7 +50,8 @@ def run(argv=None):
         raise ValueError('Sampler not requested. Add "run_sampler = True" '
                          'to the "[control]" section.')
 
-    batched = BatchedLikelihood(vega)
+    batched = BatchedLikelihood(vega, mesh=device_mesh(args.device,
+                                                       args.n_devices))
 
     if vega.sampler == 'Polychord':
         from vega_tpu_torch.samplers.polychord import Polychord

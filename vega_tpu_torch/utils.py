@@ -44,14 +44,6 @@ class VegaArinyoError(VegaModelError):
     """(vega_tpu/utils.py:39-40)"""
 
 
-def not_ported(feature, item):
-    """NotImplementedError for a feature this port does not carry yet,
-    naming its ROADMAP.md queue item."""
-    return NotImplementedError(
-        f'{feature} is not ported to vega_tpu_torch yet '
-        f'(ROADMAP.md, "Modules still to port", item {item})')
-
-
 def resolve_dtype(dtype=None):
     """The interface's dtype: `dtype` when given (torch.float64 or
     torch.float32), else read from VEGA_TPU_X64 as vega_tpu/__init__.py:22
